@@ -1,5 +1,5 @@
-"""Benchmark entry point of the port (the counterpart of gsdf_tpu/cli.py
-bench_main).
+"""Benchmark entry points of the port (the counterparts of gsdf_tpu/cli.py
+bench_main and breadth_main).
 
 `python -m gsdf_tpu_torch.cli [--device cuda]` renders the flange at
 resdiv 400 and the showerhead at resdiv 350 through
@@ -7,6 +7,10 @@ FlatRenderer.render_compact + write_binary_stl_indexed and prints ONE JSON
 line: the median warm SDF->STL wall ms of each (two warm-ups first), the
 device it ran on, and the triangle counts, which must equal the golden
 counts exactly or the run fails.
+
+`python -m gsdf_tpu_torch.cli --breadth [--device cuda]` takes all four
+golden parts (flange 400, showerhead 350, ISO M3 bolt 300, knurled
+cylinder 350) through the same `bench_part` and prints one row per part.
 """
 from __future__ import annotations
 
@@ -19,9 +23,13 @@ import time
 import torch
 
 from .flagships import (
+    GOLDEN_BOLT_TRIS,
     GOLDEN_FLANGE_TRIS,
+    GOLDEN_KNURLED_TRIS,
     GOLDEN_SHOWERHEAD_TRIS,
+    build_bolt,
     build_flange,
+    build_knurled,
     build_showerhead,
 )
 from .render.flat import FlatRenderer
@@ -61,14 +69,38 @@ def device_name(device: torch.device) -> str:
     return "cpu"
 
 
-def bench_main(argv=None):
+def _args(argv):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--repeats", type=int, default=7)
+    ap.add_argument("--breadth", action="store_true",
+                    help="all four golden parts, one row each")
     args = ap.parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu for a CPU run")
+    return args, device
+
+
+def breadth_main(args, device):
+    """Every golden part through the compact path, warm SDF->STL
+    (in-memory), one row per part; all four counts are golden gates."""
+    rows = [
+        ("npt-flange", build_flange(), 400, GOLDEN_FLANGE_TRIS),
+        ("fibonacci-showerhead", build_showerhead(), 350, GOLDEN_SHOWERHEAD_TRIS),
+        ("iso-m3-bolt", build_bolt(), 300, GOLDEN_BOLT_TRIS),
+        ("knurled-cylinder", build_knurled(), 350, GOLDEN_KNURLED_TRIS),
+    ]
+    for name, obj, resdiv, golden in rows:
+        ms, n, _ = bench_part(obj, resdiv, golden, args.repeats, device)
+        print(f"{name} resdiv{resdiv}: {n:,} tris {ms:.2f} ms [{device_name(device)}]",
+              flush=True)
+
+
+def bench_main(argv=None):
+    args, device = _args(argv)
+    if args.breadth:
+        return breadth_main(args, device)
     flange_ms, flange_tris, _ = bench_part(
         build_flange(), 400, GOLDEN_FLANGE_TRIS, args.repeats, device
     )

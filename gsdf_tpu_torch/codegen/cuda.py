@@ -26,12 +26,15 @@ import math
 
 import numpy as np
 
+from ..core.mathx import CBRT_MAGIC, CBRT_STEPS, COS_ACOS_3_COEFFS
 from ..core.node import Shader
 
 PRELUDE = """\
 // generated by gsdf_tpu_torch.codegen.cuda -- do not edit
 #pragma once
 #include <math.h>
+#include <stdint.h>
+#include <string.h>
 #ifdef __CUDACC__
 #define GSDF_HD static __device__ __forceinline__
 #define GSDF_CONST static __device__ const
@@ -39,6 +42,25 @@ PRELUDE = """\
 #define GSDF_HD static inline
 #define GSDF_CONST static const
 #endif
+
+// the helpers of gsdf_tpu_torch/core/mathx.py, operation for operation
+GSDF_HD float gsdf_sign(float x) { return (float)((x > 0.0f) - (x < 0.0f)); }
+GSDF_HD float gsdf_clamp(float x, float lo, float hi) { return fminf(fmaxf(x, lo), hi); }
+GSDF_HD float gsdf_round_half_away(float x) { return gsdf_sign(x) * floorf(fabsf(x) + 0.5f); }
+GSDF_HD float gsdf_cos_acos_3(float x) {
+    x = sqrtf(0.5f + 0.5f * x);
+    return x * (x * (x * (x * %(c0)s + %(c1)s) - %(c2)s) + %(c3)s) + 0.5f;
+}
+GSDF_HD float gsdf_cbrt(float x) {  // x >= 0
+    if (x == 0.0f || isinf(x)) return x;
+    int32_t bits;
+    memcpy(&bits, &x, sizeof bits);
+    bits = bits / 3 + %(cbrt_magic)d;
+    float y;
+    memcpy(&y, &bits, sizeof y);
+    for (int i = 0; i < %(cbrt_steps)d; ++i) y = y - (y * y * y - x) / (3.0f * y * y);
+    return y;
+}
 """
 
 
@@ -54,6 +76,14 @@ def lit(x) -> str:
         s += ".0"
     s += "f"
     return f"({s})" if s.startswith("-") else s
+
+
+PRELUDE = PRELUDE % {
+    "cbrt_magic": CBRT_MAGIC,
+    "cbrt_steps": CBRT_STEPS,
+    # Python floats rounded to float32 once, as the JAX package's weak types
+    **{f"c{i}": lit(c) for i, c in enumerate(COS_ACOS_3_COEFFS)},
+}
 
 
 class Codegen:

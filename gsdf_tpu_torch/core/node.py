@@ -75,6 +75,15 @@ class Shader:
             yield n
             queue.extend(n.children())
 
+    def visit_dfs(self) -> Iterable["Shader"]:
+        """All nodes of the tree in DFS pre-order (root first; reference
+        forEachNodeDFS, glbuild/glbuild.go:783)."""
+        stack = [self]
+        while stack:
+            n = stack.pop()
+            yield n
+            stack.extend(reversed(list(n.children())))
+
     def node_count(self) -> int:
         return sum(1 for _ in self.visit_bfs())
 

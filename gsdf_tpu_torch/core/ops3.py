@@ -1,18 +1,25 @@
-"""3D CSG operations of the ported slice (gsdf_tpu/core/ops3.py).
+"""3D CSG operations (gsdf_tpu/core/ops3.py).
 
 Numerical semantics transcribed from the reference oracle
-(cpu_evaluators.go:124-549; operations.go:14-891), in the JAX package's
-association. OpUnion keeps the JAX package's grouping of identical
-translated subtrees (ops3.py:77-124): the subtree is evaluated, and
-emitted, once and looped over a table of offsets. float32 min is exact,
-so the grouping changes no value.
+(cpu_evaluators.go:124-549,1042-1092,1257-1274; operations.go:14-891), in
+the JAX package's association. OpUnion keeps the JAX package's grouping
+of identical translated subtrees (ops3.py:77-124): the subtree is
+evaluated, and emitted, once and looped over a table of offsets. float32
+min is exact, so the grouping changes no value.
+
+Transform and the other domain maps use expanded float32 mul-adds,
+`x*r00 + y*r01 + z*r02 + t0` left to right, never a matmul: a product
+routed to a matrix unit at lower precision once cost the JAX package its
+bolt and knurled goldens (gsdf_tpu/flagships.py:25-30).
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
-from ..geometry.boxes import Box
+from ..geometry.boxes import Box, mul_box3, rotation_mat2, rotation_mat4
 from . import mathx as mx
 from .node import Shader3D
 
@@ -93,48 +100,65 @@ class OpUnion(Shader3D):
         return bb
 
 
-class Difference(Shader3D):
-    """s1 - s2 (cpu_evaluators.go:168, operations.go:117)."""
+class _Binary:
+    """Two-child boolean (3D and 2D); `_C` is the C expression of the
+    result in the children's values `a` and `b`."""
 
     CHILDREN = ("s1", "s2")
+    _C = ""
 
     def __init__(self, s1, s2):
         self.s1, self.s2 = s1, s2
 
+    def emit_cuda(self, cg) -> str:
+        args = ("px", "py", "pz")[: self.NDIM]
+        return (
+            f"float a = {cg.call(self.s1, *args)};\n"
+            f"float b = {cg.call(self.s2, *args)};\n"
+            f"return {self._C};"
+        )
+
+
+class Difference(_Binary, Shader3D):
+    """s1 - s2 (cpu_evaluators.go:168, operations.go:117)."""
+
+    _C = "fmaxf(a, -b)"
+
     def distance(self, p):
         return torch.maximum(self.s1.distance(p), -self.s2.distance(p))
-
-    def emit_cuda(self, cg) -> str:
-        a = cg.call(self.s1, "px", "py", "pz")
-        b = cg.call(self.s2, "px", "py", "pz")
-        return f"return fmaxf({a}, -{b});"
 
     def bounds(self) -> Box:
         return self.s1.bounds()
 
 
-class Intersection(Shader3D):
+class Intersection(_Binary, Shader3D):
     """s1 ^ s2 (cpu_evaluators.go:146, operations.go:160)."""
 
-    CHILDREN = ("s1", "s2")
-
-    def __init__(self, s1, s2):
-        self.s1, self.s2 = s1, s2
+    _C = "fmaxf(a, b)"
 
     def distance(self, p):
         return torch.maximum(self.s1.distance(p), self.s2.distance(p))
-
-    def emit_cuda(self, cg) -> str:
-        a = cg.call(self.s1, "px", "py", "pz")
-        b = cg.call(self.s2, "px", "py", "pz")
-        return f"return fmaxf({a}, {b});"
 
     def bounds(self) -> Box:
         return self.s1.bounds().intersect(self.s2.bounds())
 
 
-class SmoothUnion(Shader3D):
-    """(cpu_evaluators.go:213, operations.go:563)."""
+class Xor(_Binary, Shader3D):
+    """Exclusive-or (cpu_evaluators.go:190, operations.go:205)."""
+
+    _C = "fmaxf(fminf(a, b), -fmaxf(a, b))"
+
+    def distance(self, p):
+        a = self.s1.distance(p)
+        b = self.s2.distance(p)
+        return torch.maximum(torch.minimum(a, b), -torch.maximum(a, b))
+
+    def bounds(self) -> Box:
+        return self.s1.bounds().union(self.s2.bounds())
+
+
+class _Smooth(Shader3D):
+    """Smooth blend of two children with radius k."""
 
     PARAMS = ("k",)
     CHILDREN = ("s1", "s2")
@@ -143,23 +167,71 @@ class SmoothUnion(Shader3D):
         self.k = _f32(k)
         self.s1, self.s2 = s1, s2
 
+    def _ab(self, p):
+        return self.s1.distance(p), self.s2.distance(p)
+
+    def _head(self, cg) -> str:
+        return (
+            f"float a = {cg.call(self.s1, 'px', 'py', 'pz')};\n"
+            f"float b = {cg.call(self.s2, 'px', 'py', 'pz')};\n"
+        )
+
+
+class SmoothUnion(_Smooth):
+    """(cpu_evaluators.go:213, operations.go:563)."""
+
     def distance(self, p):
-        a = self.s1.distance(p)
-        b = self.s2.distance(p)
+        a, b = self._ab(p)
         h = mx.clamp(0.5 + mx.div(0.5 * (b - a), self.k), 0.0, 1.0)
         return mx.mix(b, a, h) - mx.lit(self.k) * h * (1 - h)
 
     def emit_cuda(self, cg) -> str:
         k = cg.lit(self.k)
-        return (
-            f"float a = {cg.call(self.s1, 'px', 'py', 'pz')};\n"
-            f"float b = {cg.call(self.s2, 'px', 'py', 'pz')};\n"
-            f"float h = fminf(fmaxf(0.5f + 0.5f * (b - a) / {k}, 0.0f), 1.0f);\n"
+        return self._head(cg) + (
+            f"float h = gsdf_clamp(0.5f + 0.5f * (b - a) / {k}, 0.0f, 1.0f);\n"
             f"return (b * (1.0f - h) + a * h) - {k} * h * (1.0f - h);"
         )
 
     def bounds(self) -> Box:
         return self.s1.bounds().union(self.s2.bounds())
+
+
+class SmoothDifference(_Smooth):
+    """(cpu_evaluators.go:238, operations.go:611)."""
+
+    def distance(self, p):
+        a, b = self._ab(p)
+        h = mx.clamp(0.5 - mx.div(0.5 * (b + a), self.k), 0.0, 1.0)
+        return mx.mix(a, -b, h) + mx.lit(self.k) * h * (1 - h)
+
+    def emit_cuda(self, cg) -> str:
+        k = cg.lit(self.k)
+        return self._head(cg) + (
+            f"float h = gsdf_clamp(0.5f - 0.5f * (b + a) / {k}, 0.0f, 1.0f);\n"
+            f"return (a * (1.0f - h) + (-b) * h) + {k} * h * (1.0f - h);"
+        )
+
+    def bounds(self) -> Box:
+        return self.s1.bounds()
+
+
+class SmoothIntersect(_Smooth):
+    """(cpu_evaluators.go:263, operations.go:643)."""
+
+    def distance(self, p):
+        a, b = self._ab(p)
+        h = mx.clamp(0.5 - mx.div(0.5 * (b - a), self.k), 0.0, 1.0)
+        return mx.mix(b, a, h) + mx.lit(self.k) * h * (1 - h)
+
+    def emit_cuda(self, cg) -> str:
+        k = cg.lit(self.k)
+        return self._head(cg) + (
+            f"float h = gsdf_clamp(0.5f - 0.5f * (b - a) / {k}, 0.0f, 1.0f);\n"
+            f"return (b * (1.0f - h) + a * h) + {k} * h * (1.0f - h);"
+        )
+
+    def bounds(self) -> Box:
+        return self.s1.bounds().intersect(self.s2.bounds())
 
 
 class Scale(Shader3D):
@@ -188,6 +260,78 @@ class Scale(Shader3D):
         return self.s.bounds().scale((self.factor,) * 3)
 
 
+class Symmetry(Shader3D):
+    """Mirror about cartesian planes (cpu_evaluators.go:314, operations.go:285)."""
+
+    PARAMS = ("mx_", "my_", "mz_")
+    CHILDREN = ("s",)
+
+    def __init__(self, s, mirror_x, mirror_y, mirror_z):
+        self.s = s
+        self.mx_ = bool(mirror_x)
+        self.my_ = bool(mirror_y)
+        self.mz_ = bool(mirror_z)
+
+    def _mirrors(self):
+        return (self.mx_, self.my_, self.mz_)
+
+    def distance(self, p):
+        cols = [torch.abs(p[..., i]) if m else p[..., i] for i, m in enumerate(self._mirrors())]
+        return self.s.distance(torch.stack(cols, dim=-1))
+
+    def emit_cuda(self, cg) -> str:
+        args = [f"fabsf({a})" if m else a for a, m in zip(("px", "py", "pz"), self._mirrors())]
+        return f"return {cg.call(self.s, *args)};"
+
+    def bounds(self) -> Box:
+        bb = self.s.bounds()
+        lo = bb.min.copy()
+        hi = bb.max.copy()
+        for i, m in enumerate(self._mirrors()):
+            if m:
+                lo[i] = min(lo[i], -hi[i])
+        return Box(lo, hi)
+
+
+class Transform(Shader3D):
+    """4x4 matrix transform (cpu_evaluators.go:488, operations.go:340)."""
+
+    PARAMS = ("t",)
+    CHILDREN = ("s",)
+
+    def __init__(self, s, t: np.ndarray):
+        self.s = s
+        self.t = np.asarray(t, dtype=_f32).reshape(4, 4)
+        self._rebind_derived()
+
+    def _rebind_derived(self):
+        """Recompute t_inv from t: float64 inverse cast to float32, as the
+        JAX package does (ops3.py:312-323)."""
+        det = float(np.linalg.det(np.asarray(self.t, np.float64)))
+        if abs(det) < mx.EPSTOL:
+            raise ValueError("singular Mat4")
+        self.t_inv = np.linalg.inv(np.asarray(self.t, np.float64)).astype(_f32)
+
+    def distance(self, p):
+        r = [[mx.lit(v) for v in row] for row in self.t_inv[:3]]
+        x, y, z = p[..., 0], p[..., 1], p[..., 2]
+        q = torch.stack(
+            [x * r[i][0] + y * r[i][1] + z * r[i][2] + r[i][3] for i in range(3)], dim=-1
+        )
+        return self.s.distance(q)
+
+    def emit_cuda(self, cg) -> str:
+        lines = []
+        for i, q in enumerate(("qx", "qy", "qz")):
+            r0, r1, r2, t = (cg.lit(v) for v in self.t_inv[i])
+            lines.append(f"float {q} = px * {r0} + py * {r1} + pz * {r2} + {t};")
+        lines.append(f"return {cg.call(self.s, 'qx', 'qy', 'qz')};")
+        return "\n".join(lines)
+
+    def bounds(self) -> Box:
+        return mul_box3(self.t, self.s.bounds())
+
+
 class Translate(Shader3D):
     """(cpu_evaluators.go:470, operations.go:403)."""
 
@@ -207,6 +351,283 @@ class Translate(Shader3D):
 
     def bounds(self) -> Box:
         return self.s.bounds().add(self.p_)
+
+
+class Offset(Shader3D):
+    """Add sdfAdd to the SDF (cpu_evaluators.go:454, operations.go:446)."""
+
+    PARAMS = ("off",)
+    CHILDREN = ("s",)
+
+    def __init__(self, s, off):
+        self.s = s
+        self.off = _f32(off)
+
+    def distance(self, p):
+        return self.s.distance(p) + mx.lit(self.off)
+
+    def emit_cuda(self, cg) -> str:
+        return f"return {cg.call(self.s, 'px', 'py', 'pz')} + {cg.lit(self.off)};"
+
+    def bounds(self) -> Box:
+        bb = self.s.bounds()
+        return Box(bb.min + self.off, bb.max - self.off).canon()
+
+
+def _array_distance(s, p, spacing, counts):
+    """Limited grid repetition over p's last axis (Array, Array2D): the
+    child at the 2^n candidate tiles nearest p, min-reduced."""
+    spacing = mx.const(spacing, p)
+    lo = mx.const(np.zeros(len(counts)), p)
+    hi = mx.const(np.asarray(counts, _f32) - 1, p)
+    pid = mx.round_half_away(p / spacing)
+    o = mx.sign(p - spacing * pid)
+    d = torch.full(p.shape[:-1], mx.LARGENUM, dtype=torch.float32, device=p.device)
+    ndim = p.shape[-1]
+    for t in range(1 << ndim):
+        # tile order of the JAX package: x fastest
+        step = mx.const([(t >> a) & 1 for a in range(ndim)], p)
+        rid = torch.clamp(pid + step * o, lo, hi)
+        d = torch.minimum(d, s.distance(p - spacing * rid))
+    return d
+
+
+def _emit_array(cg, node, spacing, counts) -> str:
+    axes = ("x", "y", "z")[: len(spacing)]
+    lines = []
+    for a, sp, n in zip(axes, spacing, counts):
+        lines.append(f"const float s{a} = {cg.lit(sp)}, n{a} = {cg.lit(n - 1)};")
+        lines.append(f"const float pid{a} = gsdf_round_half_away(p{a} / s{a});")
+        lines.append(f"const float o{a} = gsdf_sign(p{a} - s{a} * pid{a});")
+    lines.append(f"float d = {cg.lit(mx.LARGENUM)};")
+    lines.append(f"for (int t = 0; t < {1 << len(axes)}; ++t) {{")
+    args = []
+    for i, a in enumerate(axes):
+        lines.append(
+            f"    const float r{a} = gsdf_clamp(pid{a} + (float)((t >> {i}) & 1) * o{a}, 0.0f, n{a});"
+        )
+        args.append(f"p{a} - s{a} * r{a}")
+    lines.append(f"    d = fminf(d, {cg.call(node.s, *args)});")
+    lines.append("}")
+    lines.append("return d;")
+    return "\n".join(lines)
+
+
+class Array(Shader3D):
+    """Limited grid domain repetition (cpu_evaluators.go:345, operations.go:488).
+
+    Evaluates the child at the 8 candidate neighbouring tiles and
+    min-reduces; the generated C loops over one child function."""
+
+    PARAMS = ("d", "nx", "ny", "nz")
+    CHILDREN = ("s",)
+
+    def __init__(self, s, d, nx, ny, nz):
+        self.s = s
+        self.d = np.asarray(d, dtype=_f32)
+        self.nx, self.ny, self.nz = int(nx), int(ny), int(nz)
+
+    def _counts(self):
+        return (self.nx, self.ny, self.nz)
+
+    def distance(self, p):
+        return _array_distance(self.s, p, self.d, self._counts())
+
+    def emit_cuda(self, cg) -> str:
+        return _emit_array(cg, self, self.d, self._counts())
+
+    def bounds(self) -> Box:
+        bb = self.s.bounds()
+        size = np.array(self._counts(), _f32) * self.d
+        return Box(bb.min, bb.max + size)
+
+
+def _elongate_distance(s, p, h):
+    """Elongate and Elongate2D: child at max(|p| - h/2, 0) plus the inside
+    term min(max over axes, 0)."""
+    q = torch.abs(p) - mx.const(h * _f32(0.5), p)
+    w = torch.clamp(torch.amax(q, dim=-1), max=0.0)
+    return s.distance(torch.clamp(q, min=0.0)) + w
+
+
+def _emit_elongate(cg, node) -> str:
+    axes = ("x", "y", "z")[: len(node.h)]
+    lines = [
+        f"const float q{a} = fabsf(p{a}) - {cg.lit(v)};"
+        for a, v in zip(axes, node.h * _f32(0.5))
+    ]
+    w = f"q{axes[-1]}"
+    for a in reversed(axes[:-1]):
+        w = f"fmaxf(q{a}, {w})"
+    call = cg.call(node.s, *(f"fmaxf(q{a}, 0.0f)" for a in axes))
+    lines.append(f"return {call} + fminf({w}, 0.0f);")
+    return "\n".join(lines)
+
+
+class Elongate(Shader3D):
+    """(cpu_evaluators.go:399, operations.go:679)."""
+
+    PARAMS = ("h",)
+    CHILDREN = ("s",)
+
+    def __init__(self, s, h):
+        self.s = s
+        self.h = np.asarray(h, dtype=_f32)
+
+    def distance(self, p):
+        return _elongate_distance(self.s, p, self.h)
+
+    def emit_cuda(self, cg) -> str:
+        return _emit_elongate(cg, self)
+
+    def bounds(self) -> Box:
+        bb = self.s.bounds()
+        hi = np.maximum(bb.max, 0).astype(_f32) + self.h * _f32(0.5)
+        return Box(-hi, hi)
+
+
+class Shell(Shader3D):
+    """Exterior shell (cpu_evaluators.go:428, operations.go:723)."""
+
+    PARAMS = ("thick",)
+    CHILDREN = ("s",)
+
+    def __init__(self, s, thickness):
+        self.s = s
+        self.thick = _f32(thickness)
+
+    def distance(self, p):
+        t = mx.lit(self.thick)
+        d = self.s.distance(p * mx.lit(_f32(1.0) / self.thick))
+        return t * (torch.abs(d) - t)
+
+    def emit_cuda(self, cg) -> str:
+        t, inv = cg.lit(self.thick), cg.lit(_f32(1.0) / self.thick)
+        call = cg.call(self.s, f"px * {inv}", f"py * {inv}", f"pz * {inv}")
+        return f"return {t} * (fabsf({call}) - {t});"
+
+    def bounds(self) -> Box:
+        return self.s.bounds()
+
+
+class _Circular:
+    """Circular domain repetition about the origin (CircularArray and
+    CircularArray2D, cpu_evaluators.go:1042,1094): the child evaluated
+    at the two instances nearest p's angle, min-reduced. Instance i is p
+    rotated by -i * angle (MulMatVecTrans(RotationMat2(a), p))."""
+
+    PARAMS = ("n_inst", "circle_div")
+    CHILDREN = ("s",)
+
+    def __init__(self, s, num_instances, circle_div):
+        self.s = s
+        self.n_inst = int(num_instances)
+        self.circle_div = int(circle_div)
+
+    def _consts(self):
+        return (
+            _f32(2 * math.pi / self.circle_div),
+            _f32(self.circle_div),
+            _f32(self.n_inst - 1),
+        )
+
+    def _instances(self, x, y):
+        """[(x0, y0), (x1, y1)]: p in the frames of its two instances."""
+        angle, ncirc, ninsm1 = (mx.lit(v) for v in self._consts())
+        pid = torch.floor(mx.div(mx.atan2(y, x), angle))
+        pid = torch.where(pid < 0, pid + ncirc, pid)
+        last = pid >= ninsm1
+        out = []
+        for i in (torch.where(last, ninsm1, pid), torch.where(last, 0.0, pid + 1.0)):
+            a = angle * i
+            c, s = mx.cos(a), mx.sin(a)
+            out.append((c * x + s * y, -s * x + c * y))
+        return out
+
+    def _emit(self, cg, z: tuple) -> str:
+        angle, ncirc, ninsm1 = (cg.lit(v) for v in self._consts())
+        calls = [cg.call(self.s, f"c{i} * px + s{i} * py", f"-s{i} * px + c{i} * py", *z)
+                 for i in (0, 1)]
+        return (
+            f"float pid = floorf(atan2f(py, px) / {angle});\n"
+            f"pid = pid < 0.0f ? pid + {ncirc} : pid;\n"
+            f"const bool last = pid >= {ninsm1};\n"
+            f"const float a0 = {angle} * (last ? {ninsm1} : pid);\n"
+            f"const float a1 = {angle} * (last ? 0.0f : pid + 1.0f);\n"
+            "const float c0 = cosf(a0), s0 = sinf(a0);\n"
+            "const float c1 = cosf(a1), s1 = sinf(a1);\n"
+            f"return fminf({calls[0]}, {calls[1]});"
+        )
+
+    def _rotated_bounds(self, bb: Box) -> Box:
+        verts = bb.vertices()
+        m = rotation_mat2(2 * math.pi / self.circle_div)
+        for _ in range(self.n_inst - 1):
+            verts = verts @ m.T
+            for v in verts:
+                bb = bb.include_point(v)
+        return bb
+
+
+class CircularArray(_Circular, Shader3D):
+    """Circular domain repetition about z through origin; child evaluated
+    exactly twice regardless of instance count
+    (cpu_evaluators.go:1042, operations.go:764)."""
+
+    def distance(self, p):
+        z = p[..., 2]
+        d0, d1 = (
+            self.s.distance(torch.stack([x, y, z], dim=-1))
+            for x, y in self._instances(p[..., 0], p[..., 1])
+        )
+        return torch.minimum(d0, d1)
+
+    def emit_cuda(self, cg) -> str:
+        return self._emit(cg, ("pz",))
+
+    def bounds(self) -> Box:
+        bb = self.s.bounds()
+        bb2 = self._rotated_bounds(Box(bb.min[:2].copy(), bb.max[:2].copy()))
+        lo = bb.min.copy()
+        hi = bb.max.copy()
+        lo[:2] = bb2.min
+        hi[:2] = bb2.max
+        return Box(lo, hi)
+
+
+class Twist(Shader3D):
+    """Twist about z: XY rotated by k*z at height z
+    (cpu_evaluators.go:1257, operations.go:835)."""
+
+    PARAMS = ("k",)
+    CHILDREN = ("s",)
+
+    def __init__(self, s, k):
+        self.s = s
+        self.k = _f32(k)
+
+    def distance(self, p):
+        x, y, z = p[..., 0], p[..., 1], p[..., 2]
+        a = mx.lit(self.k) * z
+        c, s = mx.cos(a), mx.sin(a)
+        return self.s.distance(torch.stack([c * x - s * y, s * x + c * y, z], dim=-1))
+
+    def emit_cuda(self, cg) -> str:
+        call = cg.call(self.s, "c * px - s * py", "s * px + c * py", "pz")
+        return (
+            f"const float a = {cg.lit(self.k)} * pz;\n"
+            "const float c = cosf(a), s = sinf(a);\n"
+            f"return {call};"
+        )
+
+    def bounds(self) -> Box:
+        bb = self.s.bounds()
+        verts = bb.vertices()
+        max_r = float(np.max(np.hypot(verts[:, 0], verts[:, 1])))
+        return Box(
+            np.array([-max_r, -max_r, bb.min[2]], _f32),
+            np.array([max_r, max_r, bb.max[2]], _f32),
+        )
 
 
 class BuilderOps3:
@@ -235,13 +656,80 @@ class BuilderOps3:
             self.nilsdf("intersection")
         return Intersection(a, b)
 
+    def xor(self, s1, s2) -> Shader3D:
+        if s1 is None or s2 is None:
+            self.nilsdf("xor")
+        return Xor(s1, s2)
+
     def smooth_union(self, k, s1, s2) -> Shader3D:
         if s1 is None or s2 is None:
             self.nilsdf("smooth_union")
         return SmoothUnion(k, s1, s2)
 
+    def smooth_difference(self, k, s1, s2) -> Shader3D:
+        if s1 is None or s2 is None:
+            self.nilsdf("smooth_difference")
+        return SmoothDifference(k, s1, s2)
+
+    def smooth_intersect(self, k, s1, s2) -> Shader3D:
+        if s1 is None or s2 is None:
+            self.nilsdf("smooth_intersect")
+        return SmoothIntersect(k, s1, s2)
+
     def scale(self, s, factor) -> Shader3D:
         return Scale(s, factor)
 
+    def symmetry(self, s, mirror_x=False, mirror_y=False, mirror_z=False) -> Shader3D:
+        if not (mirror_x or mirror_y or mirror_z):
+            self.shape_error("ineffective symmetry")
+        return Symmetry(s, mirror_x, mirror_y, mirror_z)
+
+    def transform(self, s, mat4) -> Shader3D:
+        try:
+            return Transform(s, mat4)
+        except ValueError as e:
+            self.shape_error(str(e))
+            return Transform(s, np.eye(4, dtype=_f32))
+
+    def rotate(self, s, radians, axis) -> Shader3D:
+        axis = np.asarray(axis, dtype=_f32)
+        if not np.any(axis):
+            self.shape_error("null vector")
+        return self.transform(s, rotation_mat4(radians, axis))
+
     def translate(self, s, x, y, z) -> Shader3D:
         return Translate(s, (x, y, z))
+
+    def offset(self, s, sdf_add) -> Shader3D:
+        return Offset(s, sdf_add)
+
+    def array(self, s, spacing_x, spacing_y, spacing_z, nx, ny, nz) -> Shader3D:
+        if nx <= 0 or ny <= 0 or nz <= 0:
+            self.shape_error("invalid array repeat param")
+        if spacing_x <= 0 or spacing_y <= 0 or spacing_z <= 0:
+            self.shape_error("invalid array spacing")
+        return Array(s, (spacing_x, spacing_y, spacing_z), nx, ny, nz)
+
+    def elongate(self, s, dir_x, dir_y, dir_z) -> Shader3D:
+        return Elongate(s, (dir_x, dir_y, dir_z))
+
+    def shell(self, s, thickness) -> Shader3D:
+        return Shell(s, thickness)
+
+    def circular_array(self, s, num_instances, circle_div) -> Shader3D:
+        if s is None:
+            self.nilsdf("circular_array")
+        if circle_div <= 1 or num_instances <= 0:
+            self.shape_error("invalid circarray repeat param")
+        if num_instances > circle_div:
+            self.shape_error(
+                "bad circular array instances, must be less than or equal to circle_div"
+            )
+        return CircularArray(s, num_instances, circle_div)
+
+    def twist(self, s, k) -> Shader3D:
+        if s is None:
+            self.nilsdf("twist")
+        if k == 0:
+            self.shape_error("zero twist parameter")
+        return Twist(s, k)

@@ -1,6 +1,11 @@
-"""The golden parts of the ported slice (gsdf_tpu/flagships.py): the NPT
-flange and the fibonacci showerhead, built exactly as the JAX package
-builds them, so both packages hash and render the same part."""
+"""The four golden parts (gsdf_tpu/flagships.py), built exactly as the JAX
+package builds them, so both packages hash and render the same part:
+
+- NPT flange          (reference examples/npt-flange/flange.go:23-58)
+- fibonacci showerhead (reference examples/fibonacci-showerhead/main.go:30-88)
+- ISO M3 bolt          (reference examples/bolt/main.go:27-40)
+- knurled cylinder     (reference examples/knurled-cylinder/knurled-cyl.go:57-110)
+"""
 from __future__ import annotations
 
 import math
@@ -9,12 +14,13 @@ from .core import Builder
 from .forge import threads
 
 # Exact golden triangle counts of the compact path; backend-invariant
-# (the JAX package's CPU oracle and its TPU render the same counts).
+# (the JAX package's CPU oracle and its TPU render the same counts; the
+# bolt and knurled counts are the CPU oracle's, gsdf_tpu/flagships.py:25-30).
 GOLDEN_FLANGE_TRIS = 423852  # resdiv 400
 GOLDEN_FLANGE_800_TRIS = 1704568  # resdiv 800
 GOLDEN_SHOWERHEAD_TRIS = 309872  # resdiv 350
-GOLDEN_BOLT_TRIS = 137528  # resdiv 300 (part not ported yet)
-GOLDEN_KNURLED_TRIS = 616324  # resdiv 350 (part not ported yet)
+GOLDEN_BOLT_TRIS = 137528  # resdiv 300
+GOLDEN_KNURLED_TRIS = 616324  # resdiv 350
 
 
 def flange_scene(bld: Builder):
@@ -89,6 +95,58 @@ def showerhead_scene(bld: Builder):
     return bld.union(obj, base)
 
 
+def bolt_scene(bld: Builder):
+    """M3 ISO bolt with hex head (reference examples/bolt/main.go:27-40)."""
+    L, shank = 8, 3
+    threader = threads.ISO(d=3, p=0.5, ext=True)
+    m3 = threads.bolt(
+        bld,
+        threads.BoltParams(
+            thread=threader,
+            style=threads.NutStyle.HEX,
+            total_length=L + shank,
+            shank_length=shank,
+        ),
+    )
+    return bld.rotate(m3, 2.5 * math.pi / 2, (1, 0, 0.1))
+
+
+def knurled_scene(bld: Builder, diameter=20.0, hole_diam=0.0, length=0.0,
+                  knurl_size=0.0):
+    """Knurled cylinder with twisted diamond pattern and vent holes
+    (reference examples/knurled-cylinder/knurled-cyl.go:57-110)."""
+    r = diameter / 2
+    length = length or 5 * r
+    hole_diam = hole_diam or r
+    knurl_side = knurl_size or r
+
+    smooth_ratio = 0.1
+    twist_k = 0.75
+    knurl_offset_r = 1.6
+    knurl_n = 24
+
+    sk = smooth_ratio * r
+
+    obj = bld.new_cylinder(r, length, smooth_ratio * r)
+
+    knurl_box = bld.new_box(knurl_side, knurl_side, length * 0.8, 0)
+    knurl_box = bld.rotate(knurl_box, math.pi / 4, (0, 0, 1))
+    knurl_box = bld.translate(knurl_box, knurl_offset_r * r, 0, 0)
+    knurl_box = bld.circular_array(knurl_box, knurl_n, knurl_n)
+    knurl = bld.union(
+        bld.twist(knurl_box, twist_k / r),
+        bld.twist(knurl_box, -twist_k / r),
+    )
+    obj = bld.smooth_difference(sk, obj, knurl)
+
+    obj = bld.smooth_difference(sk, obj, bld.new_cylinder(hole_diam / 2, length + 2 * r, 0))
+
+    vent = bld.new_cylinder(0.25 * r, 3 * r, 0)
+    vent = bld.rotate(vent, math.pi / 2, (0, 1, 0))
+    obj = bld.smooth_difference(sk, obj, bld.translate(vent, 0, 0, -length / 2))
+    return bld.smooth_difference(sk, obj, bld.translate(vent, 0, 0, length / 2))
+
+
 def _checked(bld: Builder, obj):
     err = bld.err()
     if err:
@@ -104,3 +162,13 @@ def build_flange():
 def build_showerhead():
     bld = Builder()
     return _checked(bld, showerhead_scene(bld))
+
+
+def build_bolt():
+    bld = Builder()
+    return _checked(bld, bolt_scene(bld))
+
+
+def build_knurled():
+    bld = Builder()
+    return _checked(bld, knurled_scene(bld))

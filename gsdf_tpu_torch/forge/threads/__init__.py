@@ -1,10 +1,24 @@
-"""Screw, nut and knurl machinery of the ported slice."""
+"""Screw, bolt, nut and knurl machinery (gsdf_tpu/forge/threads)."""
 from .core import Basic, Parameters, ScrewNode, Threader, metric_f2f, screw
-from .fasteners import KnurlParams, NutParams, NutStyle, knurl, knurled_head, nut
-from .standards import ISO, NPT, PlasticButtress
+from .fasteners import (
+    BoltParams,
+    KnurlParams,
+    NutParams,
+    NutStyle,
+    bolt,
+    chamfered_cylinder,
+    hex_head,
+    knurl,
+    knurled_head,
+    nut,
+)
+from .standards import NPT, UTS, Acme, ANSIButtress, ISO, PlasticButtress
 
 __all__ = [
+    "Acme",
+    "ANSIButtress",
     "Basic",
+    "BoltParams",
     "ISO",
     "KnurlParams",
     "NPT",
@@ -14,6 +28,10 @@ __all__ = [
     "PlasticButtress",
     "ScrewNode",
     "Threader",
+    "UTS",
+    "bolt",
+    "chamfered_cylinder",
+    "hex_head",
     "knurl",
     "knurled_head",
     "metric_f2f",

@@ -7,8 +7,8 @@ The screw node's domain transform (reference threads.go:141-181):
     z' = pz + lead*th/(2*pi)
     x  = sawtooth(z', pitch)
     d  = max(profile(x,y), |pz| - L/2)
-atan2 is the IEEE library function on every device (torch.atan2, atan2f):
-its sign on the +-0 seam (threads.go:155) must match the JAX package's.
+atan2 is a library function on every device (mx.atan2, atan2f): its sign
+on the +-0 seam (threads.go:155) must match the JAX package's.
 """
 from __future__ import annotations
 
@@ -83,8 +83,8 @@ class ScrewNode(Shader3D):
     def distance(self, p):
         c = self._consts()
         px, py, pz = p[..., 0], p[..., 1], p[..., 2]
-        y = torch.sqrt(px * px + py * py) + pz * mx.lit(c["tan_taper"])
-        theta = torch.atan2(py, px)
+        y = mx.sqrt(px * px + py * py) + pz * mx.lit(c["tan_taper"])
+        theta = mx.atan2(py, px)
         z = pz + mx.div(mx.lit(self.lead) * theta, c["two_pi"])
         # sawtooth (threads.go:198-202)
         zz = z + mx.lit(c["half_pitch"])

@@ -1,5 +1,5 @@
-"""Fasteners of the ported slice (gsdf_tpu/forge/threads/fasteners.py):
-knurls and the circular nut."""
+"""Fasteners (gsdf_tpu/forge/threads/fasteners.py): hex heads, knurls,
+bolts and nuts (reference forge/threads/{bolt,nut,hexhead,knurl}.go)."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,7 +10,7 @@ import numpy as np
 
 from ...core.node import Shader2D, Shader3D
 from ...geometry.polygon import PolygonBuilder
-from .core import Parameters, Threader, screw
+from .core import COSD30, Parameters, Threader, screw
 from .standards import ISO
 
 _f32 = np.float32
@@ -22,6 +22,26 @@ class NutStyle(enum.Enum):
     CIRCULAR = "circular"
     HEX = "hex"
     KNURL = "knurl"
+
+
+def hex_head(bld, radius: float, height: float, round_neg: bool, round_pos: bool) -> Shader3D:
+    """Rounded hex head (reference hexhead.go:15-48)."""
+    corner_round = radius * 0.08
+    poly = PolygonBuilder()
+    poly.nagon(6, radius - corner_round)
+    hex2d = bld.new_polygon(poly.vertices())
+    hex2d = bld.offset2d(hex2d, -corner_round)
+    hex3d = bld.extrude(hex2d, height)
+    if round_pos or round_neg:
+        top_round = radius * 1.6
+        d = radius * COSD30
+        sphere = bld.new_sphere(top_round)
+        z_ofs = math.sqrt(top_round * top_round - d * d) - height / 2
+        if round_neg:
+            hex3d = bld.intersection(hex3d, bld.translate(sphere, 0, 0, -z_ofs))
+        if round_pos:
+            hex3d = bld.intersection(hex3d, bld.translate(sphere, 0, 0, z_ofs))
+    return hex3d
 
 
 @dataclasses.dataclass
@@ -94,6 +114,51 @@ def knurled_head(bld, radius: float, height: float, pitch: float) -> Shader3D:
 
 
 @dataclasses.dataclass
+class BoltParams:
+    """(reference bolt.go:12-19)."""
+
+    thread: Threader
+    style: NutStyle = NutStyle.HEX
+    tolerance: float = 0.0  # subtract from external thread radius
+    total_length: float = 0.0  # threaded length + shank length
+    shank_length: float = 0.0  # non-threaded length
+
+
+def bolt(bld, k: BoltParams) -> Shader3D:
+    """Simple bolt suitable for 3D printing (reference bolt.go:22-80)."""
+    if k.thread is None:
+        raise ValueError("nil threader")
+    if k.total_length < 0:
+        raise ValueError("total length < 0")
+    if k.shank_length >= k.total_length:
+        raise ValueError("shank length must be less than total length")
+    if k.shank_length <= 0:
+        raise ValueError("shank length <= 0")
+    if k.tolerance < 0:
+        raise ValueError("tolerance < 0")
+    param = k.thread.thread_params()
+
+    hr = param.hex_radius()
+    hh = param.hex_height()
+    if hr <= 0 or hh <= 0:
+        raise ValueError("bad hex head dimension")
+    if k.style == NutStyle.HEX:
+        head = hex_head(bld, hr, hh, False, True)  # round top side only
+    elif k.style == NutStyle.KNURL:
+        head = knurled_head(bld, hr, hh, hr * 0.25)
+    else:
+        raise ValueError(f"unknown style for bolt: {k.style}")
+
+    screw_len = k.total_length - k.shank_length
+    scr = screw(bld, screw_len, k.thread)
+    shank = bld.new_cylinder(param.radius, k.shank_length, hh * 0.08)
+    shank_off = k.shank_length / 2 + hh / 2
+    shank = bld.translate(shank, 0, 0, shank_off)
+    scr = bld.translate(scr, 0, 0, shank_off + screw_len / 2)
+    return bld.union(scr, bld.smooth_union(hh * 0.12, shank, head))
+
+
+@dataclasses.dataclass
 class NutParams:
     """(reference nut.go:40-46)."""
 
@@ -103,9 +168,7 @@ class NutParams:
 
 
 def nut(bld, k: NutParams) -> Shader3D:
-    """Simple nut suitable for 3D printing (reference nut.go:49-80). The
-    port builds the CIRCULAR style; hex and knurl bodies need node types
-    outside the slice."""
+    """Simple nut suitable for 3D printing (reference nut.go:49-80)."""
     if k.thread is None:
         raise ValueError("nil threader")
     if k.tolerance < 0:
@@ -115,9 +178,29 @@ def nut(bld, k: NutParams) -> Shader3D:
     nh = params.hex_height()
     if nr <= 0 or nh <= 0:
         raise ValueError("bad hex nut dimensions")
-    if k.style != NutStyle.CIRCULAR:
-        raise NotImplementedError(f"nut style {k.style} is not ported yet")
-    # float32 steps match the reference's Go arithmetic (nut.go:70,77)
-    body = bld.new_cylinder(float(_f32(nr) * _f32(1.1)), nh, 0)
+    if k.style == NutStyle.HEX:
+        body = hex_head(bld, nr, nh, True, True)
+    elif k.style == NutStyle.KNURL:
+        body = knurled_head(bld, nr, nh, nr * 0.25)
+    elif k.style == NutStyle.CIRCULAR:
+        # float32 steps match the reference's Go arithmetic (nut.go:70,77)
+        body = bld.new_cylinder(float(_f32(nr) * _f32(1.1)), nh, 0)
+    else:
+        raise ValueError("unknown NutStyle for nut")
     thread = screw(bld, float(_f32(nh) * _f32(1 + 1e-2)), k.thread)
     return bld.difference(body, thread)
+
+
+def chamfered_cylinder(bld, s: Shader3D, kb: float, kt: float) -> Shader3D:
+    """Intersect s with a chamfered cylinder (reference bolt.go:82-95)."""
+    bb = s.bounds()
+    l = float(bb.max[2])
+    r = float(bb.max[0])
+    poly = PolygonBuilder()
+    poly.add_xy(0, -l)
+    poly.add_xy(r, -l).chamfer(r * kb)
+    poly.add_xy(r, l).chamfer(r * kt)
+    poly.add_xy(0, l)
+    s2 = bld.new_polygon(poly.vertices())
+    cc = bld.revolve(s2, 0)
+    return bld.intersection(s, cc)

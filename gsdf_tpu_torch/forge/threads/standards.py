@@ -1,9 +1,10 @@
-"""Thread standards of the ported slice (gsdf_tpu/forge/threads/standards.py):
-ISO (the profile NPT cuts), NPT and plastic buttress. Each profile is a
-host-built polygon of one pitch period swept by the screw node."""
+"""Thread standards (gsdf_tpu/forge/threads/standards.py): ISO, NPT, UTS,
+Acme, ANSI buttress and plastic buttress. Each profile is a host-built
+polygon of one pitch period swept by the screw node."""
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 
@@ -109,6 +110,80 @@ class NPT(Threader):
                 self.tpi = tpi
                 return
         raise ValueError("nominal measurement not found")
+
+
+@dataclasses.dataclass
+class UTS(Threader):
+    """Unified thread standard (reference uts.go:12-31)."""
+
+    d: float
+    tpi: float
+    ext: bool = False  # Go zero-value default, as in the reference
+
+    def thread_params(self) -> Parameters:
+        return Basic(self.d, 1.0 / self.tpi).thread_params()
+
+    def thread(self, bld):
+        return ISO(d=self.d, p=1.0 / self.tpi, ext=self.ext).thread(bld)
+
+
+@dataclasses.dataclass
+class Acme(Threader):
+    """Trapezoidal thread form (reference acme.go:11-48)."""
+
+    d: float
+    p: float
+
+    def thread_params(self) -> Parameters:
+        return Basic(self.d, self.p).thread_params()
+
+    def thread(self, bld):
+        radius = self.d / 2
+        h = radius - 0.5 * self.p
+        theta = (29.0 / 2.0) * math.pi / 180.0
+        delta = 0.25 * self.p * math.tan(theta)
+        x_ofs0 = 0.25 * self.p - delta
+        x_ofs1 = 0.25 * self.p + delta
+        poly = PolygonBuilder()
+        poly.add_xy(radius, 0)
+        poly.add_xy(radius, h)
+        poly.add_xy(x_ofs1, h)
+        poly.add_xy(x_ofs0, radius)
+        poly.add_xy(-x_ofs0, radius)
+        poly.add_xy(-x_ofs1, h)
+        poly.add_xy(-radius, h)
+        poly.add_xy(-radius, 0)
+        return bld.new_polygon(poly.vertices())
+
+
+@dataclasses.dataclass
+class ANSIButtress(Threader):
+    """ANSI 45/7 buttress thread, ASME B1.9-1973
+    (reference ansibuttress.go:10-51)."""
+
+    d: float
+    p: float
+
+    def thread_params(self) -> Parameters:
+        return Basic(self.d, self.p).thread_params()
+
+    def thread(self, bld):
+        radius = self.d / 2
+        t0 = math.tan(45.0 * math.pi / 180)
+        t1 = math.tan(7.0 * math.pi / 180)
+        thread_eng = 0.6
+        h0 = self.p / (t0 + t1)
+        h1 = ((thread_eng / 2.0) * self.p) + (0.5 * h0)
+        hp = self.p / 2.0
+        tp = PolygonBuilder()
+        tp.add_xy(self.p, 0)
+        tp.add_xy(self.p, radius)
+        tp.add_xy(hp - ((h0 - h1) * t1), radius)
+        tp.add_xy(t0 * h0 - hp, radius - h1).smooth(0.0714 * self.p, 5)
+        tp.add_xy((h0 - h1) * t0 - hp, radius)
+        tp.add_xy(-self.p, radius)
+        tp.add_xy(-self.p, 0)
+        return bld.new_polygon(tp.vertices())
 
 
 @dataclasses.dataclass

@@ -12,9 +12,10 @@ import numpy as np
 import pytest
 import torch
 
-from gsdf_tpu_torch import Builder, flagships
+from gsdf_tpu_torch import Builder, flagships, with_bounds
 from gsdf_tpu_torch.eval import grid_kernels as gk
 from gsdf_tpu_torch.forge import threads
+from gsdf_tpu_torch.geometry.boxes import Box
 from gsdf_tpu_torch.render.flat import FlatRenderer
 
 pytestmark = pytest.mark.cuda
@@ -42,11 +43,20 @@ def _screw():
     return threads.screw(Builder(), 1.0, threads.ISO(d=1.2, p=0.25, ext=True))
 
 
+def _every_type():
+    import chip_smoke
+
+    return chip_smoke.every_type_tree(Builder(), threads, with_bounds, Box)
+
+
 TREES = {
     "solid": _solid,
     "screw": _screw,
     "flange": flagships.build_flange,
     "showerhead": flagships.build_showerhead,
+    "bolt": flagships.build_bolt,
+    "knurled": flagships.build_knurled,
+    "every-type": _every_type,
 }
 
 

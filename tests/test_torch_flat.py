@@ -1,11 +1,15 @@
 """The port's compact SDF->STL path against the JAX package's (CPU).
 
-`FlatRenderer.render_compact` of both packages renders the flange and the
-showerhead at resdiv 60: the compact payload's cube ids and case bytes
-must be equal, the triangle count and connectivity (tri_idx) equal, and
-vertices within atol=1e-5. The JAX package runs op by op
-(`jax.disable_jit`) so that XLA-CPU's FMA contraction does not move its
-distances; what remains is atan2's last ulp at the parts' 25 mm scale.
+`FlatRenderer.render_compact` of both packages renders the four golden
+parts (flange, showerhead, ISO M3 bolt, knurled cylinder) at resdiv 60:
+the compact payload's cube ids and case bytes must be equal, the triangle
+count and connectivity (tri_idx) equal, and vertices within atol=1e-5.
+The JAX package runs op by op (`jax.disable_jit`) so that XLA-CPU's FMA
+contraction does not move its distances; what remains is the last ulp of
+atan2, sin and cos and of torch's CPU sqrt at the parts' 25 mm scale.
+
+The golden counts themselves (bolt resdiv 300 = 137,528, knurled
+resdiv 350 = 616,324) are rendered through the port's plain torch path.
 
 Also: the renderer's input checks, the numpy decoder against the native
 one, and the STL bytes of both packages.
@@ -31,6 +35,7 @@ from gsdf_tpu_torch.render.flat import FlatRenderer
 from gsdf_tpu_torch.render.stl import write_binary_stl_indexed
 
 RESDIV = 60
+PARTS = ["flange", "showerhead", "bolt", "knurled"]
 _cache = {}
 
 
@@ -54,7 +59,7 @@ def render_both(name):
     return _cache[name]
 
 
-@pytest.mark.parametrize("name", ["flange", "showerhead"])
+@pytest.mark.parametrize("name", PARTS)
 def test_compact_payload_matches_jax(name):
     (jids, jcases, jt), _, (ids, cases, t), _, _ = render_both(name)
     assert ids.dtype == np.uint32 and cases.dtype == np.uint8 and t.dtype == np.float32
@@ -64,12 +69,28 @@ def test_compact_payload_matches_jax(name):
     assert len(ids) > 1000
 
 
-@pytest.mark.parametrize("name", ["flange", "showerhead"])
+@pytest.mark.parametrize("name", PARTS)
 def test_render_compact_matches_jax(name):
     _, (jverts, jtri), _, (verts, tri), _ = render_both(name)
     assert len(tri) == len(jtri) > 1000
     np.testing.assert_array_equal(tri, jtri)
     np.testing.assert_allclose(verts, jverts, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "name, resdiv, golden",
+    [
+        ("bolt", 300, torch_flagships.GOLDEN_BOLT_TRIS),
+        ("knurled", 350, torch_flagships.GOLDEN_KNURLED_TRIS),
+    ],
+)
+def test_golden_count_on_cpu(name, resdiv, golden):
+    """The port's plain torch path at the golden resolution: the JAX
+    package's exact count (a few seconds each on the CPU)."""
+    tree = getattr(torch_flagships, f"build_{name}")()
+    fr = FlatRenderer(tree, tree.bounds().diagonal() / resdiv, "cpu")
+    _, tri = fr.render_compact()
+    assert len(tri) == golden
 
 
 def test_stl_bytes_match_jax():
@@ -81,7 +102,7 @@ def test_stl_bytes_match_jax():
     assert a.getvalue() == b.getvalue()
 
 
-@pytest.mark.parametrize("name", ["flange", "showerhead"])
+@pytest.mark.parametrize("name", PARTS)
 def test_numpy_decode_matches_native(name):
     _, _, (ids, cases, t), _, fr = render_both(name)
     args = (ids, cases, t, fr.nx, fr.ny, fr.nz, fr.origin, fr.res)
