@@ -5,21 +5,41 @@
 
 1. Prints the card (nvidia-smi name, power limit), torch and CUDA
    versions; fails without a CUDA device.
-2. Builds the CUDA kernels of every tree from the checkout's sources
-   (one nvcc per tree, all started together; sm_90a) and prints ptxas'
-   registers and spills per tree. Holds K2 (grid eval) and K1 (fused
-   eval + classify) against their plain torch versions on the card: on
-   the nine-type tree of the first slice, on a tree holding each of the
-   55 node types, on seeded random CSG trees, and at every main-path grid
-   shape: case grids exactly equal, distances within 1e-5 * max(1, |d|).
-   Times each kernel against its plain version with CUDA events.
-3. Drives the main path, each part with every launch count set to 0 just
-   before it and read just after: FlatRenderer.render_compact +
-   write_binary_stl_indexed on flange resdiv 400, showerhead resdiv 350,
-   flange resdiv 800, bolt resdiv 300 and knurled cylinder resdiv 350
-   (golden triangle counts, exact; median warm ms after two warm-ups);
-   then evaluate_grid, the dense-field entry point, on the flange-400,
-   bolt-300 and knurled-350 grids.
+2. Builds every CUDA kernel from the checkout's sources, all nvcc runs
+   started together (sm_90a): K1 + K2 per tree, and the four
+   tree-independent marching-cubes kernels K3 (compact_active), K4
+   (compact_emit), K7s (emit_soup), K7w (emit_welded); prints ptxas'
+   registers and spills. Holds K2 (grid eval) and K1 (fused eval +
+   classify) against their plain torch versions: on the nine-type tree of
+   the first slice, on a tree holding each of the 55 node types, on
+   seeded random CSG trees, and at every main-path grid shape (case grids
+   exactly equal, distances within 1e-5 * max(1, |d|)). Holds K3, K4, K7s
+   and K7w against theirs on K1's grid of each of those trees: ids, case
+   bytes, counts and tri_idx exactly equal, t, soup and welded vertices
+   bit-identical. Holds all six once more on the second of flange 800's
+   two fused soup slabs, at its shape and plane offset k0. Times every
+   kernel against its plain version with CUDA events, in turns (plain,
+   kernel, kernel, plain), at the five main-path grids.
+3. Drives each FlatRenderer path, every launch count set to 0 just before
+   it and read just after (golden triangle counts exact; SDF->STL wall ms,
+   median of warm renders after two warm-ups):
+   - render_compact + write_binary_stl_indexed (the main path) on flange
+     resdiv 400, showerhead 350, flange 800, bolt 300, knurled 350;
+   - render() (triangle soup) + write_binary_stl on flange 400, showerhead
+     350 and flange 800 (two fused z-slabs);
+   - render_indexed() + write_binary_stl_indexed on the same three (flange
+     800 through the host weld of the soup);
+   - render(fused=False) (the staged path: K2 on the whole grid, k0 = 0)
+     on flange 800, equal bit for bit to the two fused slabs' soup;
+   - the sphere golden (41,072 triangles, 68^3 evaluations);
+   - a part cropped by with_bounds through the fallback: render_compact's
+     decoder and the welded emit find unresolved owners, and the mesh is
+     the welded soup;
+   - render_compact with compact_cubes lowered so that it runs in z-slabs,
+     equal to the whole-grid render;
+   - evaluate_grid, the dense-field entry point, on three grids.
+   Also holds the threaded native mc_decode against the single-threaded
+   numpy mc_decode_plain bit for bit on the flange-800 payload.
 4. Fails unless each kernel launched on every path that runs it.
 
 The line before the last is nvidia-smi's card name and power limit; the
@@ -30,6 +50,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -213,18 +234,28 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def compare(name, tree, resdiv, dev, gk):
-    """K2 and K1 vs their plain versions on one grid; returns the max
-    absolute error of each and raises on a disagreement."""
-    import torch
-
+def grid_of(tree, resdiv, dev, slab):
+    """(renderer, corner shape, k0) of the whole grid at diag/resdiv, or of
+    its fused soup slab number `slab` (FlatRenderer.soup_slabs)."""
     from gsdf_tpu_torch.render.flat import FlatRenderer
 
     fr = FlatRenderer(tree, tree.bounds().diagonal() / resdiv, dev)
-    shape = fr.shape()
-    d2 = gk.evaluate_grid(tree, fr.origin, fr.res, shape, dev)
-    d1, c1 = gk.classified_grid(tree, fr.origin, fr.res, shape, dev)
-    pd, pc = gk.classified_grid_plain(tree, fr.origin, fr.res, shape, dev)
+    if slab is None:
+        return fr, fr.shape(), 0
+    k0, shape = fr.soup_slabs()[slab]
+    return fr, shape, k0
+
+
+def compare(name, tree, resdiv, dev, gk, slab=None):
+    """K2 and K1 vs their plain versions on one grid (or soup slab, at its
+    plane offset k0); returns the max absolute error of each and raises on
+    a disagreement."""
+    import torch
+
+    fr, shape, k0 = grid_of(tree, resdiv, dev, slab)
+    d2 = gk.evaluate_grid(tree, fr.origin, fr.res, shape, dev, k0)
+    d1, c1 = gk.classified_grid(tree, fr.origin, fr.res, shape, dev, k0)
+    pd, pc = gk.classified_grid_plain(tree, fr.origin, fr.res, shape, dev, k0)
     torch.cuda.synchronize()
     out = {}
     for kname, d in (("grid_eval", d2), ("classified_grid", d1)):
@@ -234,7 +265,7 @@ def compare(name, tree, resdiv, dev, gk):
         rel = float((diff / pd.abs().clamp(min=1.0)).max())
         out[kname] = float(diff.max())
         log(
-            f"  {kname:15s} {name:14s} grid {shape}: max|d-plain| {out[kname]:.3e} "
+            f"  {kname:15s} {name:14s} grid {shape} k0 {k0}: max|d-plain| {out[kname]:.3e} "
             f"(rel {rel:.3e}), differing floats {int((diff > 0).sum())} of {d.numel()}"
         )
         if rel > TOL:
@@ -251,15 +282,100 @@ def compare(name, tree, resdiv, dev, gk):
     return out
 
 
-def counted(gk, kernel, fn):
-    """Run fn with every launch count at 0; fail unless `kernel` launched.
-    Returns (fn's result, the counts read just after)."""
-    gk.reset_launches()
+#: the main-path grids, where every kernel is timed
+MAIN_GRIDS = (("flange", 400), ("showerhead", 350), ("flange", 800), ("bolt", 300),
+              ("knurled", 350))
+#: (name, route source, replaced TPU-side function "file:line")
+KERNELS = (
+    ("classified_grid", "gsdf_tpu_torch/csrc/classified_grid.cu",
+     "gsdf_tpu/eval/pallas_grid.py:187"),
+    ("grid_eval", "gsdf_tpu_torch/csrc/grid_eval.cu", "gsdf_tpu/eval/pallas_grid.py:108"),
+    ("compact_active", "gsdf_tpu_torch/csrc/compact_active.cu", "gsdf_tpu/ops/mc_emit.py:190"),
+    ("compact_emit", "gsdf_tpu_torch/csrc/compact_emit.cu",
+     "gsdf_tpu/ops/compact_field.py:217"),
+    ("emit_soup", "gsdf_tpu_torch/csrc/emit_soup.cu", "gsdf_tpu/ops/mc_emit.py:332"),
+    ("emit_welded", "gsdf_tpu_torch/csrc/emit_welded.cu",
+     "gsdf_tpu/ops/fused_welded.py:43"),
+)
+
+
+def mc_versions(dist, cases, ids, fr, k0=0):
+    """(kernel, plain) callables of K3, K4, K7s and K7w on one grid whose
+    first plane is plane k0 of the whole grid."""
+    from gsdf_tpu_torch.ops import compact_field, fused_welded, mc_emit
+
+    o, r = fr.origin, fr.res
+    return {
+        "compact_active": (lambda: mc_emit.compact_indices(cases),
+                           lambda: mc_emit.compact_indices_plain(cases)),
+        "compact_emit": (lambda: compact_field.compact_emit(dist, cases, ids),
+                         lambda: compact_field.compact_emit_plain(dist, cases, ids)),
+        "emit_soup": (lambda: mc_emit.emit_triangles(dist, cases, ids, o, r, k0),
+                      lambda: mc_emit.emit_triangles_plain(dist, cases, ids, o, r, k0)),
+        "emit_welded": (lambda: fused_welded.emit_welded(dist, cases, ids, o, r, k0),
+                        lambda: fused_welded.emit_welded_plain(dist, cases, ids, o, r, k0)),
+    }
+
+
+def _max_abs(a, b) -> float:
+    if a.numel() == 0:
+        return 0.0
+    return float((a.double() - b.double()).abs().max())
+
+
+def mc_compare(name, tree, resdiv, dev, gk, slab=None):
+    """K3, K4, K7s and K7w vs their plain versions on K1's grid (or soup
+    slab, at its plane offset k0): ids, case bytes, counts and tri_idx
+    exact, t and vertices bit-identical. Returns the max absolute error of
+    each kernel's output, the grid and the renderer (for timing); raises on
+    a disagreement."""
+    import torch
+
+    fr, shape, k0 = grid_of(tree, resdiv, dev, slab)
+    dist, cases = gk.classified_grid(tree, fr.origin, fr.res, shape, dev, k0)
+    fns = mc_versions(dist, cases, None, fr)
+    ids, ref_ids = (f() for f in fns["compact_active"])
+    fns = mc_versions(dist, cases, ids, fr, k0)
+    (idx8, t), (ref_idx8, ref_t) = (f() for f in fns["compact_emit"])
+    tris, ref_tris = (f() for f in fns["emit_soup"])
+    (verts, tri, unres), (ref_verts, ref_tri, ref_unres) = (f() for f in fns["emit_welded"])
+    torch.cuda.synchronize()
+    checks = {
+        "compact_active": (torch.equal(ids, ref_ids), _max_abs(ids, ref_ids)),
+        "compact_emit": (torch.equal(idx8, ref_idx8) and torch.equal(t, ref_t),
+                         max(_max_abs(t, ref_t), _max_abs(idx8, ref_idx8))),
+        "emit_soup": (torch.equal(tris, ref_tris), _max_abs(tris, ref_tris)),
+        "emit_welded": (torch.equal(verts, ref_verts) and torch.equal(tri, ref_tri)
+                        and unres == ref_unres,
+                        max(_max_abs(verts, ref_verts), _max_abs(tri, ref_tri))),
+    }
+    log(f"  MC kernels {name:14s}: {len(ids)} active, {len(t)} t, {len(tris)} triangles, "
+        f"{len(verts)} welded vertices, {unres} unresolved corners; "
+        + ", ".join(f"{k} {'exact' if ok else 'DIFFERS'}" for k, (ok, _) in checks.items()))
+    bad = [k for k, (ok, _) in checks.items() if not ok]
+    if bad:
+        raise RuntimeError(f"{name}: {bad} differ from their plain versions")
+    return {k: err for k, (_, err) in checks.items()}, (dist, cases, ids, fr)
+
+
+def counted(kernels, expected, fn):
+    """Run fn with every launch count at 0; fail unless each kernel in
+    `expected` launched. Returns (fn's result, the counts read just after)."""
+    kernels.reset_launches()
     out = fn()
-    counts = dict(gk.LAUNCHES)
-    if counts[kernel] <= 0:
-        raise RuntimeError(f"kernel {kernel} was not launched on its path")
+    counts = dict(kernels.LAUNCHES)
+    missing = [k for k in expected if counts[k] <= 0]
+    if missing:
+        raise RuntimeError(f"kernels {missing} were not launched on their path: {counts}")
     return out, counts
+
+
+def cropped_part(b, with_bounds, Box):
+    """A part cropped by with_bounds so that its surface crosses the
+    render box's far faces: owner cubes there lie outside the grid, and
+    the compact decoder and the welded emit cannot resolve them."""
+    body = b.union(b.new_sphere(1.0), b.translate(b.new_box(0.5, 0.5, 2.5, 0.05), 0.3, 0.2, 0))
+    return with_bounds(body, Box([-0.62] * 3, [0.62] * 3))
 
 
 def main() -> int:
@@ -269,10 +385,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     try:
-        from gsdf_tpu_torch import Builder, Flags, cli, flagships, with_bounds
+        from gsdf_tpu_torch import Builder, Flags, cli, flagships, kernels, native, with_bounds
         from gsdf_tpu_torch.eval import grid_kernels as gk
         from gsdf_tpu_torch.forge import threads
         from gsdf_tpu_torch.geometry.boxes import Box
+        from gsdf_tpu_torch.ops.compact_field import compact_field_render
         from gsdf_tpu_torch.render.flat import FlatRenderer
     except ImportError as e:
         print(f"chip_smoke: gsdf_tpu_torch not importable ({e}); run it in the "
@@ -295,76 +412,164 @@ def main() -> int:
         "showerhead": flagships.build_showerhead(),
         "bolt": flagships.build_bolt(),
         "knurled": flagships.build_knurled(),
+        "cropped": cropped_part(Builder(), with_bounds, Box),
     }
     for seed in FUZZ_SEEDS:
         tree = random_tree(Builder(Flags.NO_DIMENSION_PANIC), np.random.default_rng(seed))
         if tree is not None:
             trees[f"fuzz{seed}"] = tree
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(trees)) as pool:
-        for fut in [pool.submit(gk.build, tree) for tree in trees.values()]:
+    with ThreadPoolExecutor(max_workers=len(trees) + len(kernels.STATIC_KERNELS)) as pool:
+        futs = [pool.submit(gk.build, tree) for tree in trees.values()]
+        futs += [pool.submit(kernels.static_lib, n) for n in kernels.STATIC_KERNELS]
+        for fut in futs:
             fut.result()
     build_s = time.perf_counter() - t0
-    log(f"phase 2: built {len(trees)} kernel libraries (one nvcc each, in parallel) "
+    log(f"phase 2: built {len(futs)} kernel libraries ({len(trees)} trees + "
+        f"{len(kernels.STATIC_KERNELS)} MC kernels; one nvcc each, in parallel) "
         f"in {build_s:.1f} s")
-    for name, tree in trees.items():
-        for line in gk.build_log(tree).splitlines():
+    logs = [(name, gk.build_log(tree)) for name, tree in trees.items()]
+    logs += [(name, kernels.static_build_log(name)) for name in kernels.STATIC_KERNELS]
+    for name, text in logs:
+        for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
     log("phase 2: kernels vs plain torch on the card")
-    max_err = {"grid_eval": 0.0, "classified_grid": 0.0}
-    grids = [("nine-types", 60), ("every-type", 90)]
+    max_err = {name: 0.0 for name, _, _ in KERNELS}
+    grids = [("nine-types", 60), ("every-type", 90), ("cropped", 40)]
     grids += [(name, 64) for name in trees if name.startswith("fuzz")]
-    grids += [("flange", 100), ("flange", 400), ("showerhead", 350), ("flange", 800),
-              ("bolt", 300), ("knurled", 350)]
-    for name, resdiv in grids:
-        errs = compare(f"{name}@{resdiv}", trees[name], resdiv, dev, gk)
+    grids += [("flange", 100), *MAIN_GRIDS]
+    mc_inputs = {}
+    # flange 800's soup runs two fused slabs: the second, at its shape and
+    # plane offset k0, holds K1, K3, K7s (and K4, K7w) at k0 != 0
+    slabs = [("flange", 800, 1)]
+    for name, resdiv, slab in [(n, r, None) for n, r in grids] + slabs:
+        label = f"{name}@{resdiv}" + ("" if slab is None else f" slab {slab}")
+        errs = compare(label, trees[name], resdiv, dev, gk, slab)
+        mc_errs, inputs = mc_compare(label, trees[name], resdiv, dev, gk, slab)
+        errs.update(mc_errs)
         for k, v in errs.items():
             max_err[k] = max(max_err[k], v)
+        if slab is None and (name, resdiv) in MAIN_GRIDS:
+            mc_inputs[(name, resdiv)] = inputs
+        del inputs
 
     times = {}
-    for name, resdiv in (("flange", 400), ("showerhead", 350), ("flange", 800),
-                         ("bolt", 300), ("knurled", 350)):
+    for name, resdiv in MAIN_GRIDS:
         tree = trees[name]
-        fr = FlatRenderer(tree, tree.bounds().diagonal() / resdiv, dev)
+        dist, cases, ids, fr = mc_inputs.pop((name, resdiv))
         args = (tree, fr.origin, fr.res, fr.shape(), dev)
-        row = {
-            # plain, kernel, kernel, plain: the two versions in turns
-            "classified_grid_plain": [cuda_ms(lambda: gk.classified_grid_plain(*args), 3)],
-            "classified_grid": [cuda_ms(lambda: gk.classified_grid(*args), 10)],
-            "grid_eval": [cuda_ms(lambda: gk.evaluate_grid(*args), 10)],
-            "grid_eval_plain": [cuda_ms(lambda: gk.evaluate_grid_plain(*args), 3)],
+        versions = {
+            "classified_grid": (lambda: gk.classified_grid(*args),
+                                lambda: gk.classified_grid_plain(*args)),
+            "grid_eval": (lambda: gk.evaluate_grid(*args), lambda: gk.evaluate_grid_plain(*args)),
+            **mc_versions(dist, cases, ids, fr),
         }
-        row["classified_grid"].append(cuda_ms(lambda: gk.classified_grid(*args), 10))
-        row["classified_grid_plain"].append(cuda_ms(lambda: gk.classified_grid_plain(*args), 3))
-        row["grid_eval"].append(cuda_ms(lambda: gk.evaluate_grid(*args), 10))
-        row["grid_eval_plain"].append(cuda_ms(lambda: gk.evaluate_grid_plain(*args), 3))
-        times[f"{name}@{resdiv}"] = {k: min(v) for k, v in row.items()}
+        row = {}
+        for k, (kernel, plain) in versions.items():
+            # plain, kernel, kernel, plain: the two versions in turns
+            p1 = cuda_ms(plain, 3)
+            k1, k2 = cuda_ms(kernel, 10), cuda_ms(kernel, 10)
+            row[k], row[f"{k}_plain"] = min(k1, k2), min(p1, cuda_ms(plain, 3))
+        times[f"{name}@{resdiv}"] = row
         log(f"  device ms {name}@{resdiv} grid {fr.shape()}: "
-            + ", ".join(f"{k} {min(v):.3f}" for k, v in row.items()) + f"  [{card}]")
+            + ", ".join(f"{k} {v:.3f}" for k, v in row.items()) + f"  [{card}]")
+        del dist, cases, ids
+    torch.cuda.empty_cache()
 
-    # --- phases 3 and 4: the main path, counts from 0 around each part --
-    launches = {k: 0 for k in gk.LAUNCHES}
-    renders = (
-        ("flange", 400, flagships.GOLDEN_FLANGE_TRIS),
-        ("showerhead", 350, flagships.GOLDEN_SHOWERHEAD_TRIS),
-        ("flange", 800, flagships.GOLDEN_FLANGE_800_TRIS),
-        ("bolt", 300, flagships.GOLDEN_BOLT_TRIS),
-        ("knurled", 350, flagships.GOLDEN_KNURLED_TRIS),
-    )
+    # --- phases 3 and 4: each path, counts from 0 around each run -------
+    launches = {k: 0 for k in kernels.LAUNCHES}
     e2e = {}
-    for name, resdiv, golden in renders:
-        (ms, ntris, all_ms), counts = counted(
-            gk, "classified_grid",
-            lambda: cli.bench_part(trees[name], resdiv, golden, 5, dev),
-        )
+
+    def run(label, expected, fn):
+        out, counts = counted(kernels, expected, fn)
         for k, n in counts.items():
             launches[k] += n
-        e2e[f"{name}@{resdiv}"] = ms
-        log(f"phase 3: {name} resdiv {resdiv}: {ntris} triangles (golden {golden}), "
+        log(f"phase 3: {label}: launches {counts}")
+        return out, counts
+
+    compact_path = ("classified_grid", "compact_active", "compact_emit")
+    soup_path = ("classified_grid", "compact_active", "emit_soup")
+    welded_path = ("classified_grid", "compact_active", "emit_welded")
+    goldens = {
+        ("flange", 400): flagships.GOLDEN_FLANGE_TRIS,
+        ("showerhead", 350): flagships.GOLDEN_SHOWERHEAD_TRIS,
+        ("flange", 800): flagships.GOLDEN_FLANGE_800_TRIS,
+        ("bolt", 300): flagships.GOLDEN_BOLT_TRIS,
+        ("knurled", 350): flagships.GOLDEN_KNURLED_TRIS,
+    }
+    benches = [("compact", compact_path, name, resdiv, 5) for name, resdiv in MAIN_GRIDS]
+    for name, resdiv in MAIN_GRIDS[:3]:
+        benches.append(("soup", soup_path, name, resdiv, 3))
+        via_weld = name == "flange" and resdiv == 800  # past slab_cubes
+        benches.append(("indexed", soup_path if via_weld else welded_path, name, resdiv, 3))
+    for path, expected, name, resdiv, reps in benches:
+        golden = goldens[(name, resdiv)]
+        (ms, ntris, all_ms), counts = run(
+            f"{path} {name}@{resdiv}", expected,
+            lambda: cli.bench_part(trees[name], resdiv, golden, reps, dev, path),
+        )
+        e2e[f"{path} {name}@{resdiv}"] = ms
+        log(f"phase 3: {path} {name} resdiv {resdiv}: {ntris} triangles (golden {golden}), "
             f"SDF->STL warm median {ms:.2f} ms (runs {', '.join(f'{t:.2f}' for t in all_ms)}) "
-            f"launches {counts} [{card}]")
+            f"[{card}]")
+
+    f800 = trees["flange"]
+    res800 = f800.bounds().diagonal() / 800
+    soup, counts = run("render() flange@800, one render", soup_path,
+                       lambda: FlatRenderer(f800, res800, dev).render())
+    if counts["classified_grid"] != 2 or counts["emit_soup"] != 2:
+        raise RuntimeError(f"flange 800's soup should run two fused slabs: {counts}")
+    # the staged path evaluates the whole grid with K2 and emits at k0 = 0:
+    # a slab offset dropped or misapplied in K1 or K7s shows as a difference
+    staged, _ = run("staged render(fused=False) flange@800, one whole grid",
+                    ("grid_eval", "compact_active", "emit_soup"),
+                    lambda: FlatRenderer(f800, res800, dev).render(fused=False))
+    if len(soup) != flagships.GOLDEN_FLANGE_800_TRIS or not np.array_equal(staged, soup):
+        raise RuntimeError("flange 800's two fused slabs differ from the staged whole-grid soup")
+    log(f"phase 3: flange@800: the two fused slabs' soup equals the staged whole-grid soup "
+        f"bit for bit ({len(staged)} triangles)")
+    del staged
+    (verts, tri), counts = run("render_indexed() flange@800, one render", soup_path,
+                               lambda: FlatRenderer(f800, res800, dev).render_indexed())
+    if counts["emit_welded"] or len(tri) != len(soup) or not np.array_equal(verts[tri], soup):
+        raise RuntimeError("flange 800's render_indexed is not the host weld of its soup")
+    del soup, verts, tri
+
+    f400 = trees["flange"]
+    res400 = f400.bounds().diagonal() / 400
+
+    sphere = Builder().new_sphere(1.0)
+    sfr = FlatRenderer(sphere, 1.0 / 33, dev)
+    tris, _ = run("sphere r=1 @ r/33 render()", soup_path, sfr.render)
+    if len(tris) != 41072 or sfr.evaluations() != 68**3:
+        raise RuntimeError(f"sphere golden: {len(tris)} != 41072 or {sfr.evaluations()} "
+                           "evaluations != 68^3")
+    log(f"phase 3: sphere golden: {len(tris)} triangles, {sfr.evaluations()} evaluations")
+
+    cropped = trees["cropped"]
+    cres = cropped.bounds().diagonal() / 40
+    (verts, tri), _ = run("cropped part render_compact (fallback)",
+                          compact_path + ("emit_welded", "emit_soup"),
+                          lambda: FlatRenderer(cropped, cres, dev).render_compact())
+    csoup = FlatRenderer(cropped, cres, dev).render()
+    if tri.max() >= len(verts) or not np.array_equal(verts[tri], csoup):
+        raise RuntimeError("the cropped part's fallback mesh is not its welded soup")
+    log(f"phase 3: cropped part: fallback to the welded soup, {len(tri)} triangles, "
+        f"{len(verts)} vertices")
+
+    whole = FlatRenderer(f400, res400, dev)
+    wv, wt = whole.render_compact()
+    sl = FlatRenderer(f400, res400, dev)
+    sl.compact_cubes = -(-sl.shape()[0] // 3) * sl.shape()[1] * sl.shape()[2]
+    (sv, st), counts = run("slabbed render_compact flange@400", compact_path, sl.render_compact)
+    if counts["classified_grid"] < 3 or not (np.array_equal(st, wt) and np.array_equal(sv, wv)):
+        raise RuntimeError(f"the slabbed compact render differs from the whole grid's: {counts}")
+    log(f"phase 3: slabbed compact flange@400: {counts['classified_grid']} slabs, equal to "
+        f"the whole-grid render ({len(st)} triangles)")
+    del wv, wt, sv, st
+
     for name, resdiv in (("flange", 400), ("bolt", 300), ("knurled", 350)):
         tree = trees[name]
         fr = FlatRenderer(tree, tree.bounds().diagonal() / resdiv, dev)
@@ -374,40 +579,43 @@ def main() -> int:
             torch.cuda.synchronize()
             return field
 
-        field, counts = counted(gk, "grid_eval", dense)
-        for k, n in counts.items():
-            launches[k] += n
+        field, _ = run(f"evaluate_grid {name}@{resdiv}", ("grid_eval",), dense)
         if not bool(torch.isfinite(field).all()):
             raise RuntimeError(f"evaluate_grid: non-finite distances on {name}")
-        log(f"phase 3: evaluate_grid {name}@{resdiv} grid {tuple(field.shape)}: "
-            f"launches {counts}")
-    log(f"phase 4: kernel launches on the main path: {launches}")
+        del field
+    log(f"phase 4: kernel launches over the paths: {launches}")
+
+    fr = FlatRenderer(f800, res800, dev)
+    payload = compact_field_render(f800, fr.origin, fr.res, fr.shape(), dev)
+    args = (*payload, fr.nx, fr.ny, fr.nz, fr.origin, fr.res)
+    t0 = time.perf_counter()
+    v_nat, tri_nat = native.mc_decode(*args)
+    nat_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    v_np, tri_np = native.mc_decode_plain(*args)
+    np_ms = (time.perf_counter() - t0) * 1e3
+    if not (np.array_equal(tri_nat, tri_np) and np.array_equal(v_nat, v_np)):
+        raise RuntimeError("threaded native mc_decode differs from mc_decode_plain")
+    log(f"decode pin: native mc_decode ({os.cpu_count()} host cores) == numpy "
+        f"mc_decode_plain bit for bit on flange 800 ({len(tri_nat)} triangles); "
+        f"{nat_ms:.1f} ms vs {np_ms:.1f} ms")
 
     t400 = times["flange@400"]
-    kernels = [
+    line = [
         {
-            "name": "classified_grid",
+            "name": name,
             "route": "cuda",
-            "source": "gsdf_tpu_torch/csrc/classified_grid.cu",
-            "replaces": "gsdf_tpu/eval/pallas_grid.py:187",
-            "launches": launches["classified_grid"],
-            "max_abs_err": max_err["classified_grid"],
-            "ms": t400["classified_grid"],
-            "plain_ms": t400["classified_grid_plain"],
-        },
-        {
-            "name": "grid_eval",
-            "route": "cuda",
-            "source": "gsdf_tpu_torch/csrc/grid_eval.cu",
-            "replaces": "gsdf_tpu/eval/pallas_grid.py:108",
-            "launches": launches["grid_eval"],
-            "max_abs_err": max_err["grid_eval"],
-            "ms": t400["grid_eval"],
-            "plain_ms": t400["grid_eval_plain"],
-        },
+            "source": source,
+            "replaces": replaces,
+            "launches": launches[name],
+            "max_abs_err": max_err[name],
+            "ms": t400[name],
+            "plain_ms": t400[f"{name}_plain"],
+        }
+        for name, source, replaces in KERNELS
     ]
     log(json.dumps({"build_s": build_s, "device_ms": times, "sdf_to_stl_ms": e2e}))
-    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"kernels": line}))
     log(card)
     log(json.dumps({
         "ok": True,

@@ -33,30 +33,41 @@ from .flagships import (
     build_showerhead,
 )
 from .render.flat import FlatRenderer
-from .render.stl import write_binary_stl_indexed
+from .render.stl import write_binary_stl, write_binary_stl_indexed
 
 
-def render_stl(obj, resdiv, device):
-    """One SDF->STL render into memory: (wall ms, triangle count)."""
+def render_stl(obj, resdiv, device, path="compact"):
+    """One SDF->STL render into memory through `path`, "compact" (the main
+    path), "soup" (render()) or "indexed" (render_indexed()): (wall ms,
+    triangle count)."""
     res = obj.bounds().diagonal() / resdiv
     t0 = time.perf_counter()
-    verts, tri_idx = FlatRenderer(obj, res, device).render_compact()
+    fr = FlatRenderer(obj, res, device)
     buf = io.BytesIO()
-    write_binary_stl_indexed(buf, verts, tri_idx)
-    return (time.perf_counter() - t0) * 1e3, len(tri_idx)
+    if path == "soup":
+        tris = fr.render()
+        write_binary_stl(buf, tris)
+        n = len(tris)
+    elif path in ("compact", "indexed"):
+        verts, tri_idx = fr.render_compact() if path == "compact" else fr.render_indexed()
+        write_binary_stl_indexed(buf, verts, tri_idx)
+        n = len(tri_idx)
+    else:
+        raise ValueError(f"unknown render path {path!r}")
+    return (time.perf_counter() - t0) * 1e3, n
 
 
-def bench_part(obj, resdiv, golden, repeats, device):
+def bench_part(obj, resdiv, golden, repeats, device, path="compact"):
     """Median warm SDF->STL wall ms after two warm-ups (the first builds
     the kernels), failing unless the triangle count equals `golden`
     (None skips the check). Returns (median ms, triangles, all ms)."""
-    _, ntris = render_stl(obj, resdiv, device)
-    render_stl(obj, resdiv, device)
+    _, ntris = render_stl(obj, resdiv, device, path)
+    render_stl(obj, resdiv, device, path)
     if golden is not None and ntris != golden:
         raise RuntimeError(f"triangle count {ntris} != golden {golden}")
     times = []
     for _ in range(repeats):
-        ms, n = render_stl(obj, resdiv, device)
+        ms, n = render_stl(obj, resdiv, device, path)
         if n != ntris:
             raise RuntimeError(f"triangle count changed between renders: {n} != {ntris}")
         times.append(ms)

@@ -24,6 +24,11 @@
 // loops, as in K2; the writes are 4 B per corner plus 1 B per cube.
 // Built with -fmad=false (see grid_eval.cu).
 //
+// k0 is the slab's first corner plane in the whole grid (the soup and
+// compact paths' z-slab dispatch): plane k sits at oz + (float)(k0 + k) *
+// res, from the global integer index, so a slab's corners equal the whole
+// grid's bit for bit (the rule of gsdf_tpu/render/flat.py:87-92).
+//
 // gsdf_tree.cuh is generated per tree by gsdf_tpu_torch/codegen/cuda.py.
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -40,7 +45,7 @@ constexpr int kPlane = (kBY + 1) * (kBX + 1);  // corners per plane tile
 __global__ void __launch_bounds__(kThreads)
 classified_grid_kernel(float* __restrict__ dist, uint8_t* __restrict__ cases,
                        float ox, float oy, float oz, float res, float thr,
-                       int nk, int nj, int ni, int kz) {
+                       int k0, int nk, int nj, int ni, int kz) {
     __shared__ float plane[2][kPlane];
     const int tid = threadIdx.x;
     const int i0 = blockIdx.x * kBX;
@@ -51,7 +56,7 @@ classified_grid_kernel(float* __restrict__ dist, uint8_t* __restrict__ cases,
 
     for (int k = kc0; k <= kc1; ++k) {
         float* cur = plane[(k - kc0) & 1];
-        const float z = oz + (float)k * res;
+        const float z = oz + (float)(k0 + k) * res;
         // plane kc1 is the next z-block's first plane unless it is the last
         const bool own_k = k < kc1 || k == nk - 1;
         for (int c = tid; c < kPlane; c += kThreads) {
@@ -99,13 +104,13 @@ classified_grid_kernel(float* __restrict__ dist, uint8_t* __restrict__ cases,
 // Launches on `stream`; returns cudaGetLastError() (0 = launched).
 extern "C" int gsdf_classified_grid(float* dist, uint8_t* cases, float ox,
                                     float oy, float oz, float res, float thr,
-                                    int nk, int nj, int ni, int kz,
+                                    int k0, int nk, int nj, int ni, int kz,
                                     void* stream) {
     if (nk < 2 || nj < 2 || ni < 2 || kz < 1) return (int)cudaErrorInvalidValue;
     const dim3 grid((ni - 1 + kBX - 1) / kBX, (nj - 1 + kBY - 1) / kBY,
                     (nk - 1 + kz - 1) / kz);
     if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidConfiguration;
     classified_grid_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        dist, cases, ox, oy, oz, res, thr, nk, nj, ni, kz);
+        dist, cases, ox, oy, oz, res, thr, k0, nk, nj, ni, kz);
     return (int)cudaGetLastError();
 }

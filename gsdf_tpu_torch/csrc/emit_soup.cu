@@ -1,0 +1,121 @@
+// K7s: the triangle-soup emit on Hopper.
+//
+// Replaces gsdf_tpu/ops/mc_emit.py::emit_triangles with corner_positions
+// and interpolate_edges (:305-373), which XLA fused on the TPU (the soup
+// path of ops/fused_render.py and the staged ops/marching_cubes.py). For
+// each active cube id (K3's output, ascending):
+//   - the 8 corner distances, gathered from the f32 corner grid;
+//   - the corner positions in the reference's float32 arithmetic
+//     (flatrenderer.go:235-247): base = origin + f * res per axis, with
+//     f = float(ci), float(cj), float(ck) + k0 (k0 is the slab's plane
+//     offset, added as a float as the JAX package does), then
+//     base + float(offset) * res per corner;
+//   - each triangle edge's point pa + t * (pb - pa), t = (0 - va) /
+//     (vb - va), with the reference's 1e-12 snaps (mcInterpolate,
+//     marchcubes.go:76-98);
+//   - the triangles of MC_TRI_TABLE[case] in table order with reversed
+//     winding (points[t2], points[t1], points[t0]), written at the cube's
+//     offset from a hand-written scan of MC_TRI_COUNT[case], so the soup is
+//     in the reference's cube-then-table order.
+//
+// What bounds it on the card: the 36 B written per triangle and the 8
+// scattered corner gathers per active cube; the work is O(active cubes).
+// One thread per active cube; edge points are computed where a triangle
+// needs them (the same arithmetic each time, so shared edges agree).
+// Built with -fmad=false and IEEE division: bit-identical to the plain
+// torch version.
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "gsdf_mc_tables.cuh"
+#include "gsdf_scan.cuh"
+
+namespace {
+
+constexpr int kThreads = 128;
+
+__global__ void __launch_bounds__(kThreads)
+count_kernel(const uint8_t* __restrict__ cases, const int32_t* __restrict__ ids,
+             long long A, long long* __restrict__ block_sums) {
+    __shared__ long long warp_sums[kThreads / 32];
+    const long long a = (long long)blockIdx.x * kThreads + threadIdx.x;
+    const long long n = a < A ? kTriCount[cases[ids[a]]] : 0;
+    long long total;
+    gsdf::block_exclusive_scan<kThreads>(n, &total, warp_sums);
+    if (threadIdx.x == 0) block_sums[blockIdx.x] = total;
+}
+
+__global__ void __launch_bounds__(kThreads)
+emit_kernel(const float* __restrict__ grid, const uint8_t* __restrict__ cases,
+            const int32_t* __restrict__ ids, long long A, int nx, int ny,
+            float ox, float oy, float oz, float res, float k0f,
+            const long long* __restrict__ block_offsets, float* __restrict__ tris) {
+    __shared__ long long warp_sums[kThreads / 32];
+    const long long a = (long long)blockIdx.x * kThreads + threadIdx.x;
+    const long long id = a < A ? ids[a] : 0;
+    const unsigned c = a < A ? cases[id] : 0u;
+    const int nt = kTriCount[c];
+    long long total;
+    const long long t0 = block_offsets[blockIdx.x] +
+        gsdf::block_exclusive_scan<kThreads>((long long)nt, &total, warp_sums);
+    if (a >= A || nt == 0) return;
+
+    const gsdf::Cube q = gsdf::cube_of(id, nx, ny);
+    const long long ni = nx + 1, nj = ny + 1;
+    const long long base = ((long long)q.k * nj + q.j) * ni + q.i;
+    float v[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+        v[k] = grid[base + kCornerOffsets[3 * k + 2] * nj * ni +
+                    kCornerOffsets[3 * k + 1] * ni + kCornerOffsets[3 * k]];
+    const float b[3] = {ox + (float)q.i * res, oy + (float)q.j * res,
+                        oz + ((float)q.k + k0f) * res};
+
+    for (int s = 0; s < nt; ++s) {
+        float* out = tris + (t0 + s) * 9;
+        for (int j = 0; j < 3; ++j) {
+            const int e = kTriTable[c * 15 + s * 3 + j];
+            const int ca_ = kEdgePairs[2 * e], cb_ = kEdgePairs[2 * e + 1];
+            const gsdf::EdgeT et = gsdf::mc_edge_t(v[ca_], v[cb_]);
+            float* p = out + (2 - j) * 3;  // reversed winding
+#pragma unroll
+            for (int x = 0; x < 3; ++x)
+                p[x] = gsdf::mc_lerp(et, b[x] + (float)kCornerOffsets[3 * ca_ + x] * res,
+                                     b[x] + (float)kCornerOffsets[3 * cb_ + x] * res);
+        }
+    }
+}
+
+}  // namespace
+
+// int64 scratch entries (block sums) for A active cubes; -1 if too many.
+extern "C" long long gsdf_emit_soup_blocks(long long A) {
+    return gsdf::blocks_for(A, kThreads);
+}
+
+// Launches 1 and 2: block_sums becomes the block offsets of the soup,
+// *total the triangle count. Returns cudaGetLastError().
+extern "C" int gsdf_emit_soup_count(const uint8_t* cases, const int32_t* ids,
+                                    long long A, long long* block_sums,
+                                    long long* total, void* stream) {
+    const long long blocks = gsdf::blocks_for(A, kThreads);
+    if (A <= 0 || blocks < 0) return (int)cudaErrorInvalidValue;
+    const cudaStream_t s = (cudaStream_t)stream;
+    count_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(cases, ids, A, block_sums);
+    const int rc = (int)cudaGetLastError();
+    if (rc != 0) return rc;
+    return gsdf::scan_sums(block_sums, blocks, total, s);
+}
+
+// Launch 3: tris (total, 3, 3) f32 in cube-then-table order.
+extern "C" int gsdf_emit_soup(const float* grid, const uint8_t* cases,
+                              const int32_t* ids, long long A, int nx, int ny,
+                              float ox, float oy, float oz, float res, float k0f,
+                              const long long* block_offsets, float* tris,
+                              void* stream) {
+    const long long blocks = gsdf::blocks_for(A, kThreads);
+    if (A <= 0 || blocks < 0 || nx < 1 || ny < 1) return (int)cudaErrorInvalidValue;
+    emit_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        grid, cases, ids, A, nx, ny, ox, oy, oz, res, k0f, block_offsets, tris);
+    return (int)cudaGetLastError();
+}

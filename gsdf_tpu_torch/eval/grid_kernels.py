@@ -20,31 +20,28 @@ from __future__ import annotations
 
 import ctypes
 import os
-import shutil
 
 import numpy as np
 import torch
 
 from .. import _build
 from ..codegen.cuda import tree_source
+from ..kernels import (
+    CSRC,
+    LAUNCHES,
+    NVCC_FLAGS,
+    check_out,
+    check_rc,
+    cuda_device,
+    float_args,
+    nvcc,
+    stream,
+)
 from ..ops import mc_emit
 
 _f32 = np.float32
 
-#: launches per kernel; each wrapper adds one where it launches its kernel
-LAUNCHES = {"classified_grid": 0, "grid_eval": 0}
-
-CSRC = os.path.join(_build.PKG_DIR, "csrc")
 TEMPLATES = ("grid_eval.cu", "classified_grid.cu")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17",
-    # no multiply-add contraction; IEEE division and sqrt (the defaults,
-    # stated): golden counts hang on the sign of values near zero
-    "-fmad=false", "-prec-div=true", "-prec-sqrt=true",
-    "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
-)
 #: cube layers a K1 block marches (the first plane is shared with the
 #: block below, so evaluations grow by 1/KZ)
 KZ = 16
@@ -56,23 +53,11 @@ _SIGNATURES = {
     ),
     "gsdf_classified_grid": (
         ctypes.c_int,
-        [ctypes.c_void_p] * 2 + [ctypes.c_float] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 2 + [ctypes.c_float] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     ),
 }
 
 _libs: dict = {}  # tree hash -> loaded kernel library
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the grid kernels need the CUDA toolkit")
-    return path
 
 
 def _sources(tree):
@@ -95,7 +80,7 @@ def build(tree) -> ctypes.CDLL:
 
     def command(out, d):
         _build.write_atomic(os.path.join(d, "gsdf_tree.cuh"), src)
-        return [_nvcc(), *NVCC_FLAGS, "-I", d, "-o", out, *paths]
+        return [nvcc(), *NVCC_FLAGS, "-I", d, "-o", out, *paths]
 
     so = _build.build_shared("gsdf_tree", key, command)
     lib = _build.load(so, _SIGNATURES)
@@ -116,33 +101,6 @@ def _shape(shape):
     if min(nk, nj, ni) < 1:
         raise ValueError(f"empty grid shape {shape}")
     return nk, nj, ni
-
-
-def _cuda(device) -> torch.device:
-    device = torch.device(device)
-    if device.type != "cuda":
-        raise ValueError(f"the grid kernels run on CUDA devices, not {device}")
-    if device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    return device
-
-
-def _check_out(t: torch.Tensor, shape, dtype, device) -> None:
-    if (
-        tuple(t.shape) != tuple(shape)
-        or t.dtype != dtype
-        or t.device != device
-        or not t.is_contiguous()
-    ):
-        raise ValueError(
-            f"kernel output {tuple(t.shape)} {t.dtype} {t.device} does not match "
-            f"{tuple(shape)} {dtype} {device} contiguous"
-        )
-
-
-def _launch_args(origin, res):
-    o = np.asarray(origin, _f32).reshape(3)
-    return float(o[0]), float(o[1]), float(o[2]), float(_f32(res))
 
 
 # --- plain torch versions ------------------------------------------------
@@ -168,9 +126,9 @@ def evaluate_grid_plain(tree, origin, res, shape, device, k0: int = 0):
     return tree.distance(grid_positions(origin, res, shape, device, k0))
 
 
-def classified_grid_plain(tree, origin, res, shape, device):
+def classified_grid_plain(tree, origin, res, shape, device, k0: int = 0):
     """K1's plain version: (dist (nk,nj,ni) f32, cases (nk-1,nj-1,ni-1) u8)."""
-    dist = evaluate_grid_plain(tree, origin, res, shape, device)
+    dist = evaluate_grid_plain(tree, origin, res, shape, device, k0)
     return dist, mc_emit.effective_cases(dist, res)
 
 
@@ -180,43 +138,42 @@ def evaluate_grid(tree, origin, res, shape, device, k0: int = 0):
     nk, nj, ni = _shape(shape)
     if torch.device(device).type == "cpu":
         return evaluate_grid_plain(tree, origin, res, shape, device, k0)
-    device = _cuda(device)
+    device = cuda_device(device)
     lib = build(tree)
     out = torch.empty((nk, nj, ni), dtype=torch.float32, device=device)
-    _check_out(out, (nk, nj, ni), torch.float32, device)
-    ox, oy, oz, r = _launch_args(origin, res)
+    check_out(out, (nk, nj, ni), torch.float32, device)
+    ox, oy, oz, r = float_args(origin, res)
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.gsdf_grid_eval(out.data_ptr(), ox, oy, oz, r, int(k0), nk, nj, ni, stream)
-    if rc != 0:
-        raise RuntimeError(f"grid_eval kernel launch failed: CUDA error {rc}")
+        rc = lib.gsdf_grid_eval(
+            out.data_ptr(), ox, oy, oz, r, int(k0), nk, nj, ni, stream(device)
+        )
+    check_rc("grid_eval", rc)
     LAUNCHES["grid_eval"] += 1
     return out
 
 
-def classified_grid(tree, origin, res, shape, device):
+def classified_grid(tree, origin, res, shape, device, k0: int = 0):
     """Fused eval + classify (K1): (dist (nk,nj,ni) f32, cases
-    (nk-1,nj-1,ni-1) u8), the case 0 where the cube is inactive."""
+    (nk-1,nj-1,ni-1) u8), the case 0 where the cube is inactive. k0 is the
+    slab's first plane in the whole grid."""
     nk, nj, ni = _shape(shape)
     if min(nk, nj, ni) < 2:
         raise ValueError(f"a classified grid needs >= 2 corners per axis, got {shape}")
     if torch.device(device).type == "cpu":
-        return classified_grid_plain(tree, origin, res, shape, device)
-    device = _cuda(device)
+        return classified_grid_plain(tree, origin, res, shape, device, k0)
+    device = cuda_device(device)
     lib = build(tree)
     dist = torch.empty((nk, nj, ni), dtype=torch.float32, device=device)
     cases = torch.empty((nk - 1, nj - 1, ni - 1), dtype=torch.uint8, device=device)
-    _check_out(dist, (nk, nj, ni), torch.float32, device)
-    _check_out(cases, (nk - 1, nj - 1, ni - 1), torch.uint8, device)
-    ox, oy, oz, r = _launch_args(origin, res)
+    check_out(dist, (nk, nj, ni), torch.float32, device)
+    check_out(cases, (nk - 1, nj - 1, ni - 1), torch.uint8, device)
+    ox, oy, oz, r = float_args(origin, res)
     thr = float(mc_emit.quick_reject_threshold(res))
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.gsdf_classified_grid(
             dist.data_ptr(), cases.data_ptr(), ox, oy, oz, r, thr,
-            nk, nj, ni, KZ, stream,
+            int(k0), nk, nj, ni, KZ, stream(device),
         )
-    if rc != 0:
-        raise RuntimeError(f"classified_grid kernel launch failed: CUDA error {rc}")
+    check_rc("classified_grid", rc)
     LAUNCHES["classified_grid"] += 1
     return dist, cases

@@ -1,13 +1,14 @@
-"""Host-side native runtime of the port: the compact-payload decoder
-(`gsdf_mc_decode`) and the indexed STL encoder, loaded with ctypes.
+"""Host-side native runtime of the port, loaded with ctypes: the
+compact-payload decoder (`gsdf_mc_decode`), the STL encoders (soup and
+indexed), the STL decoder and the soup welder.
 
 There is one C++ source of truth: the JAX package's
 gsdf_tpu/native/native.cpp, compiled by path (reading a C++ file is no
 Python import of gsdf_tpu) with the JAX package's flags
 (gsdf_tpu/native/__init__.py:23-41) into the port's build directory. A
 failed build raises; the port has no numpy fallback on its path.
-`mc_decode_plain` is the numpy decoder kept as the plain version the
-tests hold the C++ decoder against.
+The `*_plain` functions are numpy versions of the same, kept only for the
+tests to hold the C++ against.
 """
 from __future__ import annotations
 
@@ -54,7 +55,20 @@ _SIGNATURES = {
         None,
         [_P(ctypes.c_float), _P(ctypes.c_int32), ctypes.c_int64, _P(ctypes.c_ubyte)],
     ),
+    "gsdf_stl_encode": (None, [_P(ctypes.c_float), ctypes.c_int64, _P(ctypes.c_ubyte)]),
+    "gsdf_stl_decode": (ctypes.c_int64, [_P(ctypes.c_ubyte), ctypes.c_int64, _P(ctypes.c_float)]),
+    "gsdf_weld": (
+        ctypes.c_int64,
+        [_P(ctypes.c_float), ctypes.c_int64, ctypes.c_float, _P(ctypes.c_float),
+         _P(ctypes.c_int32)],
+    ),
 }
+
+#: one binary STL record (reference glrender/stl.go:15-62): 50 bytes
+STL_DTYPE = np.dtype(
+    [("normal", "<f4", 3), ("v1", "<f4", 3), ("v2", "<f4", 3), ("v3", "<f4", 3),
+     ("attr", "<u2")]
+)
 
 # decoder tables from the single canonical source (ops/mc_tables.py)
 _TRI_TABLE = np.ascontiguousarray(MC_TRI_TABLE, np.int8)  # (256,5,3)
@@ -214,3 +228,96 @@ def stl_encode_indexed(verts: np.ndarray, tri_idx: np.ndarray) -> bytes:
         _ptr(out, ctypes.c_ubyte),
     )
     return out.tobytes()
+
+
+def _soup(tris) -> np.ndarray:
+    tris = np.ascontiguousarray(tris, _f32)
+    if tris.ndim != 3 or tris.shape[1:] != (3, 3):
+        raise ValueError("triangles must be (T,3,3)")
+    return tris
+
+
+def stl_encode(tris: np.ndarray) -> bytes:
+    """(T,3,3) float32 triangles -> STL record bytes (T*50): normal from
+    the winding, the three vertices, a zero attribute."""
+    tris = _soup(tris)
+    out = np.empty(len(tris) * 50, np.uint8)
+    get_lib().gsdf_stl_encode(_ptr(tris, ctypes.c_float), len(tris), _ptr(out, ctypes.c_ubyte))
+    return out.tobytes()
+
+
+def stl_encode_plain(tris: np.ndarray) -> bytes:
+    """stl_encode in numpy, with the C++'s float32 arithmetic: n =
+    cross(v2-v1, v3-v1), divided by its length where that is > 0."""
+    t = _soup(tris)
+    e1, e2 = t[:, 1] - t[:, 0], t[:, 2] - t[:, 0]
+    n = np.stack(
+        [
+            e1[:, 1] * e2[:, 2] - e1[:, 2] * e2[:, 1],
+            e1[:, 2] * e2[:, 0] - e1[:, 0] * e2[:, 2],
+            e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0],
+        ],
+        axis=-1,
+    )
+    ln = np.sqrt((n[:, 0] * n[:, 0] + n[:, 1] * n[:, 1]) + n[:, 2] * n[:, 2])
+    with np.errstate(divide="ignore", invalid="ignore"):
+        n = np.where(ln[:, None] > 0, n / ln[:, None], n).astype(_f32)
+    rec = np.zeros(len(t), dtype=STL_DTYPE)
+    rec["normal"] = n
+    rec["v1"], rec["v2"], rec["v3"] = t[:, 0], t[:, 1], t[:, 2]
+    return rec.tobytes()
+
+
+def stl_decode(records: bytes, count: int) -> np.ndarray:
+    """STL record bytes -> (count,3,3) float32 triangles."""
+    buf = np.frombuffer(records, np.uint8, count=count * 50)
+    tris = np.empty((count, 3, 3), _f32)
+    get_lib().gsdf_stl_decode(_ptr(buf, ctypes.c_ubyte), count, _ptr(tris, ctypes.c_float))
+    return tris
+
+
+def stl_decode_plain(records: bytes, count: int) -> np.ndarray:
+    rec = np.frombuffer(records, dtype=STL_DTYPE, count=count)
+    return np.stack([rec["v1"], rec["v2"], rec["v3"]], axis=1).astype(_f32)
+
+
+def weld(tris: np.ndarray, tol: float = 0.0):
+    """Triangle soup -> indexed mesh (verts (V,3) f32, indices (T,3) i32),
+    vertices in order of first appearance. Vertices whose coordinates
+    round to the same multiple of `tol` merge; tol=0 merges coordinates
+    within 1e-12 (exact duplicates at CAD scales)."""
+    tris = _soup(tris)
+    n = len(tris)
+    if n == 0:
+        return np.empty((0, 3), _f32), np.empty((0, 3), np.int32)
+    verts = np.empty((n * 3, 3), _f32)
+    idx = np.empty(n * 3, np.int32)
+    nv = get_lib().gsdf_weld(
+        _ptr(tris, ctypes.c_float), n, ctypes.c_float(tol),
+        _ptr(verts, ctypes.c_float), _ptr(idx, ctypes.c_int32),
+    )
+    return verts[:nv].copy(), idx.reshape(-1, 3)
+
+
+def _llround(x: np.ndarray) -> np.ndarray:
+    """C's llround on float64: nearest, ties away from zero."""
+    r = np.rint(x)
+    frac = x - np.trunc(x)
+    return np.where(np.abs(frac) == 0.5, np.trunc(x) + np.sign(x), r).astype(np.int64)
+
+
+def weld_plain(tris: np.ndarray, tol: float = 0.0):
+    """weld in numpy: the same quantization (llround of the float64
+    coordinate times the float32 1/tol, or 1e12 for tol <= 0) and the same
+    first-appearance vertex order."""
+    tris = _soup(tris)
+    if len(tris) == 0:
+        return np.empty((0, 3), _f32), np.empty((0, 3), np.int32)
+    flat = tris.reshape(-1, 3)
+    inv = float(_f32(1.0) / _f32(tol)) if tol > 0 else float(_f32(1e12))
+    q = _llround(flat.astype(np.float64) * inv)
+    _, first, inverse = np.unique(q, axis=0, return_index=True, return_inverse=True)
+    order = np.argsort(first, kind="stable")  # unique keys by first appearance
+    rank = np.empty_like(order)
+    rank[order] = np.arange(len(order))
+    return flat[first[order]].copy(), rank[inverse.reshape(-1)].astype(np.int32).reshape(-1, 3)

@@ -1,39 +1,39 @@
-"""Compact-field emit (gsdf_tpu/ops/compact_field.py), plain torch on the
-grid's device.
+"""Compact-field render (gsdf_tpu/ops/compact_field.py), the main path.
 
-From the classified grid, the device keeps only what the host decoder
-needs: the ascending ids of the active cubes, their case bytes, and the
-interpolation parameter t of every crossing owner edge, compacted
-cube-major with axes x, y, z. The host walks the MC tables
+From the classified grid (K1), the device keeps only what the host
+decoder needs: the ascending ids of the active cubes (K3), their case
+bytes, and the interpolation parameter t of every crossing owner edge,
+compacted cube-major with axes x, y, z (K4). The host walks the MC tables
 (native.mc_decode), as the reference does (glrender/octreerenderer.go:131
 -> marchcubes.go:34).
 
 The JAX package packs ids as u8 deltas for its slow device link
-(compact_field.py:22-30); the port fetches ids (u32), cases (u8) and t
-(f32) as they are, with identical decoded arrays. `torch.nonzero` sizes
-the compaction exactly, so no grow-and-retry is needed. The compaction
-(K3) and this emit (K4) are the next kernels to write by hand.
+(compact_field.py:22-30, :91-147); the port fetches ids (u32), cases (u8)
+and t (f32) as they are, with identical decoded arrays. Sizes come from
+device counts, so there is no grow-and-retry and no size hint.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..core import mathx as mx
+from .. import kernels
 from ..eval.grid_kernels import classified_grid
-from .mc_emit import MC_EPS
+from .mc_emit import (
+    MAX_CUBES,
+    check_kernel_inputs,
+    compact_indices,
+    cube_bases,
+    edge_t,
+)
 
-MAX_CUBES = 1 << 31  # int32 cube ids
+_f32 = np.float32
 
 
 def _owner_edge_t(v0, vfar):
     """t on the 3 low (owner) edges of each cube, with the reference's
-    epsilon rules (mcInterpolate, marchcubes.go:76-98) baked in (0, 1 or
-    0.5). v0 (A,1), vfar (A,3) -> (A,3)."""
-    eps = mx.const(MC_EPS, v0)  # compared in float32, as the JAX package does
-    ca = torch.abs(v0) < eps
-    cb = torch.abs(vfar) < eps
-    t = torch.where(ca & cb, 0.5, (0.0 - v0) / (vfar - v0))
+    epsilon snaps baked in (0, 1 or 0.5). v0 (A,1), vfar (A,3) -> (A,3)."""
+    t, ca, cb = edge_t(v0, vfar)
     t = torch.where(cb & ~ca, 1.0, t)
     t = torch.where(ca & ~cb, 0.0, t)
     return t
@@ -48,34 +48,89 @@ def crossing(idx8):
     )
 
 
-def compact_emit(grid, cases):
-    """grid (nk,nj,ni) corner distances, cases (nk-1,nj-1,ni-1) u8
-    effective cases -> (ids int64 ascending, case bytes u8, t f32)."""
+# --- K4: the compact emit -----------------------------------------------
+def compact_emit_plain(grid, cases, ids):
+    """K4's plain version: (case bytes (A,) u8, t (V,) f32)."""
     nk, nj, ni = grid.shape
-    nx, ny = ni - 1, nj - 1
-    flat = cases.reshape(-1)
-    ids = torch.nonzero(flat).squeeze(1)  # ascending cube ids
-    idx8 = flat[ids]
-    ci = ids % nx
-    cj = (ids // nx) % ny
-    ck = ids // (nx * ny)
-    base = ck * (nj * ni) + cj * ni + ci
-    strides = torch.tensor([0, 1, ni, nj * ni], dtype=ids.dtype, device=ids.device)
+    base, _ = cube_bases(grid, ids)
+    idx8 = cases.reshape(-1)[ids.to(torch.int64)]
+    strides = torch.tensor([0, 1, ni, nj * ni], dtype=torch.int64, device=grid.device)
     v4 = grid.reshape(-1)[base[:, None] + strides[None, :]]  # (A,4): v0,vx,vy,vz
     t = _owner_edge_t(v4[:, 0:1], v4[:, 1:])
-    return ids, idx8, t[crossing(idx8)]  # boolean mask: cube-major, x,y,z
+    return idx8, t[crossing(idx8)]  # boolean mask: cube-major, x,y,z
 
 
-def compact_field_render(tree, origin, res, shape, device):
-    """Classify on the device (K1), compact, fetch. Returns (ids (A,) u32,
-    cases (A,) u8, tvals (V,) f32) as numpy arrays for native.mc_decode."""
+def compact_emit(grid, cases, ids):
+    """grid (nk,nj,ni) corner distances, cases (nk-1,nj-1,ni-1) u8
+    effective cases, ids the active cubes (K3) -> (case bytes u8, t f32)
+    (K4; gsdf_tpu/ops/compact_field.py:217-261)."""
+    if grid.device.type == "cpu":
+        return compact_emit_plain(grid, cases, ids)
+    device, A, nx, ny, _ = check_kernel_inputs(grid, cases, ids)
+    if A == 0:
+        return (
+            torch.empty(0, dtype=torch.uint8, device=device),
+            torch.empty(0, dtype=torch.float32, device=device),
+        )
+    lib = kernels.static_lib("compact_emit")
+    offsets = torch.empty(lib.gsdf_compact_emit_blocks(A), dtype=torch.int64, device=device)
+    total = torch.empty(1, dtype=torch.int64, device=device)
+    idx8 = torch.empty(A, dtype=torch.uint8, device=device)
+    with torch.cuda.device(device):
+        s = kernels.stream(device)
+        kernels.check_rc("compact_emit", lib.gsdf_compact_emit_count(
+            cases.data_ptr(), ids.data_ptr(), A, offsets.data_ptr(), total.data_ptr(), s))
+        tvals = torch.empty(int(total.item()), dtype=torch.float32, device=device)
+        kernels.check_rc("compact_emit", lib.gsdf_compact_emit(
+            grid.data_ptr(), cases.data_ptr(), ids.data_ptr(), A, nx, ny,
+            offsets.data_ptr(), idx8.data_ptr(), tvals.data_ptr(), s))
+    kernels.LAUNCHES["compact_emit"] += 1
+    return idx8, tvals
+
+
+def compact_field_render(tree, origin, res, shape, device, k0: int = 0):
+    """Classify on the device (K1), compact (K3), emit (K4), fetch.
+    Returns (ids (A,) u32, cases (A,) u8, tvals (V,) f32) as numpy arrays
+    for native.mc_decode. k0 offsets the grid's z index (slab dispatch):
+    the ids are local to the slab."""
     nk, nj, ni = (int(x) for x in shape)
     if (nk - 1) * (nj - 1) * (ni - 1) >= MAX_CUBES:
         raise ValueError("grid too large for int32 cube ids")
-    dist, cases = classified_grid(tree, origin, res, (nk, nj, ni), device)
-    ids, idx8, tvals = compact_emit(dist, cases)
+    dist, cases = classified_grid(tree, origin, res, (nk, nj, ni), device, k0)
+    ids = compact_indices(cases)
+    idx8, tvals = compact_emit(dist, cases, ids)
+    return ids.cpu().numpy().view(np.uint32), idx8.cpu().numpy(), tvals.cpu().numpy()
+
+
+def compact_field_render_slabbed(tree, origin, res, shape, device, max_points):
+    """Compact-field render past the single-dispatch memory gate: one
+    dispatch per z-slab of at most `max_points` corners (k0 offsets, one
+    plane shared with the next slab); the slab payloads concatenate into
+    exactly the whole-grid payload (gsdf_tpu/ops/compact_field.py:556-632).
+
+    Returns (ids (A,) u32 GLOBAL cube ids, cases, tvals, corners
+    evaluated)."""
+    nk, nj, ni = (int(x) for x in shape)
+    nx, ny, nz = ni - 1, nj - 1, nk - 1
+    if nx * ny * nz >= MAX_CUBES:
+        raise ValueError("grid too large for int32 cube ids")
+    plane = nj * ni
+    n_slabs = max(1, -(-nk * plane // max(1, int(max_points))))
+    bounds_k = [nz * s // n_slabs for s in range(n_slabs + 1)]
+    n_points = 0
+    ids_parts, case_parts, t_parts = [], [], []
+    for k0, k1 in zip(bounds_k[:-1], bounds_k[1:]):
+        if k1 == k0:
+            continue  # more slabs than cube layers (tiny test gates)
+        slab_shape = (k1 - k0 + 1, nj, ni)
+        n_points += slab_shape[0] * plane
+        ids, cases, tvals = compact_field_render(tree, origin, res, slab_shape, device, k0)
+        ids_parts.append(ids + np.uint32(k0 * nx * ny))
+        case_parts.append(cases)
+        t_parts.append(tvals)
     return (
-        ids.to(torch.int32).cpu().numpy().view(np.uint32),
-        idx8.cpu().numpy(),
-        tvals.cpu().numpy(),
+        np.concatenate(ids_parts) if ids_parts else np.empty(0, np.uint32),
+        np.concatenate(case_parts) if case_parts else np.empty(0, np.uint8),
+        np.concatenate(t_parts) if t_parts else np.empty(0, _f32),
+        n_points,
     )

@@ -1,0 +1,22 @@
+"""One-pass soup render (gsdf_tpu/ops/fused_render.py:37-134): fused
+grid eval + classification (K1), compaction (K3), triangle emit (K7s),
+one fetch.
+
+The JAX package traced the whole render as one XLA executable with
+guessed buffer sizes and grew them on overflow; here each stage is a
+kernel and the sizes are exact device counts, so there is no size hint
+and no retry.
+"""
+from __future__ import annotations
+
+from ..eval.grid_kernels import classified_grid
+from .mc_emit import dense_grid_mc
+
+
+def fused_render(tree, origin, res, shape, device, k0: int = 0):
+    """Render one grid (or z-slab) of `shape` corner planes. k0 is the
+    slab's first plane in the whole grid: positions and the soup's z
+    coordinates then equal a whole-grid render bit for bit. Returns tris
+    np (T,3,3) float32."""
+    dist, cases = classified_grid(tree, origin, res, shape, device, k0)
+    return dense_grid_mc(dist, cases, origin, res, k0).cpu().numpy()

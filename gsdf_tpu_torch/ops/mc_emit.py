@@ -1,53 +1,45 @@
-"""Marching-cubes classification (gsdf_tpu/ops/mc_emit.py), plain torch.
+"""The shared marching-cubes pieces (gsdf_tpu/ops/mc_emit.py): every
+triangle path (fused soup, staged, welded) composes these.
 
 Conventions shared with the JAX package and the host decoder:
 - corner grid grid[k, j, i], z slowest;
 - cube linear id = (ck*ny + cj)*nx + ci (x fastest, the reference's
-  iteration order, flatrenderer.go:210-212);
-- corner order per marchcubes.go:222-233;
+  iteration order, flatrenderer.go:210-212, so triangle order matches);
+- corner order and winding per marchcubes.go:222-233 / :63-68;
 - corner-0 quick reject |d0| <= f32(2*sqrt3) * res in float32
   (marchcubes.go:23).
+
+Two of the device stages are hand-written CUDA kernels (csrc/), each
+beside its plain torch version: K3 `compact_indices` (the active cubes'
+ids, ascending) and K7s `emit_triangles` (the soup). On a CPU tensor a
+wrapper runs the plain version; on a CUDA tensor it launches its kernel
+or raises. Sizes are exact, read from a device count: no padding, no
+grow-and-retry.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from . import mc_tables
+from .. import kernels
 from ..core import mathx as mx
+from .mc_tables import (  # noqa: F401  (CORNER_OFFSETS .. LOW_EDGE_FAR re-exported)
+    CORNER_OFFSETS,
+    EDGE_AXIS,
+    EDGE_LOW,
+    LOW_EDGE_FAR,
+    MC_EDGE_PAIRS,
+    MC_TRI_COUNT,
+    MC_TRI_TABLE,
+)
 
 _f32 = np.float32
 
 # float32(2*sqrt3) with the reference's sqrt3 constant (glrender/glrender.go:9)
 CUBE_DIAG_FACTOR = np.float32(2 * 1.73205080757)
 MC_EPS = 1e-12
-
-# corner offsets (dx,dy,dz) in the reference's corner order
-CORNER_OFFSETS = np.array(
-    [
-        [0, 0, 0],
-        [1, 0, 0],
-        [1, 1, 0],
-        [0, 1, 0],
-        [0, 0, 1],
-        [1, 0, 1],
-        [1, 1, 1],
-        [0, 1, 1],
-    ],
-    dtype=np.int32,
-)
-
-# per cube-edge e: axis and low-corner offset; the owner cube of edge e of
-# cube c is c + low_offset, where it is the low edge `axis`
-EDGE_AXIS = []
-EDGE_LOW = []
-for _a, _b in mc_tables.MC_EDGE_PAIRS:
-    _oa = CORNER_OFFSETS[_a]
-    _ob = CORNER_OFFSETS[_b]
-    EDGE_AXIS.append(int(np.argmax(_oa != _ob)))
-    EDGE_LOW.append(np.minimum(_oa, _ob))
-EDGE_AXIS = np.array(EDGE_AXIS, np.int32)  # (12,)
-EDGE_LOW = np.array(EDGE_LOW, np.int32)  # (12,3)
+#: int32 cube ids: grids of this many cubes or more are sliced first
+MAX_CUBES = 1 << 31
 
 
 def quick_reject_threshold(res) -> np.float32:
@@ -94,3 +86,167 @@ def effective_cases(grid, res):
     """The classified-grid kernel's output: u8 case where active, else 0."""
     index, active = classify(grid, res)
     return torch.where(active, index, 0).to(torch.uint8)
+
+
+def cube_coords(ids, nx: int, ny: int):
+    """(ci, cj, ck) int64 of int cube ids, x fastest."""
+    ids = ids.to(torch.int64)
+    return ids % nx, (ids // nx) % ny, ids // (nx * ny)
+
+
+def gather_corners(grid_flat, base_lin, stride_j: int, stride_k: int):
+    """The 8 corner values per cube (A,8); base_lin (A,) is each cube's
+    corner-0 index in grid_flat, the strides its +j / +k steps."""
+    offs = torch.from_numpy(CORNER_OFFSETS.astype(np.int64)).to(base_lin.device)
+    gi = (
+        base_lin[:, None]
+        + offs[None, :, 2] * stride_k
+        + offs[None, :, 1] * stride_j
+        + offs[None, :, 0]
+    )
+    return grid_flat[gi]
+
+
+def corner_positions(origin, res, fi, fj, fk):
+    """Corner positions (A,8,3) from the float32 index coordinates of each
+    cube's corner 0, in the reference's arithmetic (flatrenderer.go:
+    235-247): origin + index*res, then + offset*res per corner."""
+    o = np.asarray(origin, _f32).reshape(3)
+    r = float(_f32(res))
+    base = torch.stack(
+        [float(o[0]) + fi * r, float(o[1]) + fj * r, float(o[2]) + fk * r], dim=-1
+    )  # (A,3)
+    offs = torch.from_numpy(CORNER_OFFSETS.astype(_f32)).to(base.device)
+    return base[:, None, :] + offs[None, :, :] * r  # (A,8,3)
+
+
+def edge_t(va, vb):
+    """(t, ca, cb) on edges from va to vb, the epsilon rules of
+    mcInterpolate (marchcubes.go:76-98): t = (0 - va) / (vb - va), or 0.5
+    where both ends lie within 1e-12 of zero; ca / cb mark an end that
+    does. Every path's interpolation goes through here (the CUDA kernels
+    through csrc/gsdf_scan.cuh's mc_edge_t)."""
+    eps = mx.const(MC_EPS, va)  # compared in float32, as the JAX package does
+    ca = torch.abs(va) < eps
+    cb = torch.abs(vb) < eps
+    return torch.where(ca & cb, 0.5, (0.0 - va) / (vb - va)), ca, cb
+
+
+def lerp_edges(va, vb, pa, pb):
+    """Edge points pa + t * (pb - pa) (..., 3), snapped to the end that
+    lies within 1e-12 of zero. va, vb (...) distances, pa, pb (..., 3)."""
+    t, ca, cb = edge_t(va, vb)
+    pt = pa + t[..., None] * (pb - pa)
+    pt = torch.where((cb & ~ca)[..., None], pb, pt)
+    return torch.where((ca & ~cb)[..., None], pa, pt)
+
+
+def interpolate_edges(v, pc):
+    """The 12 edge points per cube. v (A,8), pc (A,8,3) -> (A,12,3)."""
+    pairs = torch.from_numpy(MC_EDGE_PAIRS.astype(np.int64)).to(v.device)
+    return lerp_edges(v[:, pairs[:, 0]], v[:, pairs[:, 1]],
+                      pc[:, pairs[:, 0], :], pc[:, pairs[:, 1], :])
+
+
+def cube_bases(grid, ids):
+    """Each cube's corner-0 index in the flat grid, and (ci, cj, ck)."""
+    nk, nj, ni = grid.shape
+    ci, cj, ck = cube_coords(ids, ni - 1, nj - 1)
+    return (ck * nj + cj) * ni + ci, (ci, cj, ck)
+
+
+def check_kernel_inputs(grid, cases, ids):
+    """Check the inputs of an MC kernel; returns (device, A, nx, ny, nz)."""
+    nk, nj, ni = grid.shape
+    device = kernels.cuda_device(grid.device)
+    kernels.check_out(grid, (nk, nj, ni), torch.float32, device)
+    kernels.check_out(cases, (nk - 1, nj - 1, ni - 1), torch.uint8, device)
+    kernels.check_out(ids, (ids.numel(),), torch.int32, device)
+    return device, ids.numel(), ni - 1, nj - 1, nk - 1
+
+
+# --- K3: order-preserving compaction ------------------------------------
+def compact_indices_plain(cases):
+    """K3's plain version: ascending int32 ids of the non-zero bytes."""
+    return torch.nonzero(cases.reshape(-1)).squeeze(1).to(torch.int32)
+
+
+def compact_indices(cases):
+    """Ascending int32 ids of the non-zero case bytes of a u8 case grid
+    (K3; gsdf_tpu/ops/mc_emit.py:190-288 without its padding)."""
+    n = cases.numel()
+    if n >= MAX_CUBES:
+        raise ValueError(
+            f"compact_indices: {n} cubes exceed int32 ids (2^31); slice the grid first"
+        )
+    if cases.device.type == "cpu":
+        return compact_indices_plain(cases)
+    device = kernels.cuda_device(cases.device)
+    kernels.check_out(cases, tuple(cases.shape), torch.uint8, device)
+    if n == 0:
+        return torch.empty(0, dtype=torch.int32, device=device)
+    lib = kernels.static_lib("compact_active")
+    offsets = torch.empty(lib.gsdf_compact_blocks(n), dtype=torch.int64, device=device)
+    count = torch.empty(1, dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        s = kernels.stream(device)
+        kernels.check_rc("compact_active", lib.gsdf_compact_count(
+            cases.data_ptr(), n, offsets.data_ptr(), count.data_ptr(), s))
+        ids = torch.empty(int(count.item()), dtype=torch.int32, device=device)
+        if ids.numel():
+            kernels.check_rc("compact_active", lib.gsdf_compact_scatter(
+                cases.data_ptr(), n, offsets.data_ptr(), ids.data_ptr(), s))
+    kernels.LAUNCHES["compact_active"] += 1
+    return ids
+
+
+# --- K7s: the triangle soup ---------------------------------------------
+def emit_triangles_plain(grid, cases, ids, origin, res, k0=0):
+    """K7s's plain version (the torch port of the JAX package's
+    emit_triangles + corner_positions + interpolate_edges): (T,3,3) f32
+    triangles of the cubes `ids`, cube-then-table order, reversed winding.
+    k0 is added to the z index coordinate as a float32."""
+    base, (ci, cj, ck) = cube_bases(grid, ids)
+    nk, nj, ni = grid.shape
+    v = gather_corners(grid.reshape(-1), base, ni, nj * ni)  # (A,8)
+    fk = ck.to(torch.float32) + float(_f32(k0))
+    pc = corner_positions(origin, res, ci.to(torch.float32), cj.to(torch.float32), fk)
+    pt = interpolate_edges(v, pc)  # (A,12,3)
+    idx8 = cases.reshape(-1)[ids.to(torch.int64)].to(torch.int64)
+    table = torch.from_numpy(MC_TRI_TABLE.astype(np.int64)).to(grid.device)[idx8]
+    counts = torch.from_numpy(MC_TRI_COUNT.astype(np.int64)).to(grid.device)[idx8]
+    rows = torch.arange(len(ids), device=grid.device)[:, None, None]
+    tris = pt[rows, table.clamp(min=0)].flip(2)  # (A,5,3,3), reference winding
+    valid = torch.arange(5, device=grid.device)[None, :] < counts[:, None]
+    return tris[valid]
+
+
+def emit_triangles(grid, cases, ids, origin, res, k0=0):
+    """Triangle soup (T,3,3) f32 of the active cubes `ids` (K7s;
+    gsdf_tpu/ops/mc_emit.py:305-373). grid (nk,nj,ni) distances, cases
+    its u8 case grid, k0 the grid's plane offset in the whole grid."""
+    if grid.device.type == "cpu":
+        return emit_triangles_plain(grid, cases, ids, origin, res, k0)
+    device, A, nx, ny, _ = check_kernel_inputs(grid, cases, ids)
+    if A == 0:
+        return torch.empty((0, 3, 3), dtype=torch.float32, device=device)
+    lib = kernels.static_lib("emit_soup")
+    offsets = torch.empty(lib.gsdf_emit_soup_blocks(A), dtype=torch.int64, device=device)
+    total = torch.empty(1, dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        s = kernels.stream(device)
+        kernels.check_rc("emit_soup", lib.gsdf_emit_soup_count(
+            cases.data_ptr(), ids.data_ptr(), A, offsets.data_ptr(), total.data_ptr(), s))
+        tris = torch.empty((int(total.item()), 3, 3), dtype=torch.float32, device=device)
+        kernels.check_rc("emit_soup", lib.gsdf_emit_soup(
+            grid.data_ptr(), cases.data_ptr(), ids.data_ptr(), A, nx, ny,
+            *kernels.float_args(origin, res, k0), offsets.data_ptr(), tris.data_ptr(), s))
+    kernels.LAUNCHES["emit_soup"] += 1
+    return tris
+
+
+def dense_grid_mc(grid, cases, origin, res, k0=0):
+    """Marching cubes over a device-resident corner grid and its case
+    grid: compact (K3), then emit (K7s). Returns tris (T,3,3) on the
+    grid's device."""
+    return emit_triangles(grid, cases, compact_indices(cases), origin, res, k0)

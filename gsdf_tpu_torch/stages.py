@@ -1,0 +1,196 @@
+"""Stage breakdown of the FlatRenderer's three paths on a CUDA card.
+
+    python -m gsdf_tpu_torch.stages [--runs 7] [--out stages.json]
+
+For each path and part (compact on the five golden grids; soup and
+indexed on flange 400, showerhead 350 and flange 800) it runs the path's
+stages by hand, as FlatRenderer runs them, with a synchronise after each
+so the host clock splits one SDF->STL render into K1, K3, K4 / K7s / K7w,
+fetch, host decode or weld, and STL encode. It prints the median of each
+stage over the runs after the first two, and the device time that
+torch.profiler sums over one more render, with the idle share 1 - device
+time / wall time. Triangle counts must equal the golden counts.
+"""
+from __future__ import annotations
+
+import argparse
+import io
+import json
+import statistics
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from . import flagships, native
+from .eval.grid_kernels import classified_grid
+from .ops import compact_field, fused_welded, mc_emit
+from .render.flat import FlatRenderer
+from .render.stl import stl_header
+
+PARTS = {
+    ("flange", 400): flagships.GOLDEN_FLANGE_TRIS,
+    ("showerhead", 350): flagships.GOLDEN_SHOWERHEAD_TRIS,
+    ("flange", 800): flagships.GOLDEN_FLANGE_800_TRIS,
+    ("bolt", 300): flagships.GOLDEN_BOLT_TRIS,
+    ("knurled", 350): flagships.GOLDEN_KNURLED_TRIS,
+}
+
+
+class Clock:
+    """Host ms per stage; each lap synchronises the card first."""
+
+    def __init__(self):
+        self.ms = {}
+        self.t = time.perf_counter()
+
+    def lap(self, name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        self.ms[name] = self.ms.get(name, 0.0) + (now - self.t) * 1e3
+        self.t = now
+
+
+def _encode(c, verts=None, tri=None, soup=None):
+    buf = io.BytesIO()
+    if soup is not None:
+        buf.write(stl_header(len(soup)))
+        buf.write(native.stl_encode(soup))
+    else:
+        buf.write(stl_header(len(tri)))
+        buf.write(native.stl_encode_indexed(verts, tri))
+    c.lap("STL encode")
+
+
+def compact(fr, c):
+    dist, cases = classified_grid(fr.s, fr.origin, fr.res, fr.shape(), fr.device)
+    c.lap("K1")
+    ids = mc_emit.compact_indices(cases)
+    c.lap("K3")
+    idx8, t = compact_field.compact_emit(dist, cases, ids)
+    c.lap("K4")
+    payload = ids.cpu().numpy().view(np.uint32), idx8.cpu().numpy(), t.cpu().numpy()
+    c.lap("fetch")
+    verts, tri = native.mc_decode(*payload, fr.nx, fr.ny, fr.nz, fr.origin, fr.res)
+    c.lap("host decode")
+    _encode(c, verts, tri)
+    return len(tri), sum(a.nbytes for a in payload)
+
+
+def _soup(fr, c):
+    parts = []
+    for k0, shape in fr.soup_slabs():
+        dist, cases = classified_grid(fr.s, fr.origin, fr.res, shape, fr.device, k0)
+        c.lap("K1")
+        ids = mc_emit.compact_indices(cases)
+        c.lap("K3")
+        tris = mc_emit.emit_triangles(dist, cases, ids, fr.origin, fr.res, k0)
+        c.lap("K7s")
+        parts.append(tris.cpu().numpy())
+        c.lap("fetch")
+    if len(parts) == 1:
+        return parts[0]
+    soup = np.concatenate(parts)
+    c.lap("concat")
+    return soup
+
+
+def soup(fr, c):
+    tris = _soup(fr, c)
+    _encode(c, soup=tris)
+    return len(tris), tris.nbytes
+
+
+def indexed(fr, c):
+    nk, nj, ni = fr.shape()
+    if nk * nj * ni > fr.slab_cubes:  # FlatRenderer.render_indexed's gate
+        tris = _soup(fr, c)
+        verts, tri = native.weld(tris, 0.0)
+        c.lap("host weld")
+        nbytes = tris.nbytes
+    else:
+        dist, cases = classified_grid(fr.s, fr.origin, fr.res, fr.shape(), fr.device)
+        c.lap("K1")
+        ids = mc_emit.compact_indices(cases)
+        c.lap("K3")
+        v, t, unresolved = fused_welded.emit_welded(dist, cases, ids, fr.origin, fr.res)
+        c.lap("K7w")
+        verts, tri = v.cpu().numpy(), t.cpu().numpy()
+        c.lap("fetch")
+        if unresolved:
+            raise RuntimeError("unresolved owner cubes on a golden part")
+        nbytes = verts.nbytes + tri.nbytes
+    _encode(c, verts, tri)
+    return len(tri), nbytes
+
+
+def device_busy_ms(fn):
+    """(device ms summed by torch.profiler, wall ms) of one call of fn."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    return busy, wall
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--runs", type=int, default=7, help="renders per row; the first two warm up")
+    ap.add_argument("--out", help="also write the rows to this JSON file")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("stages: needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+    trees = {n: getattr(flagships, f"build_{n}")() for n in ("flange", "showerhead", "bolt",
+                                                               "knurled")}
+    rows = [("compact", compact, part) for part in PARTS]
+    rows += [(p, f, part) for p, f in (("soup", soup), ("indexed", indexed))
+             for part in list(PARTS)[:3]]
+    out = {"card": card}
+    for path, fn, (name, resdiv) in rows:
+        tree = trees[name]
+
+        def render(c):
+            fr = FlatRenderer(tree, tree.bounds().diagonal() / resdiv, dev)
+            return fn(fr, c)
+
+        runs = []
+        for _ in range(args.runs):
+            c = Clock()
+            ntris, nbytes = render(c)
+            if ntris != PARTS[(name, resdiv)]:
+                raise RuntimeError(f"{path} {name}@{resdiv}: {ntris} triangles, "
+                                   f"golden {PARTS[(name, resdiv)]}")
+            runs.append(c.ms)
+        keep = runs[2:] or runs
+        stages = {k: statistics.median(r[k] for r in keep) for k in keep[0]}
+        total = statistics.median(sum(r.values()) for r in keep)
+        busy, wall = device_busy_ms(lambda: render(Clock()))
+        kernel_ms = sum(v for k, v in stages.items() if k.startswith("K"))
+        out[f"{path} {name}@{resdiv}"] = {
+            "stages_ms": stages, "total_ms": total, "tris": ntris, "fetch_mb": nbytes / 1e6,
+            "kernel_stage_share": kernel_ms / total, "device_ms": busy,
+            "profiled_wall_ms": wall, "idle_share": 1 - busy / wall,
+        }
+        print(f"{path} {name}@{resdiv}: " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+              + f"; total {total:.3f} ms, kernel stages {kernel_ms / total:.3f} of it, "
+              f"{ntris} tris, fetch {nbytes / 1e6:.2f} MB, device {busy:.3f} ms, "
+              f"idle {1 - busy / wall:.3f} [{card}]", flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()
