@@ -9,17 +9,21 @@
    started together (sm_90a): K1 + K2 per tree, and the four
    tree-independent marching-cubes kernels K3 (compact_active), K4
    (compact_emit), K7s (emit_soup), K7w (emit_welded); prints ptxas'
-   registers and spills. Holds K2 (grid eval) and K1 (fused eval +
-   classify) against their plain torch versions: on the nine-type tree of
+   registers and spills. Holds K2 (grid eval) and K1 (eval + classify)
+   against their plain torch versions: on the nine-type tree of
    the first slice, on a tree holding each of the 55 node types, on
    seeded random CSG trees, and at every main-path grid shape (case grids
    exactly equal, distances within 1e-5 * max(1, |d|)). Holds K3, K4, K7s
-   and K7w against theirs on K1's grid of each of those trees: ids, case
-   bytes, counts and tri_idx exactly equal, t, soup and welded vertices
-   bit-identical. Holds all six once more on the second of flange 800's
-   two fused soup slabs, at its shape and plane offset k0. Times every
-   kernel against its plain version with CUDA events, in turns (plain,
-   kernel, kernel, plain), at the five main-path grids.
+   and K7w against theirs on K1's grid of each of those trees: ids, K4's
+   edge count and offsets, case bytes, counts and tri_idx exactly equal,
+   t, soup and welded vertices bit-identical. Holds all six once more on
+   the second of flange 800's two fused soup slabs, at its shape and
+   plane offset k0. Times every kernel against its plain version with
+   CUDA events, in turns (plain, kernel, kernel, plain; K3's library call
+   torch.nonzero inside them), at the five main-path grids, beside its
+   bound from this run's sizes (gsdf_tpu_torch/bounds.py: the tree's
+   operations per corner counted on the CPU, the MC kernels' from their
+   plain versions on these inputs) and K1's time over K2's.
 3. Drives each FlatRenderer path, every launch count set to 0 just before
    it and read just after (golden triangle counts exact; SDF->STL wall ms,
    median of warm renders after two warm-ups):
@@ -40,7 +44,8 @@
    - evaluate_grid, the dense-field entry point, on three grids.
    Also holds the threaded native mc_decode against the single-threaded
    numpy mc_decode_plain bit for bit on the flange-800 payload.
-4. Fails unless each kernel launched on every path that runs it.
+4. Fails unless each kernel launched on every path that runs it; prints
+   the launches per render of each path. A time fails nothing.
 
 The line before the last is nvidia-smi's card name and power limit; the
 last line is {"ok": true, "device": {...}}. Any failure exits non-zero
@@ -299,16 +304,19 @@ KERNELS = (
 )
 
 
-def mc_versions(dist, cases, ids, fr, k0=0):
+def mc_versions(dist, cases, comp, fr, k0=0):
     """(kernel, plain) callables of K3, K4, K7s and K7w on one grid whose
-    first plane is plane k0 of the whole grid."""
+    first plane is plane k0 of the whole grid; comp is K3's result (None
+    where only K3 is called)."""
     from gsdf_tpu_torch.ops import compact_field, fused_welded, mc_emit
 
     o, r = fr.origin, fr.res
+    ids = None if comp is None else comp.ids
     return {
-        "compact_active": (lambda: mc_emit.compact_indices(cases),
-                           lambda: mc_emit.compact_indices_plain(cases)),
-        "compact_emit": (lambda: compact_field.compact_emit(dist, cases, ids),
+        "compact_active": (lambda: mc_emit.compact_active(cases),
+                           lambda: mc_emit.compact_active_plain(cases)),
+        "compact_emit": (lambda: compact_field.compact_emit(dist, cases, ids, comp.n_t,
+                                                            comp.offsets),
                          lambda: compact_field.compact_emit_plain(dist, cases, ids)),
         "emit_soup": (lambda: mc_emit.emit_triangles(dist, cases, ids, o, r, k0),
                       lambda: mc_emit.emit_triangles_plain(dist, cases, ids, o, r, k0)),
@@ -325,23 +333,28 @@ def _max_abs(a, b) -> float:
 
 def mc_compare(name, tree, resdiv, dev, gk, slab=None):
     """K3, K4, K7s and K7w vs their plain versions on K1's grid (or soup
-    slab, at its plane offset k0): ids, case bytes, counts and tri_idx
-    exact, t and vertices bit-identical. Returns the max absolute error of
-    each kernel's output, the grid and the renderer (for timing); raises on
-    a disagreement."""
+    slab, at its plane offset k0): ids, K4's edge count and offsets, case
+    bytes, counts and tri_idx exact, t and vertices bit-identical. Returns
+    the max absolute error of each kernel's output, the grid, K3's result,
+    the renderer and the output sizes (for timing and bounds); raises on a
+    disagreement."""
     import torch
 
     fr, shape, k0 = grid_of(tree, resdiv, dev, slab)
     dist, cases = gk.classified_grid(tree, fr.origin, fr.res, shape, dev, k0)
     fns = mc_versions(dist, cases, None, fr)
-    ids, ref_ids = (f() for f in fns["compact_active"])
-    fns = mc_versions(dist, cases, ids, fr, k0)
+    comp, ref_comp = (f() for f in fns["compact_active"])
+    fns = mc_versions(dist, cases, comp, fr, k0)
     (idx8, t), (ref_idx8, ref_t) = (f() for f in fns["compact_emit"])
     tris, ref_tris = (f() for f in fns["emit_soup"])
     (verts, tri, unres), (ref_verts, ref_tri, ref_unres) = (f() for f in fns["emit_welded"])
     torch.cuda.synchronize()
+    ids = comp.ids
     checks = {
-        "compact_active": (torch.equal(ids, ref_ids), _max_abs(ids, ref_ids)),
+        "compact_active": (torch.equal(ids, ref_comp.ids) and comp.n_t == ref_comp.n_t
+                           and torch.equal(comp.offsets, ref_comp.offsets),
+                           max(_max_abs(ids, ref_comp.ids),
+                               _max_abs(comp.offsets, ref_comp.offsets))),
         "compact_emit": (torch.equal(idx8, ref_idx8) and torch.equal(t, ref_t),
                          max(_max_abs(t, ref_t), _max_abs(idx8, ref_idx8))),
         "emit_soup": (torch.equal(tris, ref_tris), _max_abs(tris, ref_tris)),
@@ -349,13 +362,15 @@ def mc_compare(name, tree, resdiv, dev, gk, slab=None):
                         and unres == ref_unres,
                         max(_max_abs(verts, ref_verts), _max_abs(tri, ref_tri))),
     }
-    log(f"  MC kernels {name:14s}: {len(ids)} active, {len(t)} t, {len(tris)} triangles, "
+    log(f"  MC kernels {name:14s}: {len(ids)} active, {comp.n_t} t, {len(tris)} triangles, "
         f"{len(verts)} welded vertices, {unres} unresolved corners; "
         + ", ".join(f"{k} {'exact' if ok else 'DIFFERS'}" for k, (ok, _) in checks.items()))
     bad = [k for k, (ok, _) in checks.items() if not ok]
     if bad:
         raise RuntimeError(f"{name}: {bad} differ from their plain versions")
-    return {k: err for k, (_, err) in checks.items()}, (dist, cases, ids, fr)
+    sizes = {"corners": dist.numel(), "cubes": cases.numel(), "active": len(ids),
+             "n_t": len(t), "tris": len(tris), "verts": len(verts)}
+    return {k: err for k, (_, err) in checks.items()}, (dist, cases, comp, fr, sizes)
 
 
 def counted(kernels, expected, fn):
@@ -385,10 +400,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     try:
-        from gsdf_tpu_torch import Builder, Flags, cli, flagships, kernels, native, with_bounds
+        from gsdf_tpu_torch import (
+            Builder, Flags, bounds, cli, flagships, kernels, native, with_bounds,
+        )
         from gsdf_tpu_torch.eval import grid_kernels as gk
         from gsdf_tpu_torch.forge import threads
         from gsdf_tpu_torch.geometry.boxes import Box
+        from gsdf_tpu_torch.ops import mc_emit
         from gsdf_tpu_torch.ops.compact_field import compact_field_render
         from gsdf_tpu_torch.render.flat import FlatRenderer
     except ImportError as e:
@@ -455,32 +473,59 @@ def main() -> int:
             mc_inputs[(name, resdiv)] = inputs
         del inputs
 
+    # bounds: the tree's operations per corner, counted on the CPU
+    ops_per_point = {name: bounds.tree_ops_per_point(trees[name])
+                     for name in dict.fromkeys(n for n, _ in MAIN_GRIDS)}
+    log(f"  tree operations per corner (plain torch on the CPU): {ops_per_point}")
     times = {}
     for name, resdiv in MAIN_GRIDS:
         tree = trees[name]
-        dist, cases, ids, fr = mc_inputs.pop((name, resdiv))
+        dist, cases, comp, fr, sizes = mc_inputs.pop((name, resdiv))
         args = (tree, fr.origin, fr.res, fr.shape(), dev)
         versions = {
             "classified_grid": (lambda: gk.classified_grid(*args),
                                 lambda: gk.classified_grid_plain(*args)),
             "grid_eval": (lambda: gk.evaluate_grid(*args), lambda: gk.evaluate_grid_plain(*args)),
-            **mc_versions(dist, cases, ids, fr),
+            **mc_versions(dist, cases, comp, fr),
         }
+        # one PyTorch call that computes the same function, timed as a
+        # yardstick (the port never calls it); the other kernels have none
+        library = {"compact_active": lambda: torch.nonzero(cases.reshape(-1))}
+        tree_ops = ops_per_point[name] * sizes["corners"]
+        ops = {"grid_eval": tree_ops,
+               "classified_grid": tree_ops + bounds.count_ops(
+                   mc_emit.effective_cases, dist, fr.res)[1]}
         row = {}
         for k, (kernel, plain) in versions.items():
-            # plain, kernel, kernel, plain: the two versions in turns
+            if k not in ops:
+                ops[k] = bounds.count_ops(plain)[1]  # the plain version on these inputs
+            lib = library.get(k)
+            # plain, (library), kernel, kernel, (library), plain: in turns
             p1 = cuda_ms(plain, 3)
+            l1 = cuda_ms(lib, 10) if lib else None
             k1, k2 = cuda_ms(kernel, 10), cuda_ms(kernel, 10)
-            row[k], row[f"{k}_plain"] = min(k1, k2), min(p1, cuda_ms(plain, 3))
+            l2 = cuda_ms(lib, 10) if lib else None
+            ms = min(k1, k2)
+            b = bounds.bound(ops[k], bounds.kernel_bytes(k, **sizes))
+            row[k] = {"ms": ms, "plain_ms": min(p1, cuda_ms(plain, 3)),
+                      "library_ms": min(l1, l2) if lib else None, **b,
+                      "share": b["bound_ms"] / ms,
+                      "published_fp32_share": b["published_fp32_ms"] / ms}
+        row["k1_over_k2"] = row["classified_grid"]["ms"] / row["grid_eval"]["ms"]
         times[f"{name}@{resdiv}"] = row
         log(f"  device ms {name}@{resdiv} grid {fr.shape()}: "
-            + ", ".join(f"{k} {v:.3f}" for k, v in row.items()) + f"  [{card}]")
-        del dist, cases, ids
+            + ", ".join(f"{k} {v['ms']:.3f} (bound {v['bound_ms']:.3f} by {v['bound_by']}, "
+                        f"share {v['share']:.2f}, plain {v['plain_ms']:.3f}"
+                        + (f", library {v['library_ms']:.3f})" if v["library_ms"] else ")")
+                        for k, v in row.items() if k != "k1_over_k2")
+            + f"; K1/K2 {row['k1_over_k2']:.3f}  [{card}]")
+        del dist, cases, comp
     torch.cuda.empty_cache()
 
     # --- phases 3 and 4: each path, counts from 0 around each run -------
     launches = {k: 0 for k in kernels.LAUNCHES}
     e2e = {}
+    per_render = {}  # launches per render of each kernel, per path and part
 
     def run(label, expected, fn):
         out, counts = counted(kernels, expected, fn)
@@ -511,6 +556,8 @@ def main() -> int:
             lambda: cli.bench_part(trees[name], resdiv, golden, reps, dev, path),
         )
         e2e[f"{path} {name}@{resdiv}"] = ms
+        per_render[f"{path} {name}@{resdiv}"] = {
+            k: n / (reps + 2) for k, n in counts.items() if n}  # two warm-ups + reps
         log(f"phase 3: {path} {name} resdiv {resdiv}: {ntris} triangles (golden {golden}), "
             f"SDF->STL warm median {ms:.2f} ms (runs {', '.join(f'{t:.2f}' for t in all_ms)}) "
             f"[{card}]")
@@ -523,9 +570,10 @@ def main() -> int:
         raise RuntimeError(f"flange 800's soup should run two fused slabs: {counts}")
     # the staged path evaluates the whole grid with K2 and emits at k0 = 0:
     # a slab offset dropped or misapplied in K1 or K7s shows as a difference
-    staged, _ = run("staged render(fused=False) flange@800, one whole grid",
-                    ("grid_eval", "compact_active", "emit_soup"),
-                    lambda: FlatRenderer(f800, res800, dev).render(fused=False))
+    staged, counts = run("staged render(fused=False) flange@800, one whole grid",
+                         ("grid_eval", "compact_active", "emit_soup"),
+                         lambda: FlatRenderer(f800, res800, dev).render(fused=False))
+    per_render["staged flange@800"] = {k: n for k, n in counts.items() if n}
     if len(soup) != flagships.GOLDEN_FLANGE_800_TRIS or not np.array_equal(staged, soup):
         raise RuntimeError("flange 800's two fused slabs differ from the staged whole-grid soup")
     log(f"phase 3: flange@800: the two fused slabs' soup equals the staged whole-grid soup "
@@ -579,7 +627,8 @@ def main() -> int:
             torch.cuda.synchronize()
             return field
 
-        field, _ = run(f"evaluate_grid {name}@{resdiv}", ("grid_eval",), dense)
+        field, counts = run(f"evaluate_grid {name}@{resdiv}", ("grid_eval",), dense)
+        per_render[f"evaluate_grid {name}@{resdiv}"] = {k: n for k, n in counts.items() if n}
         if not bool(torch.isfinite(field).all()):
             raise RuntimeError(f"evaluate_grid: non-finite distances on {name}")
         del field
@@ -609,12 +658,21 @@ def main() -> int:
             "replaces": replaces,
             "launches": launches[name],
             "max_abs_err": max_err[name],
-            "ms": t400[name],
-            "plain_ms": t400[f"{name}_plain"],
+            "ms": t400[name]["ms"],
+            "plain_ms": t400[name]["plain_ms"],
+            "bound_ms": t400[name]["bound_ms"],
+            "bound_by": t400[name]["bound_by"],
+            "library_ms": t400[name]["library_ms"],
+            "share": t400[name]["share"],
+            "launches_per_render": {
+                path: per_render[f"{path} flange@400"].get(name, 0)
+                for path in ("compact", "soup", "indexed")
+            },
         }
         for name, source, replaces in KERNELS
     ]
-    log(json.dumps({"build_s": build_s, "device_ms": times, "sdf_to_stl_ms": e2e}))
+    log(json.dumps({"build_s": build_s, "device_ms": times, "sdf_to_stl_ms": e2e,
+                    "launches_per_render": per_render}))
     log(json.dumps({"kernels": line}))
     log(card)
     log(json.dumps({

@@ -1,0 +1,137 @@
+"""Each kernel's bound: the least time the card could take for its work.
+
+    bound = max(ops / PEAK_OPS, bytes / HBM_BYTES_PER_S)
+
+- **Bytes** count each input byte read once and each output byte written
+  once (`kernel_bytes`), from this run's shapes and counts: a kernel that
+  reads a byte twice or keeps scratch of its own pays that above its bound.
+- **Ops** are the elementwise floating-point operations of the kernel's
+  plain torch version, counted by `OpCounter` (a TorchDispatchMode): each
+  arithmetic aten op whose inputs or output are floating point adds its
+  output's numel (a reduction: the elements it folds away). Casts, views,
+  indexing and fills count nothing, so `core.mathx._rounded`'s float64
+  detour counts as the one float32 op it stands for. For the tree
+  (K1, K2) `tree_ops_per_point` counts the plain tree on seeded points on
+  the CPU; the card's kernel evaluates the same expression.
+- **PEAK_OPS** is half the H100 SXM's published 67 TFLOP/s float32: that
+  peak counts a fused multiply-add as two operations, and the kernels are
+  built with -fmad=false (the golden counts need it), so every operation
+  issues alone. `PUBLISHED_FP32` is kept for the share against the data
+  sheet's figure.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+#: H100 SXM HBM3, NVIDIA's data sheet
+HBM_BYTES_PER_S = 3.35e12
+#: H100 SXM float32 outside the tensor cores, NVIDIA's data sheet (FMA = 2)
+PUBLISHED_FP32 = 67e12
+#: one operation per issue slot: the kernels contract no multiply-add
+PEAK_OPS = PUBLISHED_FP32 / 2
+
+#: elementwise aten ops counted as one operation per output element
+ELEMENTWISE = frozenset(
+    """add sub rsub mul div true_divide neg abs sign sgn sqrt rsqrt reciprocal
+    atan2 atan asin acos sin cos tan exp log pow floor ceil round trunc frac
+    remainder fmod minimum maximum fmin fmax clamp clamp_min clamp_max where
+    lt le gt ge eq ne isinf isnan logical_and logical_or logical_not""".split()
+)
+#: reductions, counted as the elements they fold away
+REDUCTIONS = frozenset("sum amax amin max min prod".split())
+
+
+def _is_float(x) -> bool:
+    return isinstance(x, torch.Tensor) and x.is_floating_point()
+
+
+class OpCounter(TorchDispatchMode):
+    """Counts the elementwise floating-point operations run inside it."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        name = func.overloadpacket.__name__.rstrip("_")
+        if name in ELEMENTWISE or name in REDUCTIONS:
+            flat = list(args) + list((kwargs or {}).values())
+            res = out[0] if isinstance(out, tuple) else out
+            binary = len(args) > 1 and isinstance(args[1], torch.Tensor)  # max(a, b)
+            if isinstance(res, torch.Tensor) and (_is_float(res) or any(map(_is_float, flat))):
+                if name in ELEMENTWISE or binary:
+                    self.ops += res.numel()
+                else:
+                    self.ops += args[0].numel() - res.numel()
+        return out
+
+
+def count_ops(fn, *args, **kwargs) -> tuple:
+    """(fn's result, the floating-point operations it ran)."""
+    with OpCounter() as counter:
+        out = fn(*args, **kwargs)
+    return out, counter.ops
+
+
+def tree_ops_per_point(tree, n: int = 256, seed: int = 0) -> int:
+    """The tree's floating-point operations per evaluated point: the plain
+    torch tree on 2n and on n seeded points in its bounds (CPU, float32);
+    the difference over n, so work on constants (per call, not per point)
+    drops out."""
+    bb = tree.bounds()
+    lo, hi = np.asarray(bb.min, np.float32), np.asarray(bb.max, np.float32)
+    pts = np.random.default_rng(seed).uniform(lo, hi, (2 * n, 3)).astype(np.float32)
+    p = torch.from_numpy(pts)
+    _, ops2 = count_ops(tree.distance, p)
+    _, ops1 = count_ops(tree.distance, p[:n].contiguous())
+    per, rest = divmod(ops2 - ops1, n)
+    if rest:
+        raise RuntimeError(f"the tree's operation count is not linear in points: {ops2 - ops1} / {n}")
+    return per
+
+
+def kernel_bytes(name: str, *, corners=0, cubes=0, active=0, n_t=0, tris=0, verts=0) -> int:
+    """Bytes a kernel must move: each input read once, each output written
+    once, from this run's shapes and counts.
+
+    - grid_eval (K2): writes 4 B per corner;
+    - classified_grid (K1): writes 4 B per corner and 1 B per cube;
+    - compact_active (K3): reads 1 B per cube, writes 4 B per active cube
+      (ids), 8 B per 256 active cubes (K4's offsets) and 16 B of counts;
+    - compact_emit (K4): reads per active cube its id, case byte and the
+      4 distances it interpolates (corner 0 and its owner edges' far ends),
+      K3's offsets; writes 1 B per active cube and 4 B per t;
+    - emit_soup (K7s): reads per active cube its id, case byte and 8
+      corner distances; writes 36 B per triangle;
+    - emit_welded (K7w): reads per active cube its id and case byte and the
+      4 owner-edge distances; writes 12 B per vertex and per triangle.
+    """
+    offsets = 8 * -(-active // 256)
+    per = {
+        "grid_eval": 4 * corners,
+        "classified_grid": 4 * corners + cubes,
+        "compact_active": cubes + 4 * active + offsets + 16,
+        "compact_emit": (4 + 1 + 16 + 1) * active + offsets + 4 * n_t,
+        "emit_soup": (4 + 1 + 32) * active + 36 * tris,
+        "emit_welded": (4 + 1 + 16) * active + 12 * verts + 12 * tris + 4,
+    }
+    return int(per[name])
+
+
+def bound(ops: int, nbytes: int) -> dict:
+    """The bound in ms and the limit that sets it ("operations" or
+    "bytes"), with both times."""
+    ops_ms = ops / PEAK_OPS * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
+        "ops": int(ops),
+        "bytes": int(nbytes),
+        "ops_ms": ops_ms,
+        "bytes_ms": bytes_ms,
+        "published_fp32_ms": ops / PUBLISHED_FP32 * 1e3,
+    }

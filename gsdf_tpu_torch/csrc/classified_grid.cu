@@ -1,4 +1,4 @@
-// K1: fused SDF grid evaluation + marching-cubes classification on Hopper.
+// K1: SDF grid evaluation + marching-cubes classification on Hopper.
 //
 // Replaces gsdf_tpu/eval/pallas_grid.py::pallas_classified_grid_fn (the
 // Pallas TPU kernel behind classified_grid_pallas). Outputs:
@@ -9,25 +9,34 @@
 //         or the case is 0 or 255 -- the TPU kernel's values
 //         (gsdf_tpu/ops/mc_emit.py:168-187).
 //
+// What bounds it on the card: the ALU, on the tree's operations at every
+// corner (gsdf_tpu_torch/bounds.py counts them); the bytes, 4 per corner
+// and 1 per cube, take a sixth of that time or less on the main-path parts.
+//
 // The TPU kernel carried the previous z-plane across sequential grid
-// steps in a VMEM ring. CUDA blocks run in no order, so here a block owns
-// a (kBY x kBX) column of cubes over `kz` cube layers and marches z in a
-// loop, keeping the previous corner plane in shared memory. It evaluates
-// the +1 halo row and column of corners itself (and the first plane of
-// its z-range, which the block below also evaluates): 297 corners per
-// 256 cubes per plane. A halo corner is bit-identical to its owner's
-// value because every position is origin + (float)global_index * res
-// from the corner's global integer index -- never a per-block origin.
-// Each corner's distance is written by exactly one block.
+// steps in a VMEM ring. CUDA blocks run in no order, so a fused kernel
+// needs a halo: evaluated twice (recompute) or shared through barriers
+// (which serialise the tree evaluation, the costly part). Instead two
+// launches on the stream:
+//   (a) eval_kernel: one thread per corner, every corner evaluated once,
+//       no barrier and no shared memory. Blocks tile each corner plane
+//       (nj * ni, 32-bit) in runs of 256, the plane index in blockIdx.y,
+//       so no thread divides in 64 bits and a plane's tail wastes at most
+//       one block's worth of threads;
+//   (b) classify_kernel: four consecutive cube ids per thread, one 4-byte
+//       store. A cube's eight corners sit on four corner rows one row or
+//       one plane apart; four cubes in one row read five values of each.
+//       Neighbouring threads read neighbouring values, and the rows are
+//       read again by the rows' other cubes from L2, which holds all of
+//       `dist` for grids up to 50 MB (every main-path grid but flange
+//       800, which reads it once more from device memory).
 //
-// What bounds it on the card: the ALU, on the tree's transcendentals and
-// loops, as in K2; the writes are 4 B per corner plus 1 B per cube.
-// Built with -fmad=false (see grid_eval.cu).
-//
+// Every position is origin + (float)global_index * res from the corner's
+// global integer index, as in K2, so K1's distances equal K2's bit for bit.
 // k0 is the slab's first corner plane in the whole grid (the soup and
 // compact paths' z-slab dispatch): plane k sits at oz + (float)(k0 + k) *
-// res, from the global integer index, so a slab's corners equal the whole
-// grid's bit for bit (the rule of gsdf_tpu/render/flat.py:87-92).
+// res, so a slab's corners equal the whole grid's bit for bit (the rule of
+// gsdf_tpu/render/flat.py:87-92). Built with -fmad=false (see grid_eval.cu).
 //
 // gsdf_tree.cuh is generated per tree by gsdf_tpu_torch/codegen/cuda.py.
 #include <cstdint>
@@ -37,80 +46,111 @@
 
 namespace {
 
-constexpr int kBX = 32;  // cubes per block along x
-constexpr int kBY = 8;   // cubes per block along y
-constexpr int kThreads = kBX * kBY;
-constexpr int kPlane = (kBY + 1) * (kBX + 1);  // corners per plane tile
+constexpr int kThreads = 256;
+constexpr int kCubes = 4;  // cube cases per classify thread: one 4-byte store
 
 __global__ void __launch_bounds__(kThreads)
-classified_grid_kernel(float* __restrict__ dist, uint8_t* __restrict__ cases,
-                       float ox, float oy, float oz, float res, float thr,
-                       int k0, int nk, int nj, int ni, int kz) {
-    __shared__ float plane[2][kPlane];
-    const int tid = threadIdx.x;
-    const int i0 = blockIdx.x * kBX;
-    const int j0 = blockIdx.y * kBY;
-    const int kc0 = blockIdx.z * kz;          // first cube layer
-    const int kc1 = min(kc0 + kz, nk - 1);    // corner plane past the last layer
-    const int nx = ni - 1, ny = nj - 1;
+eval_kernel(float* __restrict__ dist, float ox, float oy, float oz, float res,
+            int k0, int nj, int ni) {
+    const unsigned plane = (unsigned)nj * (unsigned)ni;
+    const unsigned c = blockIdx.x * kThreads + threadIdx.x;
+    if (c >= plane) return;
+    const int j = (int)(c / (unsigned)ni);
+    const int i = (int)(c - (unsigned)j * (unsigned)ni);
+    const int k = (int)blockIdx.y;
+    dist[(int64_t)k * plane + c] = gsdf_tree(ox + (float)i * res, oy + (float)j * res,
+                                             oz + (float)(k0 + k) * res);
+}
 
-    for (int k = kc0; k <= kc1; ++k) {
-        float* cur = plane[(k - kc0) & 1];
-        const float z = oz + (float)(k0 + k) * res;
-        // plane kc1 is the next z-block's first plane unless it is the last
-        const bool own_k = k < kc1 || k == nk - 1;
-        for (int c = tid; c < kPlane; c += kThreads) {
-            const int dj = c / (kBX + 1);
-            const int di = c - dj * (kBX + 1);
-            const int j = j0 + dj;
-            const int i = i0 + di;
-            float v = INFINITY;  // past the grid: sign bit 0, quick-rejected
-            if (j < nj && i < ni) {
-                v = gsdf_tree(ox + (float)i * res, oy + (float)j * res, z);
-                if (own_k && (di < kBX || i == ni - 1) && (dj < kBY || j == nj - 1))
-                    dist[((int64_t)k * nj + j) * ni + i] = v;
-            }
-            cur[c] = v;
+// The case byte of one cube from its 8 corner values in the corner order
+// of gsdf_tpu/ops/mc_emit.py CORNER_OFFSETS, with the quick reject.
+__device__ __forceinline__ unsigned cube_case(float v0, float v1, float v2, float v3,
+                                              float v4, float v5, float v6, float v7,
+                                              float thr) {
+    const unsigned cs = (unsigned)(v0 < 0.0f) | (unsigned)(v1 < 0.0f) << 1
+        | (unsigned)(v2 < 0.0f) << 2 | (unsigned)(v3 < 0.0f) << 3
+        | (unsigned)(v4 < 0.0f) << 4 | (unsigned)(v5 < 0.0f) << 5
+        | (unsigned)(v6 < 0.0f) << 6 | (unsigned)(v7 < 0.0f) << 7;
+    return (fabsf(v0) <= thr && cs != 0u && cs != 255u) ? cs : 0u;
+}
+
+// Cube i's case from the corner rows at (j, k), (j+1, k), (j, k+1), (j+1, k+1).
+__device__ __forceinline__ unsigned row_case(const float* r00, const float* r10,
+                                             const float* r01, const float* r11, int i,
+                                             float thr) {
+    return cube_case(r00[i], r00[i + 1], r10[i + 1], r10[i], r01[i], r01[i + 1],
+                     r11[i + 1], r11[i], thr);
+}
+
+__global__ void __launch_bounds__(kThreads)
+classify_kernel(const float* __restrict__ dist, uint8_t* __restrict__ cases,
+                float thr, int nk, int nj, int ni) {
+    const int nx = ni - 1, ny = nj - 1;
+    const unsigned n = (unsigned)nx * (unsigned)ny * (unsigned)(nk - 1);  // < 2^31
+    const unsigned id0 = (blockIdx.x * kThreads + threadIdx.x) * kCubes;
+    if (id0 >= n) return;
+    const unsigned row = id0 / (unsigned)nx;  // cube row (k, j)
+    int i = (int)(id0 - row * (unsigned)nx);
+    int j = (int)(row % (unsigned)ny);
+    int k = (int)(row / (unsigned)ny);
+    const int64_t plane = (int64_t)nj * ni;
+    const float* r00 = dist + (int64_t)k * plane + (int64_t)j * ni;
+    unsigned word = 0;
+    if (i + kCubes <= nx && id0 + kCubes <= n) {
+        // the four cubes share one row: five values of each corner row
+        float a[kCubes + 1], b[kCubes + 1], c[kCubes + 1], d[kCubes + 1];
+#pragma unroll
+        for (int t = 0; t <= kCubes; ++t) {
+            a[t] = r00[i + t];
+            b[t] = r00[ni + i + t];
+            c[t] = r00[plane + i + t];
+            d[t] = r00[plane + ni + i + t];
         }
-        __syncthreads();
-        if (k > kc0) {
-            const float* lo = plane[(k - 1 - kc0) & 1];
-            const int tx = tid % kBX;
-            const int ty = tid / kBX;
-            const int i = i0 + tx;
-            const int j = j0 + ty;
-            if (i < nx && j < ny) {
-                // corner order of gsdf_tpu/ops/mc_emit.py CORNER_OFFSETS
-                const int a = ty * (kBX + 1) + tx;
-                const float c0 = lo[a];
-                const int cs = (int)(c0 < 0.0f)
-                    | (int)(lo[a + 1] < 0.0f) << 1
-                    | (int)(lo[a + kBX + 2] < 0.0f) << 2
-                    | (int)(lo[a + kBX + 1] < 0.0f) << 3
-                    | (int)(cur[a] < 0.0f) << 4
-                    | (int)(cur[a + 1] < 0.0f) << 5
-                    | (int)(cur[a + kBX + 2] < 0.0f) << 6
-                    | (int)(cur[a + kBX + 1] < 0.0f) << 7;
-                const bool keep = fabsf(c0) <= thr && cs != 0 && cs != 255;
-                cases[((int64_t)(k - 1) * ny + j) * nx + i] = keep ? (uint8_t)cs : 0;
+#pragma unroll
+        for (int q = 0; q < kCubes; ++q)
+            word |= cube_case(a[q], a[q + 1], b[q + 1], b[q], c[q], c[q + 1], d[q + 1],
+                              d[q], thr) << (8 * q);
+    } else {
+        for (int q = 0; q < kCubes && id0 + q < n; ++q) {
+            word |= row_case(r00, r00 + ni, r00 + plane, r00 + plane + ni, i, thr) << (8 * q);
+            if (++i == nx) {  // the run wraps to the next cube row
+                i = 0;
+                if (++j == ny) {
+                    j = 0;
+                    ++k;
+                }
+                r00 = dist + (int64_t)k * plane + (int64_t)j * ni;
             }
         }
-        __syncthreads();  // `lo` is overwritten by the next plane
+    }
+    if (id0 + kCubes <= n) {
+        *reinterpret_cast<uint32_t*>(cases + id0) = word;  // 4-aligned: id0 % 4 == 0
+    } else {
+        for (unsigned q = 0; id0 + q < n; ++q) cases[id0 + q] = (uint8_t)(word >> (8 * q));
     }
 }
 
 }  // namespace
 
-// Launches on `stream`; returns cudaGetLastError() (0 = launched).
+// Launches (a) then (b) on `stream`; returns cudaGetLastError() (0 =
+// launched). `cases` must be 4-byte aligned (a fresh torch allocation).
 extern "C" int gsdf_classified_grid(float* dist, uint8_t* cases, float ox,
                                     float oy, float oz, float res, float thr,
-                                    int k0, int nk, int nj, int ni, int kz,
-                                    void* stream) {
-    if (nk < 2 || nj < 2 || ni < 2 || kz < 1) return (int)cudaErrorInvalidValue;
-    const dim3 grid((ni - 1 + kBX - 1) / kBX, (nj - 1 + kBY - 1) / kBY,
-                    (nk - 1 + kz - 1) / kz);
-    if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidConfiguration;
-    classified_grid_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        dist, cases, ox, oy, oz, res, thr, k0, nk, nj, ni, kz);
+                                    int k0, int nk, int nj, int ni, void* stream) {
+    if (nk < 2 || nj < 2 || ni < 2) return (int)cudaErrorInvalidValue;
+    const int64_t plane = (int64_t)nj * ni;
+    const int64_t n_cubes = (int64_t)(nk - 1) * (nj - 1) * (ni - 1);
+    if (plane > 0x7fffffffLL || n_cubes >= (1LL << 31) ||
+        (reinterpret_cast<uintptr_t>(cases) & 3) != 0)
+        return (int)cudaErrorInvalidValue;
+    if (nk > 65535) return (int)cudaErrorInvalidConfiguration;
+    const cudaStream_t s = (cudaStream_t)stream;
+    const dim3 eval_grid((unsigned)((plane + kThreads - 1) / kThreads), (unsigned)nk);
+    eval_kernel<<<eval_grid, kThreads, 0, s>>>(dist, ox, oy, oz, res, k0, nj, ni);
+    int rc = (int)cudaGetLastError();
+    if (rc != 0) return rc;
+    const int64_t per_block = (int64_t)kThreads * kCubes;
+    classify_kernel<<<(unsigned)((n_cubes + per_block - 1) / per_block), kThreads, 0, s>>>(
+        dist, cases, thr, nk, nj, ni);
     return (int)cudaGetLastError();
 }

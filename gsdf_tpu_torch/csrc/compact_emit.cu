@@ -11,8 +11,9 @@
 //     within 1e-12 of zero, else 1 or 0 where one end is, else
 //     (0 - v0) / (vfar - v0);
 //   - the t of the crossing edges only, compacted cube-major with axis
-//     order x, y, z, at offsets from a hand-written scan of the crossing
-//     counts (0-3 per cube, from the case byte's sign bits).
+//     order x, y, z. The crossing counts (0-3 per cube, from the case
+//     byte's sign bits) are scanned by K3 (compact_active.cu), which
+//     writes each 256-cube block's offset and the total: one launch here.
 // The host decoder (native mc_decode) rebuilds the mesh from ids, case
 // bytes and t.
 //
@@ -36,17 +37,6 @@ __device__ __forceinline__ float owner_edge_t(float v0, float vf) {
     if (e.cb && !e.ca) return 1.0f;
     if (e.ca && !e.cb) return 0.0f;
     return e.t;
-}
-
-__global__ void __launch_bounds__(kThreads)
-count_kernel(const uint8_t* __restrict__ cases, const int32_t* __restrict__ ids,
-             long long A, long long* __restrict__ block_sums) {
-    __shared__ long long warp_sums[kThreads / 32];
-    const long long a = (long long)blockIdx.x * kThreads + threadIdx.x;
-    const long long n = a < A ? gsdf::n_cross(cases[ids[a]]) : 0;
-    long long total;
-    gsdf::block_exclusive_scan<kThreads>(n, &total, warp_sums);
-    if (threadIdx.x == 0) block_sums[blockIdx.x] = total;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -77,26 +67,8 @@ emit_kernel(const float* __restrict__ grid, const uint8_t* __restrict__ cases,
 
 }  // namespace
 
-// int64 scratch entries (block sums) for A active cubes; -1 if too many.
-extern "C" long long gsdf_compact_emit_blocks(long long A) {
-    return gsdf::blocks_for(A, kThreads);
-}
-
-// Launches 1 and 2: block_sums becomes the block offsets of the t array,
-// *total the number of crossing owner edges. Returns cudaGetLastError().
-extern "C" int gsdf_compact_emit_count(const uint8_t* cases, const int32_t* ids,
-                                       long long A, long long* block_sums,
-                                       long long* total, void* stream) {
-    const long long blocks = gsdf::blocks_for(A, kThreads);
-    if (A <= 0 || blocks < 0) return (int)cudaErrorInvalidValue;
-    const cudaStream_t s = (cudaStream_t)stream;
-    count_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(cases, ids, A, block_sums);
-    const int rc = (int)cudaGetLastError();
-    if (rc != 0) return rc;
-    return gsdf::scan_sums(block_sums, blocks, total, s);
-}
-
-// Launch 3: idx8 (A) case bytes and tvals (total) crossing-edge t.
+// idx8 (A) case bytes and tvals (K3's edge count) crossing-edge t, at
+// the block offsets K3 wrote. Returns cudaGetLastError().
 extern "C" int gsdf_compact_emit(const float* grid, const uint8_t* cases,
                                  const int32_t* ids, long long A, int nx, int ny,
                                  const long long* block_offsets, uint8_t* idx8,

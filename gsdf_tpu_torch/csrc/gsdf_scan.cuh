@@ -1,17 +1,23 @@
 // Hand-written scans and edge arithmetic shared by the marching-cubes
-// kernels (K3, K4, K7s, K7w). Every kernel that compacts follows one
-// pattern of three launches:
+// kernels (K3, K4, K7s, K7w). Item order is kept everywhere: block b's
+// items precede block b+1's, and a block's threads cover consecutive
+// items. Two ways to compact:
 //
+// - K3 (compact_active.cu) in one pass, with decoupled look-back: a block
+//   takes its tile from a ticket, publishes its tile's sum, finds the sum
+//   of the tiles before it from their published words (look_back), then
+//   writes at that prefix + thread prefix. The wrapper reads the totals
+//   once, after the pass, and hands K4 the offsets K3 wrote for it.
+// - K7s and K7w in three launches:
 //   1. count: each block sums its items' output counts into
 //      block_sums[blockIdx.x];
-//   2. scan_sums (this file): one block turns block_sums into exclusive
-//      block offsets in place and writes the grand total;
+//   2. scan_sums: one block turns block_sums into exclusive block
+//      offsets in place and writes the grand total;
 //   3. write: each block recounts, scans its threads' counts
-//      (block_exclusive_scan) and writes at block offset + thread prefix.
+//      (block_exclusive_scan) and writes at block offset + thread prefix;
+//   the wrapper reads the total between 2 and 3 to allocate exactly.
 //
-// Item order is kept: block b's items precede block b+1's, and a block's
-// threads cover consecutive items. The wrapper reads the total between 2
-// and 3 to allocate exact outputs (a device count, no grow-and-retry).
+// Either way sizes come from a device count: no grow-and-retry.
 #pragma once
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -77,6 +83,76 @@ inline int scan_sums(long long* sums, long long n, long long* total,
                      cudaStream_t stream) {
     scan_sums_kernel<<<1, kScanThreads, 0, stream>>>(sums, n, total);
     return (int)cudaGetLastError();
+}
+
+// --- decoupled look-back (single-pass scan across blocks) ---------------
+// A tile's status is one 64-bit word per running sum: the flag in the top
+// two bits (0 = not yet published, kAggregate = the tile's own sum,
+// kPrefix = the inclusive sum of every tile up to it), the value below.
+// The words start at 0 (the wrapper clears them on the stream before each
+// launch), and a tile waits only on tiles that took earlier tickets, which
+// are already running, so the wait always ends. A tile publishes its
+// words as a pair, aggregates first and prefixes second: a reader takes a
+// tile's pair only when both words carry the same flag.
+constexpr unsigned long long kAggregate = 1ull << 62;
+constexpr unsigned long long kPrefix = 2ull << 62;
+constexpr unsigned long long kFlags = 3ull << 62;
+
+__device__ __forceinline__ void store_relaxed(unsigned long long* word, unsigned long long v) {
+    asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(word), "l"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long load_relaxed(const unsigned long long* word) {
+    unsigned long long v;
+    asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(word) : "memory");
+    return v;
+}
+
+// Tile `tile`'s two words (in arrays a and b) become flag | va and flag | vb.
+__device__ __forceinline__ void publish(unsigned long long* a, unsigned long long* b,
+                                        long long tile, unsigned long long flag, long long va,
+                                        long long vb) {
+    __threadfence();
+    store_relaxed(a + tile, flag | (unsigned long long)va);
+    store_relaxed(b + tile, flag | (unsigned long long)vb);
+}
+
+// Exclusive prefixes (*ea, *eb) of tile `tile` over the word pairs of
+// tiles [0, tile), by one whole warp. Each lane reads one predecessor,
+// nearest first, with relaxed loads that are all in flight together and
+// one fence after them (an acquire load each would wait for the one
+// before it), so a window of 32 tiles costs one round trip to L2; the
+// window's pairs are summed up to the nearest kPrefix, else wholly, and
+// the window moves back.
+__device__ __forceinline__ void look_back(const unsigned long long* a,
+                                          const unsigned long long* b, long long tile,
+                                          long long* ea, long long* eb) {
+    const int lane = threadIdx.x & 31;
+    long long sa = 0, sb = 0;
+    for (long long end = tile;; end -= 32) {
+        const long long p = end - 1 - lane;
+        unsigned long long wa, wb;
+        do {
+            wa = p >= 0 ? load_relaxed(a + p) : kPrefix;  // before tile 0: a prefix of 0
+            wb = p >= 0 ? load_relaxed(b + p) : kPrefix;
+        } while (!__all_sync(0xffffffffu,
+                             (wa & kFlags) != 0 && (wa & kFlags) == (wb & kFlags)));
+        __threadfence();  // acquire: the window's words before what follows
+        const unsigned prefixes = __ballot_sync(0xffffffffu, (wa & kFlags) == kPrefix);
+        const int stop = prefixes ? __ffs(prefixes) - 1 : 31;  // the nearest prefix
+        long long va = lane <= stop ? (long long)(wa & ~kFlags) : 0;
+        long long vb = lane <= stop ? (long long)(wb & ~kFlags) : 0;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+            va += __shfl_xor_sync(0xffffffffu, va, o);
+            vb += __shfl_xor_sync(0xffffffffu, vb, o);
+        }
+        sa += va;
+        sb += vb;
+        if (prefixes) break;
+    }
+    *ea = sa;
+    *eb = sb;
 }
 
 // Blocks of kThreads covering n items, or -1 past the grid's x limit.

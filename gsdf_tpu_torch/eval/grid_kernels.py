@@ -3,9 +3,10 @@ Pallas TPU kernels (gsdf_tpu/eval/pallas_grid.py).
 
 - K2 `evaluate_grid`: distances at every corner of an (nk, nj, ni) grid,
   positions synthesised in-kernel (pallas_grid_eval_fn, :108-170).
-- K1 `classified_grid`: the same evaluation fused with marching-cubes
-  classification, the first stage of FlatRenderer.render_compact
-  (pallas_classified_grid_fn, :187-346).
+- K1 `classified_grid`: the same evaluation and the marching-cubes
+  classification, the first stage of every FlatRenderer path
+  (pallas_classified_grid_fn, :187-346); one wrapper call launches its
+  eval pass and its classify pass.
 
 Both are hand-written CUDA C++ templates (gsdf_tpu_torch/csrc/) around
 the per-tree distance function that codegen/cuda.py generates; nvcc
@@ -42,9 +43,6 @@ from ..ops import mc_emit
 _f32 = np.float32
 
 TEMPLATES = ("grid_eval.cu", "classified_grid.cu")
-#: cube layers a K1 block marches (the first plane is shared with the
-#: block below, so evaluations grow by 1/KZ)
-KZ = 16
 
 _SIGNATURES = {
     "gsdf_grid_eval": (
@@ -53,7 +51,7 @@ _SIGNATURES = {
     ),
     "gsdf_classified_grid": (
         ctypes.c_int,
-        [ctypes.c_void_p] * 2 + [ctypes.c_float] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 2 + [ctypes.c_float] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     ),
 }
 
@@ -153,7 +151,7 @@ def evaluate_grid(tree, origin, res, shape, device, k0: int = 0):
 
 
 def classified_grid(tree, origin, res, shape, device, k0: int = 0):
-    """Fused eval + classify (K1): (dist (nk,nj,ni) f32, cases
+    """Eval + classify (K1): (dist (nk,nj,ni) f32, cases
     (nk-1,nj-1,ni-1) u8), the case 0 where the cube is inactive. k0 is the
     slab's first plane in the whole grid."""
     nk, nj, ni = _shape(shape)
@@ -172,7 +170,7 @@ def classified_grid(tree, origin, res, shape, device, k0: int = 0):
     with torch.cuda.device(device):
         rc = lib.gsdf_classified_grid(
             dist.data_ptr(), cases.data_ptr(), ox, oy, oz, r, thr,
-            int(k0), nk, nj, ni, KZ, stream(device),
+            int(k0), nk, nj, ni, stream(device),
         )
     check_rc("classified_grid", rc)
     LAUNCHES["classified_grid"] += 1

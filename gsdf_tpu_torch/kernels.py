@@ -5,8 +5,9 @@ tree-independent marching-cubes kernels.
 Kernels (all hand-written CUDA C++ in gsdf_tpu_torch/csrc/, nvcc sm_90a):
 
 - K1 `classified_grid`, K2 `grid_eval`: per tree (eval/grid_kernels.py);
-- K3 `compact_active`: order-preserving compaction of the active cubes
-  (ops/mc_emit.py::compact_indices);
+- K3 `compact_active`: order-preserving compaction of the active cubes,
+  with the crossing-edge count and offsets K4 needs
+  (ops/mc_emit.py::compact_active);
 - K4 `compact_emit`: the compact payload's case bytes and owner-edge t
   (ops/compact_field.py::compact_emit);
 - K7s `emit_soup`: triangle soup (ops/mc_emit.py::emit_triangles);
@@ -61,13 +62,10 @@ _F = ctypes.c_float
 #: the four tree-independent kernels' C entry points (source = name.cu)
 STATIC_KERNELS = {
     "compact_active": {
-        "gsdf_compact_blocks": (_I64, [_I64]),
-        "gsdf_compact_count": (_I, [_V, _I64, _V, _V, _V]),
-        "gsdf_compact_scatter": (_I, [_V, _I64, _V, _V, _V]),
+        "gsdf_compact_work": (_I64, [_I64]),
+        "gsdf_compact_active": (_I, [_V, _I64, _V, _V, _V]),
     },
     "compact_emit": {
-        "gsdf_compact_emit_blocks": (_I64, [_I64]),
-        "gsdf_compact_emit_count": (_I, [_V, _V, _I64, _V, _V, _V]),
         "gsdf_compact_emit": (_I, [_V, _V, _V, _I64, _I, _I, _V, _V, _V, _V]),
     },
     "emit_soup": {

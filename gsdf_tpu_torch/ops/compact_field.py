@@ -10,7 +10,8 @@ compacted cube-major with axes x, y, z (K4). The host walks the MC tables
 The JAX package packs ids as u8 deltas for its slow device link
 (compact_field.py:22-30, :91-147); the port fetches ids (u32), cases (u8)
 and t (f32) as they are, with identical decoded arrays. Sizes come from
-device counts, so there is no grow-and-retry and no size hint.
+one read of K3's device counts, so there is no grow-and-retry and no size
+hint.
 """
 from __future__ import annotations
 
@@ -19,10 +20,12 @@ import torch
 
 from .. import kernels
 from ..eval.grid_kernels import classified_grid
-from .mc_emit import (
+from .mc_emit import (  # noqa: F401  (crossing re-exported)
+    EMIT_BLOCK,
     MAX_CUBES,
     check_kernel_inputs,
-    compact_indices,
+    compact_active,
+    crossing,
     cube_bases,
     edge_t,
 )
@@ -39,15 +42,6 @@ def _owner_edge_t(v0, vfar):
     return t
 
 
-def crossing(idx8):
-    """(A,3) bool: which owner edges x, y, z cross, from the sign bits."""
-    b0 = idx8 & 1
-    return torch.stack(
-        [b0 != ((idx8 >> 1) & 1), b0 != ((idx8 >> 3) & 1), b0 != ((idx8 >> 4) & 1)],
-        dim=-1,
-    )
-
-
 # --- K4: the compact emit -----------------------------------------------
 def compact_emit_plain(grid, cases, ids):
     """K4's plain version: (case bytes (A,) u8, t (V,) f32)."""
@@ -60,30 +54,33 @@ def compact_emit_plain(grid, cases, ids):
     return idx8, t[crossing(idx8)]  # boolean mask: cube-major, x,y,z
 
 
-def compact_emit(grid, cases, ids):
+def compact_emit(grid, cases, ids, n_t=None, offsets=None):
     """grid (nk,nj,ni) corner distances, cases (nk-1,nj-1,ni-1) u8
     effective cases, ids the active cubes (K3) -> (case bytes u8, t f32)
-    (K4; gsdf_tpu/ops/compact_field.py:217-261)."""
+    (K4; gsdf_tpu/ops/compact_field.py:217-261). n_t and offsets are K3's
+    edge count and offsets for these ids; without them the wrapper runs K3
+    on `cases` for them (K4 has no count pass of its own)."""
     if grid.device.type == "cpu":
         return compact_emit_plain(grid, cases, ids)
     device, A, nx, ny, _ = check_kernel_inputs(grid, cases, ids)
+    if n_t is None or offsets is None:
+        comp = compact_active(cases)
+        if len(comp.ids) != A:
+            raise ValueError(f"compact_emit: {A} ids, but the case grid has {len(comp.ids)} active")
+        n_t, offsets = comp.n_t, comp.offsets
     if A == 0:
         return (
             torch.empty(0, dtype=torch.uint8, device=device),
             torch.empty(0, dtype=torch.float32, device=device),
         )
+    kernels.check_out(offsets, (-(-A // EMIT_BLOCK),), torch.int64, device)
     lib = kernels.static_lib("compact_emit")
-    offsets = torch.empty(lib.gsdf_compact_emit_blocks(A), dtype=torch.int64, device=device)
-    total = torch.empty(1, dtype=torch.int64, device=device)
     idx8 = torch.empty(A, dtype=torch.uint8, device=device)
+    tvals = torch.empty(int(n_t), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
-        s = kernels.stream(device)
-        kernels.check_rc("compact_emit", lib.gsdf_compact_emit_count(
-            cases.data_ptr(), ids.data_ptr(), A, offsets.data_ptr(), total.data_ptr(), s))
-        tvals = torch.empty(int(total.item()), dtype=torch.float32, device=device)
         kernels.check_rc("compact_emit", lib.gsdf_compact_emit(
             grid.data_ptr(), cases.data_ptr(), ids.data_ptr(), A, nx, ny,
-            offsets.data_ptr(), idx8.data_ptr(), tvals.data_ptr(), s))
+            offsets.data_ptr(), idx8.data_ptr(), tvals.data_ptr(), kernels.stream(device)))
     kernels.LAUNCHES["compact_emit"] += 1
     return idx8, tvals
 
@@ -97,8 +94,8 @@ def compact_field_render(tree, origin, res, shape, device, k0: int = 0):
     if (nk - 1) * (nj - 1) * (ni - 1) >= MAX_CUBES:
         raise ValueError("grid too large for int32 cube ids")
     dist, cases = classified_grid(tree, origin, res, (nk, nj, ni), device, k0)
-    ids = compact_indices(cases)
-    idx8, tvals = compact_emit(dist, cases, ids)
+    ids, n_t, offsets = compact_active(cases)  # the one count read before the fetch
+    idx8, tvals = compact_emit(dist, cases, ids, n_t, offsets)
     return ids.cpu().numpy().view(np.uint32), idx8.cpu().numpy(), tvals.cpu().numpy()
 
 

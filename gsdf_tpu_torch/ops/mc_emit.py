@@ -10,13 +10,16 @@ Conventions shared with the JAX package and the host decoder:
   (marchcubes.go:23).
 
 Two of the device stages are hand-written CUDA kernels (csrc/), each
-beside its plain torch version: K3 `compact_indices` (the active cubes'
-ids, ascending) and K7s `emit_triangles` (the soup). On a CPU tensor a
+beside its plain torch version: K3 `compact_active` (the active cubes'
+ids, ascending, with K4's edge count and offsets) and K7s
+`emit_triangles` (the soup). On a CPU tensor a
 wrapper runs the plain version; on a CUDA tensor it launches its kernel
 or raises. Sizes are exact, read from a device count: no padding, no
 grow-and-retry.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -166,38 +169,76 @@ def check_kernel_inputs(grid, cases, ids):
 
 
 # --- K3: order-preserving compaction ------------------------------------
+#: active cubes per block of K4's emit kernel (csrc/compact_emit.cu)
+EMIT_BLOCK = 256
+
+
+class Compaction(NamedTuple):
+    """K3's outputs: ids (A,) int32 of the active cubes, ascending; n_t
+    the number of their crossing owner edges; offsets (ceil(A/256),) int64
+    the crossing edges before every 256th active cube (K4's offsets)."""
+
+    ids: torch.Tensor
+    n_t: int
+    offsets: torch.Tensor
+
+
+def crossing(idx8):
+    """(A,3) bool: which owner edges x, y, z cross, from the sign bits."""
+    b0 = idx8 & 1
+    return torch.stack(
+        [b0 != ((idx8 >> 1) & 1), b0 != ((idx8 >> 3) & 1), b0 != ((idx8 >> 4) & 1)],
+        dim=-1,
+    )
+
+
 def compact_indices_plain(cases):
-    """K3's plain version: ascending int32 ids of the non-zero bytes."""
+    """The ids of K3's plain version: ascending int32 ids of the non-zero
+    bytes."""
     return torch.nonzero(cases.reshape(-1)).squeeze(1).to(torch.int32)
 
 
-def compact_indices(cases):
-    """Ascending int32 ids of the non-zero case bytes of a u8 case grid
-    (K3; gsdf_tpu/ops/mc_emit.py:190-288 without its padding)."""
+def compact_active_plain(cases) -> Compaction:
+    """K3's plain version."""
+    ids = compact_indices_plain(cases)
+    n_cross = crossing(cases.reshape(-1)[ids.to(torch.int64)]).sum(1)
+    before = torch.cumsum(n_cross, 0) - n_cross
+    return Compaction(ids, int(n_cross.sum()), before[::EMIT_BLOCK])
+
+
+def compact_active(cases) -> Compaction:
+    """Compaction of the non-zero case bytes of a u8 case grid (K3;
+    gsdf_tpu/ops/mc_emit.py:190-288 without its padding): the ids, and
+    K4's edge count and offsets. One launch and one read of the counts.
+
+    The ids are the first A entries of a buffer of one int32 per cube."""
     n = cases.numel()
     if n >= MAX_CUBES:
         raise ValueError(
-            f"compact_indices: {n} cubes exceed int32 ids (2^31); slice the grid first"
+            f"compact_active: {n} cubes exceed int32 ids (2^31); slice the grid first"
         )
     if cases.device.type == "cpu":
-        return compact_indices_plain(cases)
+        return compact_active_plain(cases)
     device = kernels.cuda_device(cases.device)
     kernels.check_out(cases, tuple(cases.shape), torch.uint8, device)
     if n == 0:
-        return torch.empty(0, dtype=torch.int32, device=device)
+        return Compaction(torch.empty(0, dtype=torch.int32, device=device), 0,
+                          torch.empty(0, dtype=torch.int64, device=device))
     lib = kernels.static_lib("compact_active")
-    offsets = torch.empty(lib.gsdf_compact_blocks(n), dtype=torch.int64, device=device)
-    count = torch.empty(1, dtype=torch.int64, device=device)
+    # one int64 buffer: counts (2), K4's offsets, the tiles' status words
+    work = torch.empty(lib.gsdf_compact_work(n), dtype=torch.int64, device=device)
+    ids = torch.empty(n, dtype=torch.int32, device=device)
     with torch.cuda.device(device):
-        s = kernels.stream(device)
-        kernels.check_rc("compact_active", lib.gsdf_compact_count(
-            cases.data_ptr(), n, offsets.data_ptr(), count.data_ptr(), s))
-        ids = torch.empty(int(count.item()), dtype=torch.int32, device=device)
-        if ids.numel():
-            kernels.check_rc("compact_active", lib.gsdf_compact_scatter(
-                cases.data_ptr(), n, offsets.data_ptr(), ids.data_ptr(), s))
+        kernels.check_rc("compact_active", lib.gsdf_compact_active(
+            cases.data_ptr(), n, work.data_ptr(), ids.data_ptr(), kernels.stream(device)))
     kernels.LAUNCHES["compact_active"] += 1
-    return ids
+    n_active, n_t = work[:2].tolist()  # the one read of the device counts
+    return Compaction(ids[:n_active], n_t, work[2 : 2 + -(-n_active // EMIT_BLOCK)])
+
+
+def compact_indices(cases):
+    """Ascending int32 ids of the non-zero case bytes (K3's ids)."""
+    return compact_active(cases).ids
 
 
 # --- K7s: the triangle soup ---------------------------------------------

@@ -43,9 +43,13 @@ class FlatRenderer:
     """Dense-grid marching cubes with reference-identical output."""
 
     #: grid corners past which the soup renders in z-slabs and the indexed
-    #: mesh comes from welding the soup
+    #: mesh comes from welding the soup (a slab holds K3's ids buffer of
+    #: 4 B per cube too, as the compact path does)
     slab_cubes = 48_000_000
-    #: grid corners past which the compact path renders in z-slabs
+    #: grid corners past which the compact path renders in z-slabs. A
+    #: dispatch holds 4 B per corner (distances), 1 B per cube (cases) and
+    #: 4 B per cube for K3's ids buffer (sized before the active count is
+    #: known): 1 GB of ids, about 2.3 GB in all, at 256M
     compact_cubes = 256_000_000
 
     def __init__(self, s: Shader3D, cube_resolution: float, device,

@@ -66,9 +66,9 @@ def _encode(c, verts=None, tri=None, soup=None):
 def compact(fr, c):
     dist, cases = classified_grid(fr.s, fr.origin, fr.res, fr.shape(), fr.device)
     c.lap("K1")
-    ids = mc_emit.compact_indices(cases)
+    ids, n_t, offsets = mc_emit.compact_active(cases)
     c.lap("K3")
-    idx8, t = compact_field.compact_emit(dist, cases, ids)
+    idx8, t = compact_field.compact_emit(dist, cases, ids, n_t, offsets)
     c.lap("K4")
     payload = ids.cpu().numpy().view(np.uint32), idx8.cpu().numpy(), t.cpu().numpy()
     c.lap("fetch")

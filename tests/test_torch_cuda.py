@@ -6,7 +6,11 @@ imports no JAX, so on a machine without JAX it runs alone:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerances: case grids, ids, counts and tri_idx exact; t, soup and welded
+Also K1 on ragged shapes and a slab at k0 = 83, K3 at tile edges, past
+40 waves of tiles and on an unaligned view, and the compact path's one
+count read.
+
+Tolerances: case grids, ids, counts, K4's offsets and tri_idx exact; t, soup and welded
 vertices bit-identical (the kernels are built -fmad=false and fed the
 same grid); distances within 1e-5 * max(1, |d|), the last-ulp difference
 of CUDA's atan2f and torch.atan2.
@@ -100,6 +104,124 @@ def test_classified_grid_slab_offset(cuda_device):
     d, c = gk.classified_grid(tree, origin, res, (9, 33, 65), cuda_device, k0=17)
     assert torch.equal(whole_d[17:26], d)
     assert torch.equal(whole_c[17:25], c)
+
+
+def _centred(shape):
+    """(origin, res) of a grid of `shape` corners centred on the origin,
+    its longest axis 2.8 long: every shape crosses _solid()'s surface."""
+    res = np.float32(2.8 / max(shape))
+    origin = np.float32([-(n - 1) / 2 * res for n in reversed(shape)])
+    return origin, res
+
+
+@pytest.mark.parametrize("shape", [(2, 2, 2), (3, 9, 257), (17, 8, 33), (24, 251, 251)])
+def test_classified_grid_ragged_shapes(shape, cuda_device):
+    """K1's two passes at shapes that are multiples of no tile: cases equal
+    to plain, distances equal to K2's bit for bit."""
+    tree = _solid()
+    origin, res = _centred(shape)
+    dist, cases = gk.classified_grid(tree, origin, res, shape, cuda_device)
+    ref_dist, ref_cases = gk.classified_grid_plain(tree, origin, res, shape, cuda_device)
+    assert torch.equal(dist, gk.evaluate_grid(tree, origin, res, shape, cuda_device))
+    assert bool(((dist - ref_dist).abs() <= 1e-5 * ref_dist.abs().clamp(min=1.0)).all())
+    assert torch.equal(cases, ref_cases)
+    if min(shape) > 2:
+        assert int((cases != 0).sum()) > 0
+
+
+def test_classified_grid_slab_k0_83(cuda_device):
+    """A slab at k0 = 83 (flange 800's second soup slab's offset)."""
+    tree = _solid()
+    origin, res = _centred((100, 33, 65))
+    d, c = gk.classified_grid(tree, origin, res, (9, 33, 65), cuda_device, k0=83)
+    ref_d, ref_c = gk.classified_grid_plain(tree, origin, res, (9, 33, 65), cuda_device, k0=83)
+    assert torch.equal(c, ref_c) and int((c != 0).sum()) > 0
+    assert torch.equal(d, gk.evaluate_grid(tree, origin, res, (9, 33, 65), cuda_device, k0=83))
+    whole_d, whole_c = gk.classified_grid(tree, origin, res, (100, 33, 65), cuda_device)
+    assert torch.equal(whole_d[83:92], d) and torch.equal(whole_c[83:91], c)
+
+
+def _case_bytes(n, density, seed, device):
+    """n random case bytes, a `density` share active (1-254), the rest 0,
+    made on the card from a seeded generator."""
+    g = torch.Generator(device).manual_seed(seed)
+    c = torch.randint(1, 255, (n,), dtype=torch.uint8, generator=g, device=device)
+    c[torch.rand(n, generator=g, device=device) >= density] = 0
+    return c
+
+
+#: K3's tile (case bytes per block) and the tiles resident at once on an
+#: H100 (132 SMs, 2 blocks of 1024 threads each)
+K3_TILE = 32768
+K3_WAVE = 132 * 2
+
+
+def _same_compaction(cases):
+    comp = _counted("compact_active", lambda: mc_emit.compact_active(cases))
+    ref = mc_emit.compact_active_plain(cases)
+    assert torch.equal(comp.ids, ref.ids)
+    assert comp.n_t == ref.n_t
+    assert torch.equal(comp.offsets, ref.offsets)
+    return comp
+
+
+@pytest.mark.parametrize("n", [1, 4095, 4096, 4097, K3_TILE - 1, K3_TILE, K3_TILE + 1,
+                               40 * K3_WAVE * K3_TILE + 777])
+@pytest.mark.parametrize("density", [0.0, 0.03, 1.0])
+def test_compact_active_matches_plain(n, density, cuda_device):
+    """K3's one pass: tile edges, a short last tile, more than 40 waves of
+    tiles, empty and full grids. Ids, (n_active, n_t) and K4's offsets
+    equal the plain version's."""
+    comp = _same_compaction(_case_bytes(n, density, n, cuda_device))
+    if density == 0.0:
+        assert len(comp.ids) == 0 and comp.n_t == 0 and len(comp.offsets) == 0
+    if density == 1.0:
+        assert len(comp.ids) == n
+
+
+def test_compact_active_unaligned_view_and_back_to_back(cuda_device):
+    """A view that starts one byte into its buffer (no 16-byte loads at
+    the tile edges), then two calls in a row on different grids: no status
+    leaks from one call into the next."""
+    buf = _case_bytes(3 * K3_TILE + 51, 0.2, 7, cuda_device)
+    _same_compaction(buf[1:])
+    a = _same_compaction(_case_bytes(100_003, 0.5, 8, cuda_device))
+    b = _same_compaction(_case_bytes(50_001, 0.01, 9, cuda_device))
+    assert len(a.ids) > len(b.ids) > 0
+
+
+def test_compact_path_reads_counts_once(cuda_device):
+    """Up to its fetch the compact path synchronises once: K3's count read.
+    K4 takes K3's edge count and offsets and reads nothing."""
+    import warnings
+
+    tree = flagships.build_flange()
+    fr = FlatRenderer(tree, tree.bounds().diagonal() / 120, cuda_device)
+    args = (tree, fr.origin, fr.res, fr.shape(), cuda_device)
+    compact_field.compact_field_render(*args)  # builds the kernels
+    torch.cuda.synchronize()
+
+    def synchronising(fn):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return out, [f"{w.filename}:{w.lineno} {w.message}" for w in caught
+                     if "called a synchronizing" in str(w.message)]
+
+    def until_fetch():
+        dist, cases = gk.classified_grid(*args)
+        ids, n_t, offsets = mc_emit.compact_active(cases)
+        return (ids, *compact_field.compact_emit(dist, cases, ids, n_t, offsets))
+
+    payload, syncs = synchronising(until_fetch)
+    assert len(syncs) == 1, syncs
+    _, fetch = synchronising(lambda: [a.cpu() for a in payload])
+    _, whole = synchronising(lambda: compact_field.compact_field_render(*args))
+    assert len(whole) == 1 + len(fetch), whole
 
 
 def _counted(name, fn):

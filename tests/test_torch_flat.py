@@ -11,7 +11,8 @@ atan2, sin and cos and of torch's CPU sqrt at the parts' 25 mm scale.
 The golden counts themselves (bolt resdiv 300 = 137,528, knurled
 resdiv 350 = 616,324) are rendered through the port's plain torch path.
 
-Also: the renderer's input checks, the numpy decoder against the native
+Also: K3's edge count and K4's offsets against the JAX payload, the
+renderer's input checks, the numpy decoder against the native
 one, and the STL bytes of both packages.
 """
 import io
@@ -29,7 +30,9 @@ from gsdf_tpu.render.stl import write_binary_stl_indexed as jax_write_stl
 from gsdf_tpu_torch import Builder as TorchBuilder
 from gsdf_tpu_torch import cli
 from gsdf_tpu_torch import flagships as torch_flagships
+from gsdf_tpu_torch.eval import grid_kernels as gk
 from gsdf_tpu_torch.native import mc_decode, mc_decode_plain
+from gsdf_tpu_torch.ops import mc_emit
 from gsdf_tpu_torch.ops.compact_field import compact_field_render
 from gsdf_tpu_torch.render.flat import FlatRenderer
 from gsdf_tpu_torch.render.stl import write_binary_stl_indexed
@@ -67,6 +70,25 @@ def test_compact_payload_matches_jax(name):
     np.testing.assert_array_equal(cases, jcases)
     assert len(t) == len(jt)
     assert len(ids) > 1000
+
+
+@pytest.mark.parametrize("name", PARTS)
+def test_compaction_edge_outputs_match_jax(name):
+    """K3's plain version on the port's case grid: the crossing owner-edge
+    count equals the length of the JAX package's compact t, and K4's
+    offsets (the edges before every 256th active cube) equal the exclusive
+    cumsum of the JAX payload's per-cube crossing counts."""
+    (jids, jcases, jt), _, _, _, fr = render_both(name)
+    _, cases = gk.classified_grid_plain(fr.s, fr.origin, fr.res, fr.shape(), fr.device)
+    comp = mc_emit.compact_active_plain(cases)
+    np.testing.assert_array_equal(comp.ids.numpy().view(np.uint32), jids)
+    assert comp.n_t == len(jt) > 1000
+    j = jcases.astype(np.int64)
+    b0 = j & 1
+    n_cross = (b0 != (j >> 1) & 1).astype(np.int64) + (b0 != (j >> 3) & 1) + (b0 != (j >> 4) & 1)
+    before = np.cumsum(n_cross) - n_cross
+    assert comp.offsets.dtype == torch.int64
+    np.testing.assert_array_equal(comp.offsets.numpy(), before[::256])
 
 
 @pytest.mark.parametrize("name", PARTS)

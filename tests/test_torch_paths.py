@@ -215,6 +215,10 @@ def test_compact_emit_matches_jax(seed):
     ids = mc_emit.compact_indices(cases)
     idx8, t = compact_field.compact_emit(grid, cases, ids)
     np.testing.assert_array_equal(ids.numpy().view(np.uint32), jids)
+    comp = mc_emit.compact_active(cases)  # K3 with K4's edge count and offsets
+    assert comp.n_t == len(jt) and torch.equal(comp.ids, ids)
+    n_cross = compact_field.crossing(torch.from_numpy(np.array(jcases))).sum(1)
+    np.testing.assert_array_equal(comp.offsets.numpy(), (torch.cumsum(n_cross, 0) - n_cross)[::256])
     np.testing.assert_array_equal(idx8.numpy(), jcases)
     np.testing.assert_array_equal(t.numpy(), jt)
     assert (t.numpy() == 0).any() and (t.numpy() == 1).any()  # the snaps ran
