@@ -14,9 +14,11 @@
    the first slice, on a tree holding each of the 55 node types, on
    seeded random CSG trees, and at every main-path grid shape (case grids
    exactly equal, distances within 1e-5 * max(1, |d|)). Holds K3, K4, K7s
-   and K7w against theirs on K1's grid of each of those trees: ids, K4's
-   edge count and offsets, case bytes, counts and tri_idx exactly equal,
-   t, soup and welded vertices bit-identical. Holds all six once more on
+   and K7w against theirs on K1's grid of each of those trees: ids, K3's
+   three counts (active cubes, crossing edges, triangles), its two block
+   offsets and its edge-rank directory, case bytes and tri_idx exactly
+   equal, t, soup and welded vertices bit-identical, K7s and K7w in both
+   call forms (with K3's result, and running K3 themselves). Holds all six once more on
    the second of flange 800's two fused soup slabs, at its shape and
    plane offset k0. Times every kernel against its plain version with
    CUDA events, in turns (plain, kernel, kernel, plain; K3's library call
@@ -44,8 +46,14 @@
    - evaluate_grid, the dense-field entry point, on three grids.
    Also holds the threaded native mc_decode against the single-threaded
    numpy mc_decode_plain bit for bit on the flange-800 payload.
-4. Fails unless each kernel launched on every path that runs it; prints
-   the launches per render of each path. A time fails nothing.
+4. Fails unless each kernel launched on every path that runs it, once per
+   render and slab (the wrapper calls counted per render of each path are
+   printed and held to what the path should make); prints the device
+   launches that torch.profiler sees inside one call of each wrapper, with
+   their device time (K7s must be one kernel, K7w at most two), and fails
+   unless one soup render
+   and one indexed render synchronise once before their fetch
+   (torch.cuda.set_sync_debug_mode). A time fails nothing.
 
 The line before the last is nvidia-smi's card name and power limit; the
 last line is {"ok": true, "device": {...}}. Any failure exits non-zero
@@ -306,8 +314,9 @@ KERNELS = (
 
 def mc_versions(dist, cases, comp, fr, k0=0):
     """(kernel, plain) callables of K3, K4, K7s and K7w on one grid whose
-    first plane is plane k0 of the whole grid; comp is K3's result (None
-    where only K3 is called)."""
+    first plane is plane k0 of the whole grid; comp is K3's result with
+    its edge ranks (None where only K3 is called). The emit kernels take
+    K3's counts and block offsets, as the paths hand them on."""
     from gsdf_tpu_torch.ops import compact_field, fused_welded, mc_emit
 
     o, r = fr.origin, fr.res
@@ -318,9 +327,10 @@ def mc_versions(dist, cases, comp, fr, k0=0):
         "compact_emit": (lambda: compact_field.compact_emit(dist, cases, ids, comp.n_t,
                                                             comp.offsets),
                          lambda: compact_field.compact_emit_plain(dist, cases, ids)),
-        "emit_soup": (lambda: mc_emit.emit_triangles(dist, cases, ids, o, r, k0),
+        "emit_soup": (lambda: mc_emit.emit_triangles(dist, cases, ids, o, r, k0, comp.n_tris,
+                                                     comp.tri_offsets),
                       lambda: mc_emit.emit_triangles_plain(dist, cases, ids, o, r, k0)),
-        "emit_welded": (lambda: fused_welded.emit_welded(dist, cases, ids, o, r, k0),
+        "emit_welded": (lambda: fused_welded.emit_welded(dist, cases, ids, o, r, k0, comp=comp),
                         lambda: fused_welded.emit_welded_plain(dist, cases, ids, o, r, k0)),
     }
 
@@ -331,35 +341,55 @@ def _max_abs(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
+def same_compaction(a, b) -> bool:
+    """Two results of K3 equal in every field both hold."""
+    import torch
+
+    return (torch.equal(a.ids, b.ids) and (a.n_t, a.n_tris) == (b.n_t, b.n_tris)
+            and torch.equal(a.offsets, b.offsets) and torch.equal(a.tri_offsets, b.tri_offsets)
+            and (a.edge_ranks is None or b.edge_ranks is None
+                 or torch.equal(a.edge_ranks, b.edge_ranks)))
+
+
 def mc_compare(name, tree, resdiv, dev, gk, slab=None):
     """K3, K4, K7s and K7w vs their plain versions on K1's grid (or soup
-    slab, at its plane offset k0): ids, K4's edge count and offsets, case
-    bytes, counts and tri_idx exact, t and vertices bit-identical. Returns
-    the max absolute error of each kernel's output, the grid, K3's result,
-    the renderer and the output sizes (for timing and bounds); raises on a
-    disagreement."""
+    slab, at its plane offset k0): ids, K3's counts, block offsets and edge
+    ranks, case bytes and tri_idx exact, t and vertices bit-identical; K7s
+    and K7w also in the form that runs K3 itself. Returns the max absolute
+    error of each kernel's output, the grid, K3's result, the renderer and
+    the output sizes (for timing and bounds); raises on a disagreement."""
     import torch
+    from gsdf_tpu_torch.ops import fused_welded, mc_emit
 
     fr, shape, k0 = grid_of(tree, resdiv, dev, slab)
     dist, cases = gk.classified_grid(tree, fr.origin, fr.res, shape, dev, k0)
-    fns = mc_versions(dist, cases, None, fr)
-    comp, ref_comp = (f() for f in fns["compact_active"])
+    comp = mc_emit.compact_active(cases, edge_ranks=True)
+    ref_comp = mc_emit.compact_active_plain(cases, edge_ranks=True)
     fns = mc_versions(dist, cases, comp, fr, k0)
+    bare = fns["compact_active"][0]()  # as the soup and compact paths call it
     (idx8, t), (ref_idx8, ref_t) = (f() for f in fns["compact_emit"])
     tris, ref_tris = (f() for f in fns["emit_soup"])
     (verts, tri, unres), (ref_verts, ref_tri, ref_unres) = (f() for f in fns["emit_welded"])
-    torch.cuda.synchronize()
     ids = comp.ids
+    tris3 = mc_emit.emit_triangles(dist, cases, ids, fr.origin, fr.res, k0)
+    verts3, tri3, unres3 = fused_welded.emit_welded(dist, cases, ids, fr.origin, fr.res, k0)
+    torch.cuda.synchronize()
+    unres, ref_unres = int(unres), int(ref_unres)
     checks = {
-        "compact_active": (torch.equal(ids, ref_comp.ids) and comp.n_t == ref_comp.n_t
-                           and torch.equal(comp.offsets, ref_comp.offsets),
+        "compact_active": (same_compaction(comp, ref_comp) and same_compaction(bare, ref_comp)
+                           and bare.edge_ranks is None
+                           and (comp.n_t, comp.n_tris) == (len(ref_verts), len(ref_tris)),
                            max(_max_abs(ids, ref_comp.ids),
-                               _max_abs(comp.offsets, ref_comp.offsets))),
+                               _max_abs(comp.offsets, ref_comp.offsets),
+                               _max_abs(comp.tri_offsets, ref_comp.tri_offsets),
+                               _max_abs(comp.edge_ranks, ref_comp.edge_ranks))),
         "compact_emit": (torch.equal(idx8, ref_idx8) and torch.equal(t, ref_t),
                          max(_max_abs(t, ref_t), _max_abs(idx8, ref_idx8))),
-        "emit_soup": (torch.equal(tris, ref_tris), _max_abs(tris, ref_tris)),
+        "emit_soup": (torch.equal(tris, ref_tris) and torch.equal(tris3, ref_tris),
+                      _max_abs(tris, ref_tris)),
         "emit_welded": (torch.equal(verts, ref_verts) and torch.equal(tri, ref_tri)
-                        and unres == ref_unres,
+                        and unres == ref_unres and torch.equal(verts3, ref_verts)
+                        and torch.equal(tri3, ref_tri) and int(unres3) == ref_unres,
                         max(_max_abs(verts, ref_verts), _max_abs(tri, ref_tri))),
     }
     log(f"  MC kernels {name:14s}: {len(ids)} active, {comp.n_t} t, {len(tris)} triangles, "
@@ -371,6 +401,44 @@ def mc_compare(name, tree, resdiv, dev, gk, slab=None):
     sizes = {"corners": dist.numel(), "cubes": cases.numel(), "active": len(ids),
              "n_t": len(t), "tris": len(tris), "verts": len(verts)}
     return {k: err for k, (_, err) in checks.items()}, (dist, cases, comp, fr, sizes)
+
+
+def device_launches(fn) -> dict:
+    """What torch.profiler sees on the card inside one call of fn: kernels,
+    memsets and copies by count, and their device time summed (ms): the
+    call's time with the host's share taken out."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {"kernels": 0, "memsets": 0, "copies": 0, "device_ms": 0.0}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            kind = ("memsets" if "memset" in e.name.lower()
+                    else "copies" if "memcpy" in e.name.lower() else "kernels")
+            out[kind] += 1
+            out["device_ms"] += e.time_range.elapsed_us() / 1e3
+    return out
+
+
+def synchronising(fn):
+    """(fn's result, the synchronising calls torch warned of inside it)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, [str(w.message) for w in caught if "called a synchronizing" in str(w.message)]
 
 
 def counted(kernels, expected, fn):
@@ -406,7 +474,7 @@ def main() -> int:
         from gsdf_tpu_torch.eval import grid_kernels as gk
         from gsdf_tpu_torch.forge import threads
         from gsdf_tpu_torch.geometry.boxes import Box
-        from gsdf_tpu_torch.ops import mc_emit
+        from gsdf_tpu_torch.ops import fused_welded, mc_emit
         from gsdf_tpu_torch.ops.compact_field import compact_field_render
         from gsdf_tpu_torch.render.flat import FlatRenderer
     except ImportError as e:
@@ -511,6 +579,12 @@ def main() -> int:
                       "library_ms": min(l1, l2) if lib else None, **b,
                       "share": b["bound_ms"] / ms,
                       "published_fp32_share": b["published_fp32_ms"] / ms}
+        # K3 as the indexed path calls it, with K7w's edge-rank directory
+        def with_ranks():
+            return mc_emit.compact_active(cases, edge_ranks=True)
+
+        row["compact_active"]["with_edge_ranks_ms"] = min(cuda_ms(with_ranks, 10),
+                                                          cuda_ms(with_ranks, 10))
         row["k1_over_k2"] = row["classified_grid"]["ms"] / row["grid_eval"]["ms"]
         times[f"{name}@{resdiv}"] = row
         log(f"  device ms {name}@{resdiv} grid {fr.shape()}: "
@@ -518,7 +592,20 @@ def main() -> int:
                         f"share {v['share']:.2f}, plain {v['plain_ms']:.3f}"
                         + (f", library {v['library_ms']:.3f})" if v["library_ms"] else ")")
                         for k, v in row.items() if k != "k1_over_k2")
+            + f"; K3 with edge ranks {row['compact_active']['with_edge_ranks_ms']:.3f}"
             + f"; K1/K2 {row['k1_over_k2']:.3f}  [{card}]")
+        # the device launches inside one call of each wrapper, and their time
+        for k, (kernel, _) in versions.items():
+            row[k]["on_device"] = device_launches(kernel)
+        inside = {k: {n: v for n, v in row[k]["on_device"].items() if n != "device_ms"}
+                  for k in versions}
+        log(f"  on the card inside one wrapper call ({name}@{resdiv}): "
+            + ", ".join(f"{k} {row[k]['on_device']}" for k in versions))
+        one_kernel = {"kernels": 1, "memsets": 0, "copies": 0}
+        if inside["emit_soup"] != one_kernel or inside["compact_emit"] != one_kernel:
+            raise RuntimeError(f"K7s and K4 should be one kernel launch and nothing else: {inside}")
+        if inside["emit_welded"]["kernels"] > 2 or inside["emit_welded"]["copies"]:
+            raise RuntimeError(f"K7w should be at most two launches and copy nothing: {inside}")
         del dist, cases, comp
     torch.cuda.empty_cache()
 
@@ -558,6 +645,10 @@ def main() -> int:
         e2e[f"{path} {name}@{resdiv}"] = ms
         per_render[f"{path} {name}@{resdiv}"] = {
             k: n / (reps + 2) for k, n in counts.items() if n}  # two warm-ups + reps
+        slabs = 2 if (name, resdiv) == ("flange", 800) and path != "compact" else 1
+        if per_render[f"{path} {name}@{resdiv}"] != {k: slabs for k in expected}:
+            raise RuntimeError(f"{path} {name}@{resdiv}: expected one call of each of {expected} "
+                               f"per render and slab, got {per_render[f'{path} {name}@{resdiv}']}")
         log(f"phase 3: {path} {name} resdiv {resdiv}: {ntris} triangles (golden {golden}), "
             f"SDF->STL warm median {ms:.2f} ms (runs {', '.join(f'{t:.2f}' for t in all_ms)}) "
             f"[{card}]")
@@ -587,6 +678,30 @@ def main() -> int:
 
     f400 = trees["flange"]
     res400 = f400.bounds().diagonal() / 400
+
+    # one synchronising read (K3's counts) before the fetch, and one fetch
+    fr = FlatRenderer(f400, res400, dev)
+    grid_args = (f400, fr.origin, fr.res, fr.shape(), dev)
+
+    def emitted(indexed):
+        dist, cases = gk.classified_grid(*grid_args)
+        comp = mc_emit.compact_active(cases, edge_ranks=indexed)
+        if indexed:
+            return fused_welded.emit_welded(dist, cases, comp.ids, fr.origin, fr.res, comp=comp)
+        return mc_emit.emit_triangles(dist, cases, comp.ids, fr.origin, fr.res, 0, comp.n_tris,
+                                      comp.tri_offsets)
+
+    for label, until_fetch, whole in (
+        ("soup", lambda: emitted(False), lambda: FlatRenderer(f400, res400, dev).render()),
+        ("indexed", lambda: emitted(True), lambda: fused_welded.welded_render(*grid_args)),
+    ):
+        _, before = synchronising(until_fetch)
+        _, render_syncs = synchronising(whole)
+        log(f"phase 3: {label} flange@400: {len(before)} synchronising call before the fetch, "
+            f"{len(render_syncs)} in a whole render (K3's count read, then the fetch)")
+        if len(before) != 1 or len(render_syncs) != 2:
+            raise RuntimeError(f"{label}: expected one read before the fetch and one fetch: "
+                               f"{before} / {render_syncs}")
 
     sphere = Builder().new_sphere(1.0)
     sfr = FlatRenderer(sphere, 1.0 / 33, dev)
@@ -668,6 +783,7 @@ def main() -> int:
                 path: per_render[f"{path} flange@400"].get(name, 0)
                 for path in ("compact", "soup", "indexed")
             },
+            "on_device_per_call": t400[name]["on_device"],
         }
         for name, source, replaces in KERNELS
     ]

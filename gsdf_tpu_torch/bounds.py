@@ -100,23 +100,28 @@ def kernel_bytes(name: str, *, corners=0, cubes=0, active=0, n_t=0, tris=0, vert
     - grid_eval (K2): writes 4 B per corner;
     - classified_grid (K1): writes 4 B per corner and 1 B per cube;
     - compact_active (K3): reads 1 B per cube, writes 4 B per active cube
-      (ids), 8 B per 256 active cubes (K4's offsets) and 16 B of counts;
+      (ids), 16 B per 256 active cubes (the edge and triangle block
+      offsets) and 24 B of counts; the edge-rank directory that only K7w
+      asks for (4 B per 32 cubes) is not counted;
     - compact_emit (K4): reads per active cube its id, case byte and the
       4 distances it interpolates (corner 0 and its owner edges' far ends),
       K3's offsets; writes 1 B per active cube and 4 B per t;
     - emit_soup (K7s): reads per active cube its id, case byte and 8
-      corner distances; writes 36 B per triangle;
+      corner distances, K3's triangle offsets; writes 36 B per triangle;
     - emit_welded (K7w): reads per active cube its id and case byte and the
-      4 owner-edge distances; writes 12 B per vertex and per triangle.
+      4 owner-edge distances, K3's two offsets; writes 12 B per vertex and
+      per triangle and the 4 B count. Its owner lookups (neighbours' case
+      bytes, directory entries) are not counted: a kernel pays for them
+      above its bound, as for any scratch.
     """
     offsets = 8 * -(-active // 256)
     per = {
         "grid_eval": 4 * corners,
         "classified_grid": 4 * corners + cubes,
-        "compact_active": cubes + 4 * active + offsets + 16,
+        "compact_active": cubes + 4 * active + 2 * offsets + 24,
         "compact_emit": (4 + 1 + 16 + 1) * active + offsets + 4 * n_t,
-        "emit_soup": (4 + 1 + 32) * active + 36 * tris,
-        "emit_welded": (4 + 1 + 16) * active + 12 * verts + 12 * tris + 4,
+        "emit_soup": (4 + 1 + 32) * active + offsets + 36 * tris,
+        "emit_welded": (4 + 1 + 16) * active + 2 * offsets + 12 * verts + 12 * tris + 4,
     }
     return int(per[name])
 

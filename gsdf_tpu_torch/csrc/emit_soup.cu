@@ -15,15 +15,24 @@
 //     marchcubes.go:76-98);
 //   - the triangles of MC_TRI_TABLE[case] in table order with reversed
 //     winding (points[t2], points[t1], points[t0]), written at the cube's
-//     offset from a hand-written scan of MC_TRI_COUNT[case], so the soup is
-//     in the reference's cube-then-table order.
+//     offset in a running sum of MC_TRI_COUNT[case], so the soup is in the
+//     reference's cube-then-table order.
 //
 // What bounds it on the card: the 36 B written per triangle and the 8
-// scattered corner gathers per active cube; the work is O(active cubes).
-// One thread per active cube; edge points are computed where a triangle
-// needs them (the same arithmetic each time, so shared edges agree).
-// Built with -fmad=false and IEEE division: bit-identical to the plain
-// torch version.
+// corner gathers per active cube; the work is O(active cubes), so at the
+// main path's sizes launches and host reads cost more than the bytes. The
+// design is one launch and no read: K3 (compact_active.cu) already counted
+// the triangles and wrote the triangles before every 256th active cube, so
+// the wrapper allocates exactly and a block of 256 cubes starts at its
+// offset. One thread per active cube; a 32-bit block scan of the counts
+// (at most 1,280 a block) places each cube's triangles in a shared-memory
+// stage (45 KB at most), which the whole block then writes out as
+// consecutive 16-byte words of its contiguous range (store_staged), so a
+// warp's store covers whole lines. Corner distances come through the
+// read-only path: neighbouring active cubes share them, and K1 left the
+// rows in L2. Edge points are computed where a triangle needs them (the
+// same arithmetic each time, so shared edges agree). Built with
+// -fmad=false and IEEE division: bit-identical to the plain torch version.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -32,90 +41,67 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-
-__global__ void __launch_bounds__(kThreads)
-count_kernel(const uint8_t* __restrict__ cases, const int32_t* __restrict__ ids,
-             long long A, long long* __restrict__ block_sums) {
-    __shared__ long long warp_sums[kThreads / 32];
-    const long long a = (long long)blockIdx.x * kThreads + threadIdx.x;
-    const long long n = a < A ? kTriCount[cases[ids[a]]] : 0;
-    long long total;
-    gsdf::block_exclusive_scan<kThreads>(n, &total, warp_sums);
-    if (threadIdx.x == 0) block_sums[blockIdx.x] = total;
-}
+constexpr int kThreads = 256;  // active cubes per block: the stride of K3's tri_offsets
+constexpr int kStageWords = kThreads * 5 * 9;  // 5 triangles a cube at most
 
 __global__ void __launch_bounds__(kThreads)
 emit_kernel(const float* __restrict__ grid, const uint8_t* __restrict__ cases,
             const int32_t* __restrict__ ids, long long A, int nx, int ny,
             float ox, float oy, float oz, float res, float k0f,
-            const long long* __restrict__ block_offsets, float* __restrict__ tris) {
-    __shared__ long long warp_sums[kThreads / 32];
+            const long long* __restrict__ tri_offsets, float* __restrict__ tris) {
+    __shared__ __align__(16) float stage[kStageWords + 4];
+    __shared__ int warp_sums[kThreads / 32];
     const long long a = (long long)blockIdx.x * kThreads + threadIdx.x;
-    const long long id = a < A ? ids[a] : 0;
-    const unsigned c = a < A ? cases[id] : 0u;
+    const long long id = a < A ? __ldg(ids + a) : 0;
+    const unsigned c = a < A ? __ldg(cases + id) : 0u;
     const int nt = kTriCount[c];
-    long long total;
-    const long long t0 = block_offsets[blockIdx.x] +
-        gsdf::block_exclusive_scan<kThreads>((long long)nt, &total, warp_sums);
-    if (a >= A || nt == 0) return;
+    int total;
+    const int first = gsdf::block_exclusive_scan<kThreads>(nt, &total, warp_sums);
+    float* dst = tris + __ldg(tri_offsets + blockIdx.x) * 9;
+    const int shift = gsdf::stage_shift(dst);
 
-    const gsdf::Cube q = gsdf::cube_of(id, nx, ny);
-    const long long ni = nx + 1, nj = ny + 1;
-    const long long base = ((long long)q.k * nj + q.j) * ni + q.i;
-    float v[8];
+    if (nt) {
+        const gsdf::Cube q = gsdf::cube_of(id, nx, ny);
+        const long long ni = nx + 1, nj = ny + 1;
+        const long long base = ((long long)q.k * nj + q.j) * ni + q.i;
+        float v[8];
 #pragma unroll
-    for (int k = 0; k < 8; ++k)
-        v[k] = grid[base + kCornerOffsets[3 * k + 2] * nj * ni +
-                    kCornerOffsets[3 * k + 1] * ni + kCornerOffsets[3 * k]];
-    const float b[3] = {ox + (float)q.i * res, oy + (float)q.j * res,
-                        oz + ((float)q.k + k0f) * res};
-
-    for (int s = 0; s < nt; ++s) {
-        float* out = tris + (t0 + s) * 9;
-        for (int j = 0; j < 3; ++j) {
-            const int e = kTriTable[c * 15 + s * 3 + j];
-            const int ca_ = kEdgePairs[2 * e], cb_ = kEdgePairs[2 * e + 1];
-            const gsdf::EdgeT et = gsdf::mc_edge_t(v[ca_], v[cb_]);
-            float* p = out + (2 - j) * 3;  // reversed winding
+        for (int k = 0; k < 8; ++k)
+            v[k] = __ldg(grid + base + kCornerOffsets[3 * k + 2] * nj * ni +
+                         kCornerOffsets[3 * k + 1] * ni + kCornerOffsets[3 * k]);
+        const float b[3] = {ox + (float)q.i * res, oy + (float)q.j * res,
+                            oz + ((float)q.k + k0f) * res};
+        for (int s = 0; s < nt; ++s) {
+            float* out = stage + shift + (first + s) * 9;
+            for (int j = 0; j < 3; ++j) {
+                const int e = kTriTable[c * 15 + s * 3 + j];
+                const int ca_ = kEdgePairs[2 * e], cb_ = kEdgePairs[2 * e + 1];
+                const gsdf::EdgeT et = gsdf::mc_edge_t(v[ca_], v[cb_]);
+                float* p = out + (2 - j) * 3;  // reversed winding
 #pragma unroll
-            for (int x = 0; x < 3; ++x)
-                p[x] = gsdf::mc_lerp(et, b[x] + (float)kCornerOffsets[3 * ca_ + x] * res,
-                                     b[x] + (float)kCornerOffsets[3 * cb_ + x] * res);
+                for (int x = 0; x < 3; ++x)
+                    p[x] = gsdf::mc_lerp(et, b[x] + (float)kCornerOffsets[3 * ca_ + x] * res,
+                                         b[x] + (float)kCornerOffsets[3 * cb_ + x] * res);
+            }
         }
     }
+    __syncthreads();
+    gsdf::store_staged<kThreads>(reinterpret_cast<const uint32_t*>(stage), shift,
+                                 reinterpret_cast<uint32_t*>(dst), total * 9);
 }
 
 }  // namespace
 
-// int64 scratch entries (block sums) for A active cubes; -1 if too many.
-extern "C" long long gsdf_emit_soup_blocks(long long A) {
-    return gsdf::blocks_for(A, kThreads);
-}
-
-// Launches 1 and 2: block_sums becomes the block offsets of the soup,
-// *total the triangle count. Returns cudaGetLastError().
-extern "C" int gsdf_emit_soup_count(const uint8_t* cases, const int32_t* ids,
-                                    long long A, long long* block_sums,
-                                    long long* total, void* stream) {
-    const long long blocks = gsdf::blocks_for(A, kThreads);
-    if (A <= 0 || blocks < 0) return (int)cudaErrorInvalidValue;
-    const cudaStream_t s = (cudaStream_t)stream;
-    count_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(cases, ids, A, block_sums);
-    const int rc = (int)cudaGetLastError();
-    if (rc != 0) return rc;
-    return gsdf::scan_sums(block_sums, blocks, total, s);
-}
-
-// Launch 3: tris (total, 3, 3) f32 in cube-then-table order.
+// tris (K3's triangle count, 3, 3) f32 in cube-then-table order, one block
+// per 256 active cubes at K3's tri_offsets. Returns cudaGetLastError().
 extern "C" int gsdf_emit_soup(const float* grid, const uint8_t* cases,
                               const int32_t* ids, long long A, int nx, int ny,
                               float ox, float oy, float oz, float res, float k0f,
-                              const long long* block_offsets, float* tris,
+                              const long long* tri_offsets, float* tris,
                               void* stream) {
     const long long blocks = gsdf::blocks_for(A, kThreads);
     if (A <= 0 || blocks < 0 || nx < 1 || ny < 1) return (int)cudaErrorInvalidValue;
     emit_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        grid, cases, ids, A, nx, ny, ox, oy, oz, res, k0f, block_offsets, tris);
+        grid, cases, ids, A, nx, ny, ox, oy, oz, res, k0f, tri_offsets, tris);
     return (int)cudaGetLastError();
 }

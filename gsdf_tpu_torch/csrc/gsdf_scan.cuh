@@ -1,23 +1,23 @@
-// Hand-written scans and edge arithmetic shared by the marching-cubes
-// kernels (K3, K4, K7s, K7w). Item order is kept everywhere: block b's
-// items precede block b+1's, and a block's threads cover consecutive
-// items. Two ways to compact:
+// Hand-written scans, staged stores and edge arithmetic shared by the
+// marching-cubes kernels (K3, K4, K7s, K7w). Item order is kept
+// everywhere: block b's items precede block b+1's, and a block's threads
+// cover consecutive items.
 //
-// - K3 (compact_active.cu) in one pass, with decoupled look-back: a block
-//   takes its tile from a ticket, publishes its tile's sum, finds the sum
-//   of the tiles before it from their published words (look_back), then
-//   writes at that prefix + thread prefix. The wrapper reads the totals
-//   once, after the pass, and hands K4 the offsets K3 wrote for it.
-// - K7s and K7w in three launches:
-//   1. count: each block sums its items' output counts into
-//      block_sums[blockIdx.x];
-//   2. scan_sums: one block turns block_sums into exclusive block
-//      offsets in place and writes the grand total;
-//   3. write: each block recounts, scans its threads' counts
-//      (block_exclusive_scan) and writes at block offset + thread prefix;
-//   the wrapper reads the total between 2 and 3 to allocate exactly.
+// - K3 (compact_active.cu) compacts in one pass, with decoupled look-back:
+//   a block takes its tile from a ticket, publishes its tile's sums, finds
+//   the sums of the tiles before it from their published words
+//   (look_back), then writes at that prefix + thread prefix. Its three
+//   running sums (active cubes, crossing owner edges, triangles) are what
+//   the emit kernels need to size and place their outputs, so the wrapper
+//   reads the totals once, after the pass, and K3 writes each sum's value
+//   before every 256th active cube: the block offsets of K4, K7s and K7w.
+// - K4, K7s and K7w run one block per 256 active cubes: a block scan of
+//   the per-cube counts (block_exclusive_scan) on top of K3's block offset.
+//   K7s and K7w stage a block's output in shared memory and write it as
+//   consecutive words of the block's contiguous range (store_staged).
 //
-// Either way sizes come from a device count: no grow-and-retry.
+// Sizes come from K3's device counts: no count pass in the emit kernels,
+// no grow-and-retry.
 #pragma once
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -57,46 +57,20 @@ __device__ __forceinline__ T block_exclusive_scan(T v, T* total, T* warp_sums) {
     return before + x - v;
 }
 
-constexpr int kScanThreads = 1024;
-
-// In-place exclusive scan of sums[0, n) by one block; *total = the sum.
-// Each thread folds a contiguous run of ceil(n / 1024) entries.
-__global__ void __launch_bounds__(kScanThreads)
-scan_sums_kernel(long long* sums, long long n, long long* total) {
-    __shared__ long long warp_sums[kScanThreads / 32];
-    const long long per = (n + kScanThreads - 1) / kScanThreads;
-    const long long lo = min(n, (long long)threadIdx.x * per);
-    const long long hi = min(n, lo + per);
-    long long s = 0;
-    for (long long i = lo; i < hi; ++i) s += sums[i];
-    long long all;
-    long long run = block_exclusive_scan<kScanThreads>(s, &all, warp_sums);
-    for (long long i = lo; i < hi; ++i) {
-        const long long v = sums[i];
-        sums[i] = run;
-        run += v;
-    }
-    if (threadIdx.x == 0) *total = all;
-}
-
-inline int scan_sums(long long* sums, long long n, long long* total,
-                     cudaStream_t stream) {
-    scan_sums_kernel<<<1, kScanThreads, 0, stream>>>(sums, n, total);
-    return (int)cudaGetLastError();
-}
-
 // --- decoupled look-back (single-pass scan across blocks) ---------------
-// A tile's status is one 64-bit word per running sum: the flag in the top
-// two bits (0 = not yet published, kAggregate = the tile's own sum,
-// kPrefix = the inclusive sum of every tile up to it), the value below.
-// The words start at 0 (the wrapper clears them on the stream before each
-// launch), and a tile waits only on tiles that took earlier tickets, which
-// are already running, so the wait always ends. A tile publishes its
-// words as a pair, aggregates first and prefixes second: a reader takes a
-// tile's pair only when both words carry the same flag.
+// A tile's status is one 64-bit word per running sum (kSums of them, in
+// arrays `tiles` words apart): the flag in the top two bits (0 = not yet
+// published, kAggregate = the tile's own sum, kPrefix = the inclusive sum
+// of every tile up to it), the value below. The words start at 0 (the
+// wrapper clears them on the stream before each launch), and a tile waits
+// only on tiles that took earlier tickets, which are already running, so
+// the wait always ends. A tile publishes its words together, aggregates
+// first and prefixes second: a reader takes a tile's words only when all
+// carry the same flag.
 constexpr unsigned long long kAggregate = 1ull << 62;
 constexpr unsigned long long kPrefix = 2ull << 62;
 constexpr unsigned long long kFlags = 3ull << 62;
+constexpr int kSums = 3;
 
 __device__ __forceinline__ void store_relaxed(unsigned long long* word, unsigned long long v) {
     asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(word), "l"(v) : "memory");
@@ -108,51 +82,53 @@ __device__ __forceinline__ unsigned long long load_relaxed(const unsigned long l
     return v;
 }
 
-// Tile `tile`'s two words (in arrays a and b) become flag | va and flag | vb.
-__device__ __forceinline__ void publish(unsigned long long* a, unsigned long long* b,
-                                        long long tile, unsigned long long flag, long long va,
-                                        long long vb) {
+// Tile `tile`'s words become flag | v[s], s < kSums.
+__device__ __forceinline__ void publish(unsigned long long* status, long long tiles,
+                                        long long tile, unsigned long long flag,
+                                        const long long* v) {
     __threadfence();
-    store_relaxed(a + tile, flag | (unsigned long long)va);
-    store_relaxed(b + tile, flag | (unsigned long long)vb);
+#pragma unroll
+    for (int s = 0; s < kSums; ++s)
+        store_relaxed(status + s * tiles + tile, flag | (unsigned long long)v[s]);
 }
 
-// Exclusive prefixes (*ea, *eb) of tile `tile` over the word pairs of
-// tiles [0, tile), by one whole warp. Each lane reads one predecessor,
-// nearest first, with relaxed loads that are all in flight together and
-// one fence after them (an acquire load each would wait for the one
-// before it), so a window of 32 tiles costs one round trip to L2; the
-// window's pairs are summed up to the nearest kPrefix, else wholly, and
-// the window moves back.
-__device__ __forceinline__ void look_back(const unsigned long long* a,
-                                          const unsigned long long* b, long long tile,
-                                          long long* ea, long long* eb) {
+// Exclusive prefixes excl[s] of tile `tile` over the words of tiles
+// [0, tile), by one whole warp. Each lane reads one predecessor, nearest
+// first, with relaxed loads that are all in flight together and one fence
+// after them (an acquire load each would wait for the one before it), so
+// a window of 32 tiles costs one round trip to L2; the window's words are
+// summed up to the nearest kPrefix, else wholly, and the window moves
+// back.
+__device__ __forceinline__ void look_back(const unsigned long long* status, long long tiles,
+                                          long long tile, long long* excl) {
     const int lane = threadIdx.x & 31;
-    long long sa = 0, sb = 0;
+#pragma unroll
+    for (int s = 0; s < kSums; ++s) excl[s] = 0;
     for (long long end = tile;; end -= 32) {
         const long long p = end - 1 - lane;
-        unsigned long long wa, wb;
+        unsigned long long w[kSums];
+        bool ready;
         do {
-            wa = p >= 0 ? load_relaxed(a + p) : kPrefix;  // before tile 0: a prefix of 0
-            wb = p >= 0 ? load_relaxed(b + p) : kPrefix;
-        } while (!__all_sync(0xffffffffu,
-                             (wa & kFlags) != 0 && (wa & kFlags) == (wb & kFlags)));
-        __threadfence();  // acquire: the window's words before what follows
-        const unsigned prefixes = __ballot_sync(0xffffffffu, (wa & kFlags) == kPrefix);
-        const int stop = prefixes ? __ffs(prefixes) - 1 : 31;  // the nearest prefix
-        long long va = lane <= stop ? (long long)(wa & ~kFlags) : 0;
-        long long vb = lane <= stop ? (long long)(wb & ~kFlags) : 0;
+            ready = true;
 #pragma unroll
-        for (int o = 16; o > 0; o >>= 1) {
-            va += __shfl_xor_sync(0xffffffffu, va, o);
-            vb += __shfl_xor_sync(0xffffffffu, vb, o);
+            for (int s = 0; s < kSums; ++s) {
+                // before tile 0: a prefix of 0
+                w[s] = p >= 0 ? load_relaxed(status + s * tiles + p) : kPrefix;
+                ready = ready && (w[s] & kFlags) != 0 && (w[s] & kFlags) == (w[0] & kFlags);
+            }
+        } while (!__all_sync(0xffffffffu, ready));
+        __threadfence();  // acquire: the window's words before what follows
+        const unsigned prefixes = __ballot_sync(0xffffffffu, (w[0] & kFlags) == kPrefix);
+        const int stop = prefixes ? __ffs(prefixes) - 1 : 31;  // the nearest prefix
+#pragma unroll
+        for (int s = 0; s < kSums; ++s) {
+            long long v = lane <= stop ? (long long)(w[s] & ~kFlags) : 0;
+#pragma unroll
+            for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+            excl[s] += v;
         }
-        sa += va;
-        sb += vb;
         if (prefixes) break;
     }
-    *ea = sa;
-    *eb = sb;
 }
 
 // Blocks of kThreads covering n items, or -1 past the grid's x limit.
@@ -171,6 +147,112 @@ __device__ __forceinline__ unsigned cross_bits(unsigned c) {
 }
 
 __device__ __forceinline__ int n_cross(unsigned c) { return __popc(cross_bits(c)); }
+
+// 16 case bytes at `base` as 4 little-endian words, 0 past n: one 16-byte
+// load where aligned and whole.
+__device__ __forceinline__ void load16(const uint8_t* cases, long long n, long long base,
+                                       uint32_t* w) {
+    if (base + 16 <= n && ((reinterpret_cast<uintptr_t>(cases) + (uintptr_t)base) & 15) == 0) {
+        const uint4 v = __ldg(reinterpret_cast<const uint4*>(cases + base));
+        w[0] = v.x;
+        w[1] = v.y;
+        w[2] = v.z;
+        w[3] = v.w;
+        return;
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+        uint32_t x = 0;
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+            const long long i = base + q * 4 + b;
+            if (i < n) x |= (uint32_t)__ldg(cases + i) << (8 * b);
+        }
+        w[q] = x;
+    }
+}
+
+// Crossing owner edges of the 4 cubes of a word of case bytes (n_cross
+// per byte, all four at once): bit 0 of each byte against bits 1, 3 and
+// 4. An inactive cube (case 0) has none.
+constexpr uint32_t kLowBits = 0x01010101u;  // bit 0 of each byte
+__device__ __forceinline__ int word_edges(uint32_t w) {
+    const uint32_t b0 = w & kLowBits;
+    return __popc(b0 ^ ((w >> 1) & kLowBits)) + __popc(b0 ^ ((w >> 3) & kLowBits)) +
+           __popc(b0 ^ ((w >> 4) & kLowBits));
+}
+
+// --- the edge-rank directory (K3 writes it, K7w reads it) ---------------
+// edge_ranks[i] = crossing owner edges of the active cubes with id below
+// kRankChunk * i, for i up to ceil(cubes / kRankChunk), so the last entry
+// is the total. An active cube's first welded vertex is that sum at its
+// id: 4 B per 32 cubes take the place of a cube -> slot map of 4 B per
+// cube. A lookup is two loads whose addresses depend on the id alone, the
+// 16 case bytes around the cube and the directory entry at the nearer end
+// of its chunk: forwards from the chunk's start in the lower half,
+// backwards from the next chunk's in the upper. The cube's own case byte
+// is among the 16, so nothing waits for it.
+constexpr int kRankChunk = 32;
+
+struct OwnerLoad {
+    uint32_t w[4];  // the 16 case bytes of the cube's half chunk
+    int rank;       // edge_ranks at the chunk's start (lower half) or end (upper)
+};
+
+__device__ __forceinline__ OwnerLoad owner_load(const uint8_t* cases, long long n,
+                                                const int32_t* edge_ranks, long long id) {
+    OwnerLoad l;
+    load16(cases, n, id & ~15LL, l.w);
+    l.rank = __ldg(edge_ranks + (id + kRankChunk / 2) / kRankChunk);
+    return l;
+}
+
+__device__ __forceinline__ unsigned owner_case(const OwnerLoad& l, long long id) {
+    const int p = (int)(id & 15);
+    const uint32_t word = p < 4 ? l.w[0] : p < 8 ? l.w[1] : p < 12 ? l.w[2] : l.w[3];
+    return (word >> (8 * (p & 3))) & 0xffu;
+}
+
+// Crossing owner edges of the active cubes before cube `id`.
+__device__ __forceinline__ int owner_edges_before(const OwnerLoad& l, long long id) {
+    const int p = (int)(id & 15);
+    const bool upper = (id & (kRankChunk / 2)) != 0;
+    int e = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+        const int below = p - 4 * q;  // bytes of word q before the cube
+        const uint32_t low = below >= 4 ? 0xffffffffu : below <= 0 ? 0u : (1u << (8 * below)) - 1u;
+        e += word_edges(l.w[q] & (upper ? ~low : low));  // upper: the cube's byte and after
+    }
+    return upper ? l.rank - e : l.rank + e;
+}
+
+// --- staged stores -------------------------------------------------------
+// A block's output is one contiguous range of 4-byte words at dst. The
+// block builds it in shared memory and writes it out together, so that
+// every store instruction of a warp covers consecutive addresses (a thread
+// writing its own 36-byte triangles scatters a warp's stores over up to
+// 32 x 180 B). Word i of the range sits at stage[shift + i], shift =
+// stage_shift(dst): a 16-byte group of dst is then a 16-byte group of the
+// stage, and the body goes out in 16-byte stores. stage is 16-byte
+// aligned and holds the range's words + 4.
+__device__ __forceinline__ int stage_shift(const void* dst) {
+    return (int)((reinterpret_cast<uintptr_t>(dst) >> 2) & 3u);
+}
+
+// Every thread of the block calls it, after a __syncthreads() that
+// follows the last write to the stage.
+template <int kThreads>
+__device__ __forceinline__ void store_staged(const uint32_t* stage, int shift, uint32_t* dst,
+                                             int n) {
+    const int head = min(n, (4 - shift) & 3);  // words before the first 16-byte group
+    const int body = (n - head) / 4;           // whole groups
+    if ((int)threadIdx.x < head) dst[threadIdx.x] = stage[shift + threadIdx.x];
+    const uint4* s4 = reinterpret_cast<const uint4*>(stage + shift + head);
+    uint4* d4 = reinterpret_cast<uint4*>(dst + head);
+    for (int i = threadIdx.x; i < body; i += kThreads) d4[i] = s4[i];
+    for (int i = head + 4 * body + threadIdx.x; i < n; i += kThreads) dst[i] = stage[shift + i];
+}
 
 // The epsilon rules of mcInterpolate (marchcubes.go:76-98) on an edge from
 // va to vb: t = (0 - va) / (vb - va), or 0.5 where both ends lie within

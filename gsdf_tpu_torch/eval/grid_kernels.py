@@ -32,11 +32,10 @@ from ..kernels import (
     LAUNCHES,
     NVCC_FLAGS,
     check_out,
-    check_rc,
     cuda_device,
     float_args,
+    launch,
     nvcc,
-    stream,
 )
 from ..ops import mc_emit
 
@@ -140,13 +139,8 @@ def evaluate_grid(tree, origin, res, shape, device, k0: int = 0):
     lib = build(tree)
     out = torch.empty((nk, nj, ni), dtype=torch.float32, device=device)
     check_out(out, (nk, nj, ni), torch.float32, device)
-    ox, oy, oz, r = float_args(origin, res)
-    with torch.cuda.device(device):
-        rc = lib.gsdf_grid_eval(
-            out.data_ptr(), ox, oy, oz, r, int(k0), nk, nj, ni, stream(device)
-        )
-    check_rc("grid_eval", rc)
-    LAUNCHES["grid_eval"] += 1
+    launch("grid_eval", device, lib.gsdf_grid_eval, out.data_ptr(),
+           *float_args(origin, res), int(k0), nk, nj, ni)
     return out
 
 
@@ -165,13 +159,7 @@ def classified_grid(tree, origin, res, shape, device, k0: int = 0):
     cases = torch.empty((nk - 1, nj - 1, ni - 1), dtype=torch.uint8, device=device)
     check_out(dist, (nk, nj, ni), torch.float32, device)
     check_out(cases, (nk - 1, nj - 1, ni - 1), torch.uint8, device)
-    ox, oy, oz, r = float_args(origin, res)
-    thr = float(mc_emit.quick_reject_threshold(res))
-    with torch.cuda.device(device):
-        rc = lib.gsdf_classified_grid(
-            dist.data_ptr(), cases.data_ptr(), ox, oy, oz, r, thr,
-            int(k0), nk, nj, ni, stream(device),
-        )
-    check_rc("classified_grid", rc)
-    LAUNCHES["classified_grid"] += 1
+    launch("classified_grid", device, lib.gsdf_classified_grid, dist.data_ptr(),
+           cases.data_ptr(), *float_args(origin, res, mc_emit.quick_reject_threshold(res)),
+           int(k0), nk, nj, ni)
     return dist, cases

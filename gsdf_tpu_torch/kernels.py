@@ -6,8 +6,8 @@ Kernels (all hand-written CUDA C++ in gsdf_tpu_torch/csrc/, nvcc sm_90a):
 
 - K1 `classified_grid`, K2 `grid_eval`: per tree (eval/grid_kernels.py);
 - K3 `compact_active`: order-preserving compaction of the active cubes,
-  with the crossing-edge count and offsets K4 needs
-  (ops/mc_emit.py::compact_active);
+  with the crossing-edge and triangle counts and block offsets that K4,
+  K7s and K7w need (ops/mc_emit.py::compact_active);
 - K4 `compact_emit`: the compact payload's case bytes and owner-edge t
   (ops/compact_field.py::compact_emit);
 - K7s `emit_soup`: triangle soup (ops/mc_emit.py::emit_triangles);
@@ -32,6 +32,7 @@ from . import _build
 from .ops import mc_tables
 
 #: launches per kernel; each wrapper adds one where it launches its kernel
+#: (through `launch`)
 LAUNCHES = {
     "classified_grid": 0,
     "grid_eval": 0,
@@ -63,21 +64,17 @@ _F = ctypes.c_float
 STATIC_KERNELS = {
     "compact_active": {
         "gsdf_compact_work": (_I64, [_I64]),
-        "gsdf_compact_active": (_I, [_V, _I64, _V, _V, _V]),
+        "gsdf_compact_active": (_I, [_V, _I64, _V, _V, _V, _V]),
     },
     "compact_emit": {
         "gsdf_compact_emit": (_I, [_V, _V, _V, _I64, _I, _I, _V, _V, _V, _V]),
     },
     "emit_soup": {
-        "gsdf_emit_soup_blocks": (_I64, [_I64]),
-        "gsdf_emit_soup_count": (_I, [_V, _V, _I64, _V, _V, _V]),
         "gsdf_emit_soup": (
             _I, [_V, _V, _V, _I64, _I, _I] + [_F] * 5 + [_V, _V, _V],
         ),
     },
     "emit_welded": {
-        "gsdf_emit_welded_blocks": (_I64, [_I64]),
-        "gsdf_emit_welded_count": (_I, [_V, _V, _I64, _I64, _V, _V, _V, _V]),
         "gsdf_emit_welded": (
             _I,
             [_V, _V, _V, _I64, _I, _I, _I] + [_F] * 5 + [_V] * 7,
@@ -123,25 +120,46 @@ def check_out(t: torch.Tensor, shape, dtype, device) -> None:
         )
 
 
-def check_rc(name: str, rc: int) -> None:
+def launch(name: str, device: torch.device, entry, *args) -> None:
+    """Call the C entry point of kernel `name` with `args` and, last, the
+    current stream of `device` (an indexed CUDA device, made current for
+    the call); raise unless the kernel launched, and count the launch. A
+    wrapper's own Python is most of what a small grid pays per call, so
+    the stream comes from torch's raw getter and the device is switched
+    only where it is not current already."""
+    raw = torch._C._cuda_getCurrentRawStream(device.index)
+    if device.index == torch.cuda.current_device():
+        rc = entry(*args, raw)
+    else:
+        with torch.cuda.device(device):
+            rc = entry(*args, raw)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
 
 
-def stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-def float_args(origin, res, *more) -> tuple:
+def float_args(origin, res, *more) -> list:
     """origin (3,), res and any further scalars as the float32 values a
     kernel takes (ctypes passes each as a C float)."""
     o = np.asarray(origin, np.float32).reshape(3)
-    return tuple(float(v) for v in (*o, np.float32(res), *map(np.float32, more)))
+    return np.array((o[0], o[1], o[2], res, *more), np.float32).tolist()
 
 
 def _c_array(ctype: str, name: str, values) -> str:
     body = ", ".join(str(int(v)) for v in np.asarray(values).reshape(-1))
-    return f"static __device__ const {ctype} {name}[{np.asarray(values).size}] = {{{body}}};\n"
+    return f"static __device__ constexpr {ctype} {name}[{np.asarray(values).size}] = {{{body}}};\n"
+
+
+def owner_edges() -> np.ndarray:
+    """(7,3) cube edge number by owner and axis, -1 where there is none.
+    Owner o is the neighbour cube at offset (o & 1, o >> 1 & 1, o >> 2)
+    whose corner 0 is the low end of the edge: the inverse of EDGE_LOW and
+    EDGE_AXIS, so that a kernel can walk a cube's 12 edges owner by owner
+    (owner 0 is the cube itself; the cube at (1, 1, 1) owns none)."""
+    out = np.full((7, 3), -1, np.int32)
+    for e, (low, ax) in enumerate(zip(mc_tables.EDGE_LOW, mc_tables.EDGE_AXIS)):
+        out[int(low[0]) + 2 * int(low[1]) + 4 * int(low[2]), int(ax)] = e
+    return out
 
 
 def tables_header() -> str:
@@ -155,6 +173,7 @@ def tables_header() -> str:
         + _c_array("uint8_t", "kCornerOffsets", mc_tables.CORNER_OFFSETS)  # 8 x 3
         + _c_array("uint8_t", "kEdgeAxis", mc_tables.EDGE_AXIS)  # 12
         + _c_array("uint8_t", "kEdgeLow", mc_tables.EDGE_LOW)  # 12 x 3
+        + _c_array("int8_t", "kOwnerEdge", owner_edges())  # 7 x 3
     )
 
 

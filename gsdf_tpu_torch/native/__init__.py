@@ -2,9 +2,9 @@
 compact-payload decoder (`gsdf_mc_decode`), the STL encoders (soup and
 indexed), the STL decoder and the soup welder.
 
-There is one C++ source of truth: the JAX package's
-gsdf_tpu/native/native.cpp, compiled by path (reading a C++ file is no
-Python import of gsdf_tpu) with the JAX package's flags
+The C++ source is the port's own: native.cpp beside this file, a copy
+of the JAX package's gsdf_tpu/native/native.cpp (a test holds the two
+files' bytes equal), compiled with the JAX package's flags
 (gsdf_tpu/native/__init__.py:23-41) into the port's build directory. A
 failed build raises; the port has no numpy fallback on its path.
 The `*_plain` functions are numpy versions of the same, kept only for the
@@ -23,7 +23,7 @@ from ..ops.mc_tables import MC_TRI_COUNT, MC_TRI_TABLE
 
 _f32 = np.float32
 
-NATIVE_SRC = os.path.join(_build.REPO_ROOT, "gsdf_tpu", "native", "native.cpp")
+NATIVE_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "native.cpp")
 # deterministic f32: no FMA contraction, so vertex reconstruction matches
 # the documented reference arithmetic
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-ffp-contract=off", "-pthread")

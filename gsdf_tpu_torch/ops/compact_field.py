@@ -23,6 +23,7 @@ from ..eval.grid_kernels import classified_grid
 from .mc_emit import (  # noqa: F401  (crossing re-exported)
     EMIT_BLOCK,
     MAX_CUBES,
+    block_offsets,
     check_kernel_inputs,
     compact_active,
     crossing,
@@ -63,10 +64,8 @@ def compact_emit(grid, cases, ids, n_t=None, offsets=None):
     if grid.device.type == "cpu":
         return compact_emit_plain(grid, cases, ids)
     device, A, nx, ny, _ = check_kernel_inputs(grid, cases, ids)
-    if n_t is None or offsets is None:
-        comp = compact_active(cases)
-        if len(comp.ids) != A:
-            raise ValueError(f"compact_emit: {A} ids, but the case grid has {len(comp.ids)} active")
+    comp = block_offsets("compact_emit", cases, ids, n_t, offsets)
+    if comp is not None:
         n_t, offsets = comp.n_t, comp.offsets
     if A == 0:
         return (
@@ -77,11 +76,9 @@ def compact_emit(grid, cases, ids, n_t=None, offsets=None):
     lib = kernels.static_lib("compact_emit")
     idx8 = torch.empty(A, dtype=torch.uint8, device=device)
     tvals = torch.empty(int(n_t), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        kernels.check_rc("compact_emit", lib.gsdf_compact_emit(
-            grid.data_ptr(), cases.data_ptr(), ids.data_ptr(), A, nx, ny,
-            offsets.data_ptr(), idx8.data_ptr(), tvals.data_ptr(), kernels.stream(device)))
-    kernels.LAUNCHES["compact_emit"] += 1
+    kernels.launch("compact_emit", device, lib.gsdf_compact_emit, grid.data_ptr(),
+                   cases.data_ptr(), ids.data_ptr(), A, nx, ny, offsets.data_ptr(),
+                   idx8.data_ptr(), tvals.data_ptr())
     return idx8, tvals
 
 
@@ -94,8 +91,9 @@ def compact_field_render(tree, origin, res, shape, device, k0: int = 0):
     if (nk - 1) * (nj - 1) * (ni - 1) >= MAX_CUBES:
         raise ValueError("grid too large for int32 cube ids")
     dist, cases = classified_grid(tree, origin, res, (nk, nj, ni), device, k0)
-    ids, n_t, offsets = compact_active(cases)  # the one count read before the fetch
-    idx8, tvals = compact_emit(dist, cases, ids, n_t, offsets)
+    comp = compact_active(cases)  # the one count read before the fetch
+    ids = comp.ids
+    idx8, tvals = compact_emit(dist, cases, ids, comp.n_t, comp.offsets)
     return ids.cpu().numpy().view(np.uint32), idx8.cpu().numpy(), tvals.cpu().numpy()
 
 

@@ -4,8 +4,9 @@ one fetch.
 
 The JAX package traced the whole render as one XLA executable with
 guessed buffer sizes and grew them on overflow; here each stage is a
-kernel and the sizes are exact device counts, so there is no size hint
-and no retry.
+kernel and the sizes are exact device counts, all carried by K3's one
+read, so there is no size hint, no retry and no second read before the
+fetch.
 """
 from __future__ import annotations
 

@@ -6,8 +6,10 @@ Every crossing edge's owner is the cube whose corner 0 is the edge's low
 end; a crossing edge has an active owner whenever that cube lies inside
 the grid and passes the quick reject, so vertices are enumerated from the
 3 owner edges of each active cube, cube-major, axis order x, y, z. The
-device work is K1 (eval + classify), K3 (compaction) and K7w
-(`emit_welded`, hand-written CUDA beside its plain torch version).
+device work is K1 (eval + classify), K3 (compaction, with the vertex and
+triangle counts, their block offsets and the edge-rank directory of the
+owner lookup) and K7w (`emit_welded`, hand-written CUDA beside its plain
+torch version): one read of K3's counts, then one fetch of one buffer.
 
 Coordinates may differ from the soup path in the last ulp (each vertex is
 interpolated once, from its owner cube's corners); triangle count and
@@ -36,8 +38,11 @@ from .mc_emit import (
     LOW_EDGE_FAR,
     MC_TRI_COUNT,
     MC_TRI_TABLE,
+    EMIT_BLOCK,
+    RANK_CHUNK,
+    block_offsets,
     check_kernel_inputs,
-    compact_indices,
+    compact_active,
     corner_positions,
     cube_bases,
     gather_corners,
@@ -58,9 +63,9 @@ def _i64(a: np.ndarray, device) -> torch.Tensor:
 def emit_welded_plain(grid, cases, ids, origin, res, k0=0):
     """K7w's plain version (the torch port of the JAX package's
     build_welded_render, :83-188, with exact sizes): (verts (V,3) f32,
-    tri_idx (T,3) i32, unresolved corners). A triangle corner whose owner
-    cube is outside the grid, inactive, or has no vertex on that edge gets
-    index -1 and counts as unresolved."""
+    tri_idx (T,3) i32, unresolved corners as a 0-dim tensor). A triangle
+    corner whose owner cube is outside the grid, inactive, or has no
+    vertex on that edge gets index -1 and counts as unresolved."""
     nk, nj, ni = grid.shape
     nx, ny, nz = ni - 1, nj - 1, nk - 1
     dev, A = grid.device, len(ids)
@@ -94,56 +99,75 @@ def emit_welded_plain(grid, cases, ids, origin, res, k0=0):
     tri = edge_vert.gather(1, table).reshape(A, 5, 3).flip(2)  # reference winding
     valid = torch.arange(5, device=dev)[None, :] < _i64(MC_TRI_COUNT, dev)[idx8][:, None]
     tri_idx = tri[valid].to(torch.int32)
-    return verts, tri_idx, int((tri_idx < 0).sum())
+    return verts, tri_idx, (tri_idx < 0).sum()
 
 
-def emit_welded(grid, cases, ids, origin, res, k0=0):
+def split_welded(buf, n_verts: int, n_tris: int):
+    """(verts, tri_idx, unresolved) as views of K7w's one int32 output
+    buffer: the vertices' float32 bits, the index triples, the count."""
+    nv, nt = 3 * n_verts, 3 * n_tris
+    return (buf[:nv].view(torch.float32).view(n_verts, 3),
+            buf[nv : nv + nt].view(n_tris, 3), buf[nv + nt])
+
+
+def welded_buffer(grid, cases, ids, origin, res, k0, comp):
+    """K7w's launch on a CUDA grid: (its output buffer, n_verts, n_tris).
+    comp is K3's Compaction of `cases` with its edge_ranks; without one the
+    wrapper runs K3 for it (K7w has no count pass of its own)."""
+    device, A, nx, ny, nz = check_kernel_inputs(grid, cases, ids)
+    if comp is None or comp.edge_ranks is None:
+        comp = block_offsets("emit_welded", cases, ids, None, None, edge_ranks=True)
+    elif len(comp.ids) != A:
+        raise ValueError(f"emit_welded: {A} ids, but the compaction holds {len(comp.ids)}")
+    n_verts, n_tris = int(comp.n_t), int(comp.n_tris)
+    if n_verts >= 1 << 31:
+        raise ValueError(f"emit_welded: {n_verts} vertices exceed int32 indices")
+    buf = torch.empty(3 * n_verts + 3 * n_tris + 1, dtype=torch.int32, device=device)
+    if A == 0:
+        return buf.zero_(), n_verts, n_tris
+    blocks = -(-A // EMIT_BLOCK)
+    kernels.check_out(comp.offsets, (blocks,), torch.int64, device)
+    kernels.check_out(comp.tri_offsets, (blocks,), torch.int64, device)
+    kernels.check_out(comp.edge_ranks, (-(-cases.numel() // RANK_CHUNK) + 1,), torch.int32, device)
+    verts = buf.data_ptr()  # the layout of split_welded, 4 bytes a word
+    tri_idx = verts + 12 * n_verts
+    lib = kernels.static_lib("emit_welded")
+    kernels.launch("emit_welded", device, lib.gsdf_emit_welded, grid.data_ptr(),
+                   cases.data_ptr(), ids.data_ptr(), A, nx, ny, nz,
+                   *kernels.float_args(origin, res, k0), comp.offsets.data_ptr(),
+                   comp.tri_offsets.data_ptr(), comp.edge_ranks.data_ptr(), verts, tri_idx,
+                   tri_idx + 12 * n_tris)
+    return buf, n_verts, n_tris
+
+
+def emit_welded(grid, cases, ids, origin, res, k0=0, comp=None):
     """Indexed mesh of the active cubes `ids` (K7w): (verts (V,3) f32,
-    tri_idx (T,3) i32, unresolved corners). grid (nk,nj,ni) distances,
-    cases its u8 case grid, k0 the grid's plane offset."""
+    tri_idx (T,3) i32, unresolved corners as a 0-dim tensor, read with
+    int()). grid (nk,nj,ni) distances, cases its u8 case grid, k0 the
+    grid's plane offset. comp is K3's result for `cases`, made with
+    edge_ranks=True: with it the call is one launch and reads nothing;
+    without it the wrapper runs K3 on `cases` first. On a card the three
+    outputs are views of one buffer."""
     if grid.device.type == "cpu":
         return emit_welded_plain(grid, cases, ids, origin, res, k0)
-    device, A, nx, ny, nz = check_kernel_inputs(grid, cases, ids)
-    if A == 0:
-        return (
-            torch.empty((0, 3), dtype=torch.float32, device=device),
-            torch.empty((0, 3), dtype=torch.int32, device=device),
-            0,
-        )
-    lib = kernels.static_lib("emit_welded")
-    blocks = lib.gsdf_emit_welded_blocks(A)
-    offsets = torch.empty(2 * blocks, dtype=torch.int64, device=device)
-    totals = torch.empty(2, dtype=torch.int64, device=device)
-    slot_map = torch.empty(nx * ny * nz, dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
-        s = kernels.stream(device)
-        kernels.check_rc("emit_welded", lib.gsdf_emit_welded_count(
-            cases.data_ptr(), ids.data_ptr(), A, slot_map.numel(), slot_map.data_ptr(),
-            offsets.data_ptr(), totals.data_ptr(), s))
-        n_verts, n_tris = totals.tolist()
-        verts = torch.empty((n_verts, 3), dtype=torch.float32, device=device)
-        tri_idx = torch.empty((n_tris, 3), dtype=torch.int32, device=device)
-        vbase = torch.empty(A, dtype=torch.int32, device=device)
-        unresolved = torch.zeros(1, dtype=torch.int32, device=device)
-        kernels.check_rc("emit_welded", lib.gsdf_emit_welded(
-            grid.data_ptr(), cases.data_ptr(), ids.data_ptr(), A, nx, ny, nz,
-            *kernels.float_args(origin, res, k0), slot_map.data_ptr(), offsets.data_ptr(),
-            vbase.data_ptr(), verts.data_ptr(), tri_idx.data_ptr(),
-            unresolved.data_ptr(), s))
-    kernels.LAUNCHES["emit_welded"] += 1
-    return verts, tri_idx, int(unresolved.item())
+    return split_welded(*welded_buffer(grid, cases, ids, origin, res, k0, comp))
 
 
 def welded_render(tree, origin, res, shape, device):
-    """Indexed-mesh render: K1, K3, K7w, one fetch. Returns (verts (V,3)
-    f32, tri_idx (T,3) i32, unresolved corners) as numpy arrays; the mesh
-    is valid only where unresolved is 0."""
+    """Indexed-mesh render: K1, K3 (the one count read), K7w, one fetch.
+    Returns (verts (V,3) f32, tri_idx (T,3) i32, unresolved corners) as
+    numpy arrays and an int; the mesh is valid only where unresolved is
+    0."""
     dist, cases = classified_grid(tree, origin, res, shape, device)
-    ids = compact_indices(cases)
-    verts, tri_idx, unresolved = emit_welded(dist, cases, ids, origin, res)
-    if len(verts) > MAX_WELDED_VERTS:
+    comp = compact_active(cases, edge_ranks=True)
+    if comp.n_t > MAX_WELDED_VERTS:
         raise ValueError(
-            f"mesh of {len(verts)} vertices exceeds the welded path's 2^21 vertices; "
+            f"mesh of {comp.n_t} vertices exceeds the welded path's 2^21 vertices; "
             "use render_compact"
         )
-    return verts.cpu().numpy(), tri_idx.cpu().numpy(), unresolved
+    if dist.device.type == "cpu":
+        verts, tri_idx, unresolved = emit_welded_plain(dist, cases, comp.ids, origin, res)
+    else:  # vertices, indices and the count come back in one copy
+        buf, n_verts, n_tris = welded_buffer(dist, cases, comp.ids, origin, res, 0, comp)
+        verts, tri_idx, unresolved = split_welded(buf.cpu(), n_verts, n_tris)
+    return verts.numpy(), tri_idx.numpy(), int(unresolved)

@@ -1,8 +1,9 @@
 """Staged marching cubes (gsdf_tpu/ops/marching_cubes.py:42-108) over a
-device-resident corner grid: classify (plain torch), compact (K3), emit
-the soup (K7s). FlatRenderer.render(fused=False) runs it on the grid that
-K2 evaluates; it cross-checks the one-pass soup (ops/fused_render.py) and
-serves grids too large for one fused pass.
+device-resident corner grid: classify (plain torch), compact (K3, the one
+count read), emit the soup (K7s) at K3's triangle offsets.
+FlatRenderer.render(fused=False) runs it on the grid that K2 evaluates;
+it cross-checks the one-pass soup (ops/fused_render.py) and serves grids
+too large for one fused pass.
 
 Grid convention: grid[k, j, i], shape (nz+1, ny+1, nx+1).
 """

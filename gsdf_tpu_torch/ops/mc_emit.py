@@ -11,11 +11,11 @@ Conventions shared with the JAX package and the host decoder:
 
 Two of the device stages are hand-written CUDA kernels (csrc/), each
 beside its plain torch version: K3 `compact_active` (the active cubes'
-ids, ascending, with K4's edge count and offsets) and K7s
-`emit_triangles` (the soup). On a CPU tensor a
+ids, ascending, with the counts and block offsets of what K4, K7s and K7w
+emit for them) and K7s `emit_triangles` (the soup). On a CPU tensor a
 wrapper runs the plain version; on a CUDA tensor it launches its kernel
-or raises. Sizes are exact, read from a device count: no padding, no
-grow-and-retry.
+or raises. Sizes are exact, from K3's one read of its device counts: no
+padding, no grow-and-retry, no count pass in an emit kernel.
 """
 from __future__ import annotations
 
@@ -169,18 +169,28 @@ def check_kernel_inputs(grid, cases, ids):
 
 
 # --- K3: order-preserving compaction ------------------------------------
-#: active cubes per block of K4's emit kernel (csrc/compact_emit.cu)
+#: active cubes per block of the emit kernels K4, K7s and K7w (csrc/)
 EMIT_BLOCK = 256
+#: cubes per entry of K3's edge_ranks directory (csrc/gsdf_scan.cuh)
+RANK_CHUNK = 32
 
 
 class Compaction(NamedTuple):
-    """K3's outputs: ids (A,) int32 of the active cubes, ascending; n_t
-    the number of their crossing owner edges; offsets (ceil(A/256),) int64
-    the crossing edges before every 256th active cube (K4's offsets)."""
+    """K3's outputs. ids (A,) int32 of the active cubes, ascending. n_t
+    their crossing owner edges (K4's t values, K7w's vertices) and n_tris
+    their triangles (MC_TRI_COUNT[case]); offsets and tri_offsets
+    (ceil(A/256),) int64 the same two sums before every 256th active cube,
+    where a block of an emit kernel starts. edge_ranks, only where asked
+    for: (ceil(cubes/32) + 1,) int32, the crossing owner edges before every
+    32nd cube of the grid and, last, their total (K7w's owner lookup),
+    else None."""
 
     ids: torch.Tensor
     n_t: int
     offsets: torch.Tensor
+    n_tris: int
+    tri_offsets: torch.Tensor
+    edge_ranks: torch.Tensor | None = None
 
 
 def crossing(idx8):
@@ -198,18 +208,33 @@ def compact_indices_plain(cases):
     return torch.nonzero(cases.reshape(-1)).squeeze(1).to(torch.int32)
 
 
-def compact_active_plain(cases) -> Compaction:
+def _before(counts):
+    """Exclusive running sum of int64 counts."""
+    return torch.cumsum(counts, 0) - counts
+
+
+def compact_active_plain(cases, edge_ranks: bool = False) -> Compaction:
     """K3's plain version."""
+    flat = cases.reshape(-1)
     ids = compact_indices_plain(cases)
-    n_cross = crossing(cases.reshape(-1)[ids.to(torch.int64)]).sum(1)
-    before = torch.cumsum(n_cross, 0) - n_cross
-    return Compaction(ids, int(n_cross.sum()), before[::EMIT_BLOCK])
+    idx8 = flat[ids.to(torch.int64)]
+    n_cross = crossing(idx8).sum(1)
+    n_tri = torch.from_numpy(MC_TRI_COUNT.astype(np.int64)).to(cases.device)[idx8.to(torch.int64)]
+    ranks = None
+    if edge_ranks:  # over every cube of the grid: an inactive one (case 0) has no edge
+        dense = crossing(flat).sum(1)
+        ranks = torch.cat([_before(dense)[::RANK_CHUNK], dense.sum()[None]]).to(torch.int32)
+    return Compaction(ids, int(n_cross.sum()), _before(n_cross)[::EMIT_BLOCK],
+                      int(n_tri.sum()), _before(n_tri)[::EMIT_BLOCK], ranks)
 
 
-def compact_active(cases) -> Compaction:
+def compact_active(cases, edge_ranks: bool = False) -> Compaction:
     """Compaction of the non-zero case bytes of a u8 case grid (K3;
-    gsdf_tpu/ops/mc_emit.py:190-288 without its padding): the ids, and
-    K4's edge count and offsets. One launch and one read of the counts.
+    gsdf_tpu/ops/mc_emit.py:190-288 without its padding): the ids, and the
+    counts and block offsets of the edges and triangles that K4, K7s and
+    K7w emit for them. One launch and one read of the counts, the only
+    read of a render before its fetch. edge_ranks=True also fills the
+    directory that K7w's owner lookup needs.
 
     The ids are the first A entries of a buffer of one int32 per cube."""
     n = cases.numel()
@@ -218,22 +243,27 @@ def compact_active(cases) -> Compaction:
             f"compact_active: {n} cubes exceed int32 ids (2^31); slice the grid first"
         )
     if cases.device.type == "cpu":
-        return compact_active_plain(cases)
+        return compact_active_plain(cases, edge_ranks)
     device = kernels.cuda_device(cases.device)
     kernels.check_out(cases, tuple(cases.shape), torch.uint8, device)
+    ranks = None
+    if edge_ranks:
+        ranks = torch.empty(-(-n // RANK_CHUNK) + 1, dtype=torch.int32, device=device)
     if n == 0:
-        return Compaction(torch.empty(0, dtype=torch.int32, device=device), 0,
-                          torch.empty(0, dtype=torch.int64, device=device))
+        none = torch.empty(0, dtype=torch.int64, device=device)
+        return Compaction(torch.empty(0, dtype=torch.int32, device=device), 0, none, 0, none,
+                          None if ranks is None else ranks.zero_())
     lib = kernels.static_lib("compact_active")
-    # one int64 buffer: counts (2), K4's offsets, the tiles' status words
+    # one int64 buffer: counts (4), both offsets, the tiles' status words
     work = torch.empty(lib.gsdf_compact_work(n), dtype=torch.int64, device=device)
     ids = torch.empty(n, dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
-        kernels.check_rc("compact_active", lib.gsdf_compact_active(
-            cases.data_ptr(), n, work.data_ptr(), ids.data_ptr(), kernels.stream(device)))
-    kernels.LAUNCHES["compact_active"] += 1
-    n_active, n_t = work[:2].tolist()  # the one read of the device counts
-    return Compaction(ids[:n_active], n_t, work[2 : 2 + -(-n_active // EMIT_BLOCK)])
+    kernels.launch("compact_active", device, lib.gsdf_compact_active, cases.data_ptr(), n,
+                   work.data_ptr(), ids.data_ptr(), None if ranks is None else ranks.data_ptr())
+    n_active, n_t, n_tris = work[:3].tolist()  # the one read of the device counts
+    blocks, stride = -(-n_active // EMIT_BLOCK), n // EMIT_BLOCK + 1
+    return Compaction(ids[:n_active], n_t, work[4 : 4 + blocks],
+                      n_tris, work[4 + stride : 4 + stride + blocks],
+                      ranks)
 
 
 def compact_indices(cases):
@@ -262,32 +292,45 @@ def emit_triangles_plain(grid, cases, ids, origin, res, k0=0):
     return tris[valid]
 
 
-def emit_triangles(grid, cases, ids, origin, res, k0=0):
+def block_offsets(name, cases, ids, count, offsets, edge_ranks=False):
+    """K3's Compaction for an emit wrapper that was not handed K3's count
+    and block offsets for `ids`: runs K3 on `cases` (the emit kernels have
+    no count pass of their own). None where both were given."""
+    if count is not None and offsets is not None:
+        return None
+    comp = compact_active(cases, edge_ranks)
+    if len(comp.ids) != len(ids):
+        raise ValueError(f"{name}: {len(ids)} ids, but the case grid has {len(comp.ids)} active")
+    return comp
+
+
+def emit_triangles(grid, cases, ids, origin, res, k0=0, n_tris=None, tri_offsets=None):
     """Triangle soup (T,3,3) f32 of the active cubes `ids` (K7s;
     gsdf_tpu/ops/mc_emit.py:305-373). grid (nk,nj,ni) distances, cases
-    its u8 case grid, k0 the grid's plane offset in the whole grid."""
+    its u8 case grid, k0 the grid's plane offset in the whole grid.
+    n_tris and tri_offsets are K3's triangle count and block offsets for
+    these ids: with them the call is one launch and reads nothing; without
+    them the wrapper runs K3 on `cases` first."""
     if grid.device.type == "cpu":
         return emit_triangles_plain(grid, cases, ids, origin, res, k0)
     device, A, nx, ny, _ = check_kernel_inputs(grid, cases, ids)
+    comp = block_offsets("emit_triangles", cases, ids, n_tris, tri_offsets)
+    if comp is not None:
+        n_tris, tri_offsets = comp.n_tris, comp.tri_offsets
+    tris = torch.empty((int(n_tris), 3, 3), dtype=torch.float32, device=device)
     if A == 0:
-        return torch.empty((0, 3, 3), dtype=torch.float32, device=device)
+        return tris
+    kernels.check_out(tri_offsets, (-(-A // EMIT_BLOCK),), torch.int64, device)
     lib = kernels.static_lib("emit_soup")
-    offsets = torch.empty(lib.gsdf_emit_soup_blocks(A), dtype=torch.int64, device=device)
-    total = torch.empty(1, dtype=torch.int64, device=device)
-    with torch.cuda.device(device):
-        s = kernels.stream(device)
-        kernels.check_rc("emit_soup", lib.gsdf_emit_soup_count(
-            cases.data_ptr(), ids.data_ptr(), A, offsets.data_ptr(), total.data_ptr(), s))
-        tris = torch.empty((int(total.item()), 3, 3), dtype=torch.float32, device=device)
-        kernels.check_rc("emit_soup", lib.gsdf_emit_soup(
-            grid.data_ptr(), cases.data_ptr(), ids.data_ptr(), A, nx, ny,
-            *kernels.float_args(origin, res, k0), offsets.data_ptr(), tris.data_ptr(), s))
-    kernels.LAUNCHES["emit_soup"] += 1
+    kernels.launch("emit_soup", device, lib.gsdf_emit_soup, grid.data_ptr(), cases.data_ptr(),
+                   ids.data_ptr(), A, nx, ny, *kernels.float_args(origin, res, k0),
+                   tri_offsets.data_ptr(), tris.data_ptr())
     return tris
 
 
 def dense_grid_mc(grid, cases, origin, res, k0=0):
     """Marching cubes over a device-resident corner grid and its case
-    grid: compact (K3), then emit (K7s). Returns tris (T,3,3) on the
-    grid's device."""
-    return emit_triangles(grid, cases, compact_indices(cases), origin, res, k0)
+    grid: compact (K3, the one count read), then emit (K7s). Returns tris
+    (T,3,3) on the grid's device."""
+    comp = compact_active(cases)
+    return emit_triangles(grid, cases, comp.ids, origin, res, k0, comp.n_tris, comp.tri_offsets)

@@ -5,7 +5,8 @@ grid. Three outputs:
 - `render(fused)`: the triangle soup. fused=True runs K1 + K3 + K7s
   (ops/fused_render.py), in z-slabs past `slab_cubes`; fused=False the
   staged path: K2 grid (z-slabbed past `max_slab_points`), plain torch
-  classification, K3, K7s (ops/marching_cubes.py).
+  classification, K3, K7s (ops/marching_cubes.py). Each reads K3's
+  counts once and nothing else before its fetch.
 - `render_indexed()`: the welded mesh, K1 + K3 + K7w (ops/fused_welded.py);
   past `slab_cubes`, or where an owner cube is unresolved, it welds
   `render()`'s soup on the host instead.
@@ -43,8 +44,12 @@ class FlatRenderer:
     """Dense-grid marching cubes with reference-identical output."""
 
     #: grid corners past which the soup renders in z-slabs and the indexed
-    #: mesh comes from welding the soup (a slab holds K3's ids buffer of
-    #: 4 B per cube too, as the compact path does)
+    #: mesh comes from welding the soup. Per cube a slab holds 4 B of
+    #: distances, 1 B of cases, 4 B of K3's ids buffer (sized before the
+    #: active count is known) and 1/16 B of K3's block offsets; the
+    #: indexed mesh adds K3's edge-rank directory, 1/8 B (no cube -> slot
+    #: map); then the exact output, 36 B per triangle or 12 B per vertex
+    #: and per triangle
     slab_cubes = 48_000_000
     #: grid corners past which the compact path renders in z-slabs. A
     #: dispatch holds 4 B per corner (distances), 1 B per cube (cases) and

@@ -10,6 +10,14 @@ fetch, host decode or weld, and STL encode. It prints the median of each
 stage over the runs after the first two, and the device time that
 torch.profiler sums over one more render, with the idle share 1 - device
 time / wall time. Triangle counts must equal the golden counts.
+
+    python -m gsdf_tpu_torch.stages --wrappers
+
+instead splits one call of each marching-cubes wrapper (K3, K3 with the
+edge ranks, K4, K7s, K7w) on the five golden grids into the host's time
+to make the call (host clock over 200 calls, nothing awaited) and the
+device time of each kernel, memset and copy in it (torch.profiler, mean
+of 30 calls): a wrapper timed back to back shows the larger of the two.
 """
 from __future__ import annotations
 
@@ -66,9 +74,10 @@ def _encode(c, verts=None, tri=None, soup=None):
 def compact(fr, c):
     dist, cases = classified_grid(fr.s, fr.origin, fr.res, fr.shape(), fr.device)
     c.lap("K1")
-    ids, n_t, offsets = mc_emit.compact_active(cases)
+    comp = mc_emit.compact_active(cases)
+    ids = comp.ids
     c.lap("K3")
-    idx8, t = compact_field.compact_emit(dist, cases, ids, n_t, offsets)
+    idx8, t = compact_field.compact_emit(dist, cases, ids, comp.n_t, comp.offsets)
     c.lap("K4")
     payload = ids.cpu().numpy().view(np.uint32), idx8.cpu().numpy(), t.cpu().numpy()
     c.lap("fetch")
@@ -83,9 +92,10 @@ def _soup(fr, c):
     for k0, shape in fr.soup_slabs():
         dist, cases = classified_grid(fr.s, fr.origin, fr.res, shape, fr.device, k0)
         c.lap("K1")
-        ids = mc_emit.compact_indices(cases)
+        comp = mc_emit.compact_active(cases)
         c.lap("K3")
-        tris = mc_emit.emit_triangles(dist, cases, ids, fr.origin, fr.res, k0)
+        tris = mc_emit.emit_triangles(dist, cases, comp.ids, fr.origin, fr.res, k0,
+                                      comp.n_tris, comp.tri_offsets)
         c.lap("K7s")
         parts.append(tris.cpu().numpy())
         c.lap("fetch")
@@ -112,11 +122,13 @@ def indexed(fr, c):
     else:
         dist, cases = classified_grid(fr.s, fr.origin, fr.res, fr.shape(), fr.device)
         c.lap("K1")
-        ids = mc_emit.compact_indices(cases)
+        comp = mc_emit.compact_active(cases, edge_ranks=True)
         c.lap("K3")
-        v, t, unresolved = fused_welded.emit_welded(dist, cases, ids, fr.origin, fr.res)
+        buf, n_verts, n_tris = fused_welded.welded_buffer(dist, cases, comp.ids, fr.origin,
+                                                          fr.res, 0, comp)
         c.lap("K7w")
-        verts, tri = v.cpu().numpy(), t.cpu().numpy()
+        verts, tri, unresolved = (a.numpy() for a in
+                                  fused_welded.split_welded(buf.cpu(), n_verts, n_tris))
         c.lap("fetch")
         if unresolved:
             raise RuntimeError("unresolved owner cubes on a golden part")
@@ -140,10 +152,65 @@ def device_busy_ms(fn):
     return busy, wall
 
 
+def host_us(fn, n=200):
+    """Host microseconds to make one call of fn, nothing awaited."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def device_us(fn, n=30):
+    """Device microseconds per call of fn, by kernel, memset and copy."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.replace("(anonymous namespace)::", "").split("(")[0].strip():
+            round(e.device_time_total / n, 2)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.device_time_total > 0}
+
+
+def wrappers(trees, dev, card):
+    """Host and device time of one call of each marching-cubes wrapper."""
+    out = {"card": card}
+    for name, resdiv in PARTS:
+        fr = FlatRenderer(trees[name], trees[name].bounds().diagonal() / resdiv, dev)
+        dist, cases = classified_grid(fr.s, fr.origin, fr.res, fr.shape(), dev)
+        comp = mc_emit.compact_active(cases, edge_ranks=True)
+        o, r = fr.origin, fr.res
+        calls = {
+            "K3": lambda: mc_emit.compact_active(cases),
+            "K3 with edge ranks": lambda: mc_emit.compact_active(cases, edge_ranks=True),
+            "K4": lambda: compact_field.compact_emit(dist, cases, comp.ids, comp.n_t, comp.offsets),
+            "K7s": lambda: mc_emit.emit_triangles(dist, cases, comp.ids, o, r, 0, comp.n_tris,
+                                                  comp.tri_offsets),
+            "K7w": lambda: fused_welded.emit_welded(dist, cases, comp.ids, o, r, 0, comp=comp),
+        }
+        for k, fn in calls.items():
+            row = {"host_us": round(host_us(fn), 1), "device_us": device_us(fn)}
+            out[f"{k} {name}@{resdiv}"] = row
+            print(f"{k} {name}@{resdiv}: host {row['host_us']} us a call, device us "
+                  f"{row['device_us']} [{card}]", flush=True)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--runs", type=int, default=7, help="renders per row; the first two warm up")
     ap.add_argument("--out", help="also write the rows to this JSON file")
+    ap.add_argument("--wrappers", action="store_true",
+                    help="split each marching-cubes wrapper's call into host and device time")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("stages: needs a CUDA device")
@@ -154,6 +221,12 @@ def main(argv=None):
     ).stdout.strip()
     trees = {n: getattr(flagships, f"build_{n}")() for n in ("flange", "showerhead", "bolt",
                                                                "knurled")}
+    if args.wrappers:
+        out = wrappers(trees, dev, card)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(out, f, indent=1)
+        return
     rows = [("compact", compact, part) for part in PARTS]
     rows += [(p, f, part) for p, f in (("soup", soup), ("indexed", indexed))
              for part in list(PARTS)[:3]]

@@ -58,7 +58,7 @@ def test_classification_counts_ten_per_cube():
 def test_kernel_bytes_and_bound():
     assert bounds.kernel_bytes("classified_grid", corners=1000, cubes=729) == 4729
     assert bounds.kernel_bytes("grid_eval", corners=1000) == 4000
-    assert bounds.kernel_bytes("compact_active", cubes=4096, active=257) == 4096 + 4 * 257 + 16 + 16
+    assert bounds.kernel_bytes("compact_active", cubes=4096, active=257) == 4096 + 4 * 257 + 32 + 24
     b = bounds.bound(ops=33.5e9, nbytes=1e9)
     assert b["bound_ms"] == pytest.approx(1.0) and b["bound_by"] == "operations"
     assert b["published_fp32_ms"] == pytest.approx(0.5)

@@ -7,10 +7,13 @@ imports no JAX, so on a machine without JAX it runs alone:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Also K1 on ragged shapes and a slab at k0 = 83, K3 at tile edges, past
-40 waves of tiles and on an unaligned view, and the compact path's one
-count read.
+40 waves of tiles and on an unaligned view, K7s and K7w on seeded random
+grids (ragged shapes, a block count that is no multiple of 256, k0 = 83,
+cube 0 active, far faces crossed), on a grid whose every cube emits five
+triangles (the shared-memory stage at its limit) and back to back, and
+every path's one count read before its fetch.
 
-Tolerances: case grids, ids, counts, K4's offsets and tri_idx exact; t, soup and welded
+Tolerances: case grids, ids, counts, K3's block offsets and edge ranks and tri_idx exact; t, soup and welded
 vertices bit-identical (the kernels are built -fmad=false and fed the
 same grid); distances within 1e-5 * max(1, |d|), the last-ulp difference
 of CUDA's atan2f and torch.atan2.
@@ -157,11 +160,17 @@ K3_WAVE = 132 * 2
 
 
 def _same_compaction(cases):
-    comp = _counted("compact_active", lambda: mc_emit.compact_active(cases))
-    ref = mc_emit.compact_active_plain(cases)
+    comp = _counted("compact_active", lambda: mc_emit.compact_active(cases, edge_ranks=True))
+    ref = mc_emit.compact_active_plain(cases, edge_ranks=True)
     assert torch.equal(comp.ids, ref.ids)
-    assert comp.n_t == ref.n_t
+    assert (comp.n_t, comp.n_tris) == (ref.n_t, ref.n_tris)
     assert torch.equal(comp.offsets, ref.offsets)
+    assert torch.equal(comp.tri_offsets, ref.tri_offsets)
+    assert torch.equal(comp.edge_ranks, ref.edge_ranks)
+    bare = mc_emit.compact_active(cases)  # no directory asked for: none written
+    assert bare.edge_ranks is None and torch.equal(bare.ids, ref.ids)
+    assert (bare.n_t, bare.n_tris) == (ref.n_t, ref.n_tris)
+    assert torch.equal(bare.offsets, ref.offsets) and torch.equal(bare.tri_offsets, ref.tri_offsets)
     return comp
 
 
@@ -170,11 +179,12 @@ def _same_compaction(cases):
 @pytest.mark.parametrize("density", [0.0, 0.03, 1.0])
 def test_compact_active_matches_plain(n, density, cuda_device):
     """K3's one pass: tile edges, a short last tile, more than 40 waves of
-    tiles, empty and full grids. Ids, (n_active, n_t) and K4's offsets
-    equal the plain version's."""
+    tiles, empty and full grids. Ids, (n_active, n_t, n_tris), both block
+    offsets and the edge-rank directory equal the plain version's."""
     comp = _same_compaction(_case_bytes(n, density, n, cuda_device))
     if density == 0.0:
         assert len(comp.ids) == 0 and comp.n_t == 0 and len(comp.offsets) == 0
+        assert comp.n_tris == 0 and len(comp.tri_offsets) == 0
     if density == 1.0:
         assert len(comp.ids) == n
 
@@ -190,38 +200,79 @@ def test_compact_active_unaligned_view_and_back_to_back(cuda_device):
     assert len(a.ids) > len(b.ids) > 0
 
 
+def _synchronising(fn):
+    """(fn's result, the synchronising calls torch warned of inside it)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, [f"{w.filename}:{w.lineno} {w.message}" for w in caught
+                 if "called a synchronizing" in str(w.message)]
+
+
+def _flange_args(cuda_device, resdiv=120):
+    tree = flagships.build_flange()
+    fr = FlatRenderer(tree, tree.bounds().diagonal() / resdiv, cuda_device)
+    return tree, fr.origin, fr.res, fr.shape(), cuda_device
+
+
 def test_compact_path_reads_counts_once(cuda_device):
     """Up to its fetch the compact path synchronises once: K3's count read.
     K4 takes K3's edge count and offsets and reads nothing."""
-    import warnings
-
-    tree = flagships.build_flange()
-    fr = FlatRenderer(tree, tree.bounds().diagonal() / 120, cuda_device)
-    args = (tree, fr.origin, fr.res, fr.shape(), cuda_device)
+    args = _flange_args(cuda_device)
     compact_field.compact_field_render(*args)  # builds the kernels
     torch.cuda.synchronize()
 
-    def synchronising(fn):
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                out = fn()
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        return out, [f"{w.filename}:{w.lineno} {w.message}" for w in caught
-                     if "called a synchronizing" in str(w.message)]
-
     def until_fetch():
         dist, cases = gk.classified_grid(*args)
-        ids, n_t, offsets = mc_emit.compact_active(cases)
-        return (ids, *compact_field.compact_emit(dist, cases, ids, n_t, offsets))
+        comp = mc_emit.compact_active(cases)
+        return (comp.ids, *compact_field.compact_emit(dist, cases, comp.ids, comp.n_t,
+                                                      comp.offsets))
 
-    payload, syncs = synchronising(until_fetch)
+    payload, syncs = _synchronising(until_fetch)
     assert len(syncs) == 1, syncs
-    _, fetch = synchronising(lambda: [a.cpu() for a in payload])
-    _, whole = synchronising(lambda: compact_field.compact_field_render(*args))
+    _, fetch = _synchronising(lambda: [a.cpu() for a in payload])
+    _, whole = _synchronising(lambda: compact_field.compact_field_render(*args))
     assert len(whole) == 1 + len(fetch), whole
+
+
+@pytest.mark.parametrize("path", ["soup", "staged", "indexed"])
+def test_triangle_paths_read_counts_once(path, cuda_device):
+    """Up to its fetch each triangle path synchronises once, at K3's count
+    read: K7s and K7w take their sizes and block offsets from K3 and read
+    nothing, and the indexed path's fetch is one copy (vertices, indices
+    and the unresolved count in one buffer)."""
+    tree, origin, res, shape, dev = args = _flange_args(cuda_device)
+
+    def emitted():
+        if path == "staged":
+            dist = gk.evaluate_grid(*args)
+            cases = mc_emit.effective_cases(dist, res)
+        else:
+            dist, cases = gk.classified_grid(*args)
+        comp = mc_emit.compact_active(cases, edge_ranks=path == "indexed")
+        if path == "indexed":
+            return fused_welded.emit_welded(dist, cases, comp.ids, origin, res, comp=comp)
+        return mc_emit.emit_triangles(dist, cases, comp.ids, origin, res, 0, comp.n_tris,
+                                      comp.tri_offsets)
+
+    def whole():
+        if path == "indexed":
+            return fused_welded.welded_render(*args)
+        fr = FlatRenderer(tree, res, dev)
+        return fr.render(fused=path == "soup")
+
+    whole()  # builds the kernels
+    torch.cuda.synchronize()
+    _, syncs = _synchronising(emitted)
+    assert len(syncs) == 1, syncs
+    _, syncs = _synchronising(whole)
+    assert len(syncs) == 2, syncs  # K3's counts, then the fetch
 
 
 def _counted(name, fn):
@@ -257,8 +308,113 @@ def test_mc_kernels_match_plain(name, cuda_device):
         dist, cases, ids, fr.origin, fr.res
     )
     assert torch.equal(verts, ref_verts) and torch.equal(tri_idx, ref_tri)
-    assert unresolved == ref_unresolved
+    assert int(unresolved) == int(ref_unresolved)
     assert len(tri_idx) == len(tris)
+
+
+def _random_grid(seed, shape, device):
+    """Seeded distances with many sign changes, exact zeros and values
+    inside the 1e-12 snap band, so every branch of the interpolation runs;
+    with a coarse `res` every mixed cube is active: cube 0 among them, and
+    the surface crosses every face of the grid."""
+    rng = np.random.default_rng(seed)
+    g = rng.normal(size=shape).astype(np.float32)
+    g[rng.uniform(size=shape) < 0.05] = 0.0
+    tiny = rng.uniform(size=shape) < 0.05
+    g[tiny] = np.float32(5e-13) * np.sign(rng.normal(size=shape))[tiny].astype(np.float32)
+    return torch.from_numpy(g).to(device)
+
+
+def _five_triangle_grid(shape, device):
+    """Distances whose signs repeat with period 2 so that every cube's
+    case emits five triangles, the most a cube can, and all three owner
+    edges of every other cube cross: K7s's stage holds 256 x 5 triangles
+    in every whole block."""
+    k, j, i = np.meshgrid(*(np.arange(n) % 2 for n in shape), indexing="ij")
+    sign = np.where(i + j + k == 1, 1.0, -1.0)
+    mag = np.random.default_rng(5).uniform(0.1, 1.0, shape)
+    return torch.from_numpy((sign * mag).astype(np.float32)).to(device)
+
+
+def _emits_match_plain(grid, res, origin, k0):
+    """K7s and K7w on `grid`, in both call forms, against plain."""
+    cases = mc_emit.effective_cases(grid, res)
+    comp = mc_emit.compact_active(cases, edge_ranks=True)
+    ids = comp.ids
+    ref_tris = mc_emit.emit_triangles_plain(grid, cases, ids, origin, res, k0)
+    ref_verts, ref_tri, ref_unresolved = fused_welded.emit_welded_plain(
+        grid, cases, ids, origin, res, k0)
+    assert comp.n_tris == len(ref_tris) and comp.n_t == len(ref_verts)
+    for tris in (
+        _counted("emit_soup", lambda: mc_emit.emit_triangles(
+            grid, cases, ids, origin, res, k0, comp.n_tris, comp.tri_offsets)),
+        _counted("emit_soup", lambda: mc_emit.emit_triangles(grid, cases, ids, origin, res, k0)),
+    ):
+        assert torch.equal(tris, ref_tris)
+    for verts, tri, unresolved in (
+        _counted("emit_welded", lambda: fused_welded.emit_welded(
+            grid, cases, ids, origin, res, k0, comp=comp)),
+        _counted("emit_welded", lambda: fused_welded.emit_welded(
+            grid, cases, ids, origin, res, k0)),
+    ):
+        assert torch.equal(verts, ref_verts) and torch.equal(tri, ref_tri)
+        assert int(unresolved) == int(ref_unresolved) == int((ref_tri < 0).sum())
+    return comp, ref_tris, ref_tri
+
+
+EMIT_ORIGIN = np.float32([-1.3, 0.7, -2.1])
+EMIT_RES = np.float32(0.37)
+
+
+@pytest.mark.parametrize("k0", [0, 83])
+@pytest.mark.parametrize("shape", [(2, 2, 2), (3, 9, 257), (17, 8, 33), (9, 11, 13),
+                                   (33, 65, 40)])
+def test_emit_kernels_ragged_shapes(shape, k0, cuda_device):
+    """K7s and K7w bit-identical to plain on seeded random grids: shapes
+    that are multiples of nothing, active counts that are no multiple of
+    256 (a short last block), a slab offset, cube 0 active (the slot trap
+    of the reference's commit 122c151) and owners past every far face."""
+    grid = _random_grid(sum(shape) + 1, shape, cuda_device)
+    comp, ref_tris, ref_tri = _emits_match_plain(grid, EMIT_RES, EMIT_ORIGIN, k0)
+    if shape != (2, 2, 2):
+        assert len(comp.ids) % 256 != 0 and int(comp.ids[0]) == 0
+        assert len(ref_tris) > 100 and int((ref_tri < 0).sum()) > 0
+
+
+def test_emit_kernels_full_stage(cuda_device):
+    """Every cube emits five triangles: whole blocks of 256 x 5 triangles
+    (K7s's stage at its limit) and a short last block."""
+    grid = _five_triangle_grid((12, 13, 14), cuda_device)
+    comp, ref_tris, _ = _emits_match_plain(grid, np.float32(10.0), EMIT_ORIGIN, 0)
+    assert len(comp.ids) == 11 * 12 * 13 > 256 and len(ref_tris) == 5 * len(comp.ids)
+    assert torch.equal(comp.tri_offsets, 5 * 256 * torch.arange(len(comp.tri_offsets),
+                                                                device=cuda_device))
+
+
+def test_emit_kernels_back_to_back(cuda_device):
+    """Two grids through K3, K7s and K7w in a row on one stream, nothing
+    awaited in between: no stage, count or directory leaks from one call
+    into the next."""
+    grids = [_random_grid(s, shape, cuda_device)
+             for s, shape in ((1, (20, 21, 22)), (2, (9, 40, 17)))]
+    outs = []
+    for grid in grids:
+        cases = mc_emit.effective_cases(grid, EMIT_RES)
+        comp = mc_emit.compact_active(cases, edge_ranks=True)
+        outs.append((
+            cases, comp,
+            mc_emit.emit_triangles(grid, cases, comp.ids, EMIT_ORIGIN, EMIT_RES, 3,
+                                   comp.n_tris, comp.tri_offsets),
+            fused_welded.emit_welded(grid, cases, comp.ids, EMIT_ORIGIN, EMIT_RES, 3, comp=comp),
+        ))
+    torch.cuda.synchronize()
+    for grid, (cases, comp, tris, (verts, tri, unresolved)) in zip(grids, outs):
+        assert torch.equal(
+            tris, mc_emit.emit_triangles_plain(grid, cases, comp.ids, EMIT_ORIGIN, EMIT_RES, 3))
+        ref_verts, ref_tri, ref_unresolved = fused_welded.emit_welded_plain(
+            grid, cases, comp.ids, EMIT_ORIGIN, EMIT_RES, 3)
+        assert torch.equal(verts, ref_verts) and torch.equal(tri, ref_tri)
+        assert int(unresolved) == int(ref_unresolved) > 0
 
 
 def cropped_part():

@@ -137,6 +137,26 @@ def test_all_paths_agree(seed):
         assert np.isfinite(fused).all()
 
 
+@pytest.mark.parametrize("seed", range(10))
+def test_random_tree_triangle_count_matches_jax(seed):
+    """K3's triangle count on a random tree's case grid is the length of
+    the JAX package's soup, and its last triangle offset plus the last
+    block's triangles closes on it: what K7s and K7w allocate by."""
+    jtree, ttree, res = _tree(seed)
+    _, jsoup, _ = jax_outputs(seed, jtree, res)
+    fr = FlatRenderer(ttree, res, "cpu")
+    _, cases = gk.classified_grid(ttree, fr.origin, fr.res, fr.shape(), "cpu")
+    comp = mc_emit.compact_active(cases, edge_ranks=True)
+    assert comp.n_tris == len(jsoup)
+    n_tri = mc_emit.MC_TRI_COUNT[cases.reshape(-1)[comp.ids.long()].numpy()].astype(np.int64)
+    np.testing.assert_array_equal(comp.tri_offsets.numpy(), (np.cumsum(n_tri) - n_tri)[::256])
+    assert int(comp.edge_ranks[-1]) == comp.n_t and comp.edge_ranks[0] == 0
+    verts, tri, _ = fused_welded.emit_welded(
+        *gk.classified_grid(ttree, fr.origin, fr.res, fr.shape(), "cpu"), comp.ids,
+        fr.origin, fr.res, comp=comp)
+    assert len(verts) == comp.n_t and len(tri) == comp.n_tris
+
+
 @pytest.mark.parametrize("seed", [2, 4])
 def test_cropped_seed_falls_back(seed):
     """Where owner cubes lie past the grid, the JAX package's welded mesh
@@ -172,6 +192,6 @@ def test_cropped_seed2_welded_slot_map():
     soup = mc_emit.emit_triangles(dist, cases, ids, fr.origin, fr.res).numpy()
     tri, verts = tri.numpy(), verts.numpy()
     ok = tri >= 0
-    assert unresolved == int((~ok).sum()) > 0
+    assert int(unresolved) == int((~ok).sum()) > 0
     np.testing.assert_allclose(verts[tri[ok]], soup[ok], rtol=0, atol=1e-5)
     assert len(verts) == int(crossing(cases.reshape(-1)[ids.long()]).sum())

@@ -12,7 +12,10 @@ Also: the sphere golden (41,072 triangles, 68^3 evaluations), the slab
 gates (staged, fused and compact slabs equal the whole grid bit for bit),
 `evaluations()` against the JAX package's on every path, and each module
 that holds a kernel (mc_emit: K3 and K7s; compact_field: K4;
-fused_welded: K7w) against the JAX function on a seeded random grid.
+fused_welded: K7w) against the JAX function on a seeded random grid. K3's
+triangle count, triangle offsets and edge ranks (what K7s and K7w are
+sized and placed by) are held against the JAX package's soup length and
+its MC_TRI_COUNT table on the parts and on the random grids, exactly.
 """
 import jax
 import jax.numpy as jnp
@@ -24,9 +27,11 @@ from gsdf_tpu import Builder as JaxBuilder
 from gsdf_tpu import flagships as jax_flagships
 from gsdf_tpu.ops import compact_field as jax_compact_field
 from gsdf_tpu.ops import mc_emit as jax_mc_emit
+from gsdf_tpu.ops.mc_tables import MC_TRI_COUNT as JAX_MC_TRI_COUNT
 from gsdf_tpu.render.flat import FlatRenderer as JaxFlatRenderer
 from gsdf_tpu_torch import Builder
 from gsdf_tpu_torch import flagships
+from gsdf_tpu_torch.eval import grid_kernels as gk
 from gsdf_tpu_torch.ops import compact_field, fused_welded, mc_emit
 from gsdf_tpu_torch.render.flat import FlatRenderer, render_flat
 
@@ -73,6 +78,43 @@ def test_render_indexed_matches_jax(name):
     np.testing.assert_allclose(verts, jverts, rtol=0, atol=ATOL)
     # the welded mesh is the soup, indexed (ulp-level differences allowed)
     np.testing.assert_allclose(verts[tri], jax_render(name, "fused"), rtol=0, atol=ATOL)
+
+
+def _check_compaction_sums(comp, case_bytes, n_cubes, n_tris):
+    """K3's triangle count, both block offsets and its edge ranks against
+    numpy sums over the active cubes' case bytes (ascending ids), with the
+    JAX package's triangle-count table."""
+    j = np.asarray(case_bytes).astype(np.int64)
+    ids = comp.ids.numpy().astype(np.int64)
+    assert len(j) == len(ids)
+    n_tri = JAX_MC_TRI_COUNT.astype(np.int64)[j]
+    assert comp.n_tris == int(n_tri.sum()) == n_tris
+    assert comp.tri_offsets.dtype == torch.int64
+    np.testing.assert_array_equal(comp.tri_offsets.numpy(), (np.cumsum(n_tri) - n_tri)[::256])
+    b0 = j & 1
+    n_cross = (b0 != (j >> 1) & 1).astype(np.int64) + (b0 != (j >> 3) & 1) + (b0 != (j >> 4) & 1)
+    assert comp.n_t == int(n_cross.sum())
+    np.testing.assert_array_equal(comp.offsets.numpy(), (np.cumsum(n_cross) - n_cross)[::256])
+    # edge ranks: the crossing edges of the active cubes below every 32nd id, then the total
+    dense = np.zeros(n_cubes, np.int64)
+    dense[ids] = n_cross
+    want = np.concatenate([[0], np.cumsum(dense)])[np.r_[0:n_cubes:32, n_cubes]]
+    assert comp.edge_ranks.dtype == torch.int32
+    np.testing.assert_array_equal(comp.edge_ranks.numpy(), want)
+
+
+@pytest.mark.parametrize("name", PARTS)
+def test_compaction_triangle_sums_match_jax(name):
+    """K3's plain version on a golden part's case grid: n_tris is the
+    length of the JAX package's soup, and the offsets are the exclusive
+    sums of its MC_TRI_COUNT[case] at every 256th active cube."""
+    fr = port_renderer(name)
+    _, cases = gk.classified_grid_plain(fr.s, fr.origin, fr.res, fr.shape(), fr.device)
+    comp = mc_emit.compact_active(cases, edge_ranks=True)
+    assert mc_emit.compact_active(cases).edge_ranks is None
+    idx8 = cases.reshape(-1)[comp.ids.long()].numpy()
+    _check_compaction_sums(comp, idx8, cases.numel(), len(jax_render(name, "fused")))
+    assert comp.n_tris > 1000 and len(comp.tri_offsets) == -(-len(comp.ids) // 256)
 
 
 def test_sphere_golden_triangle_count():
@@ -204,6 +246,45 @@ def test_mc_emit_kernels_match_jax(seed):
 
 
 @pytest.mark.parametrize("seed", range(3))
+def test_compaction_triangle_sums_on_random_grid(seed):
+    """K3's triangle count, offsets and edge ranks on a seeded random grid
+    (more than 256 active cubes: several offsets) against the JAX
+    package's classification, its table and its soup's length."""
+    g = _random_grid(seed)
+    with jax.disable_jit():
+        _, _, total = jax_mc_emit.dense_grid_mc(
+            jnp.asarray(g), jnp.asarray(ORIGIN), RES, np.float32(0), 2048, 8192
+        )
+        jindex, jactive = jax_mc_emit.classify(jnp.asarray(g), RES)
+    jcases = np.asarray(jindex).reshape(-1)[np.asarray(jactive).reshape(-1)]
+    cases = mc_emit.effective_cases(torch.from_numpy(g), RES)
+    comp = mc_emit.compact_active(cases, edge_ranks=True)
+    assert len(comp.tri_offsets) > 1
+    _check_compaction_sums(comp, jcases, cases.numel(), int(total))
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_emit_keyword_forms_match_three_argument_forms(seed):
+    """emit_triangles and emit_welded handed K3's counts and offsets give
+    what the forms that run K3 themselves give."""
+    grid = torch.from_numpy(_random_grid(seed))
+    cases = mc_emit.effective_cases(grid, RES)
+    comp = mc_emit.compact_active(cases, edge_ranks=True)
+    for k0 in (0, 7):
+        assert torch.equal(
+            mc_emit.emit_triangles(grid, cases, comp.ids, ORIGIN, RES, k0,
+                                   n_tris=comp.n_tris, tri_offsets=comp.tri_offsets),
+            mc_emit.emit_triangles(grid, cases, comp.ids, ORIGIN, RES, k0),
+        )
+        with_comp = fused_welded.emit_welded(grid, cases, comp.ids, ORIGIN, RES, k0, comp=comp)
+        alone = fused_welded.emit_welded(grid, cases, comp.ids, ORIGIN, RES, k0)
+        assert all(torch.equal(a, b) for a, b in zip(with_comp, alone))
+        assert len(with_comp[0]) == comp.n_t and len(with_comp[1]) == comp.n_tris
+    assert torch.equal(mc_emit.dense_grid_mc(grid, cases, ORIGIN, RES, 7),
+                       mc_emit.emit_triangles(grid, cases, comp.ids, ORIGIN, RES, 7))
+
+
+@pytest.mark.parametrize("seed", range(3))
 def test_compact_emit_matches_jax(seed):
     """K4 (compact_emit) against the JAX package's compact_emit payload."""
     g = _random_grid(seed)
@@ -237,7 +318,7 @@ def test_emit_welded_indexes_the_soup(seed):
     verts, tri_idx, unresolved = fused_welded.emit_welded(grid, cases, ids, ORIGIN, RES)
     soup = mc_emit.emit_triangles(grid, cases, ids, ORIGIN, RES).numpy()
     tri, verts = tri_idx.numpy(), verts.numpy()
-    assert tri.shape == soup.shape[:2] and unresolved == int((tri < 0).sum()) > 0
+    assert tri.shape == soup.shape[:2] and int(unresolved) == int((tri < 0).sum()) > 0
     ok = tri >= 0
     np.testing.assert_allclose(verts[tri[ok]], soup[ok], rtol=0, atol=1e-6)
     idx8 = cases.reshape(-1)[ids.long()]

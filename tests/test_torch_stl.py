@@ -1,8 +1,13 @@
 """The port's host I/O (CPU): the native STL encoder, decoder and welder
 against their numpy plain versions, the STL round trip and validation,
 and OBJ/PLY bytes against the JAX package's (mirrors tests/test_native.py
-and tests/test_render_golden.py:23-70)."""
+and tests/test_render_golden.py:23-70). Also: the port's own copy of the
+C++ source equals the JAX package's byte for byte, and nothing in the port
+imports jax or the JAX package or builds a path into it."""
+import ast
 import io
+import os
+import re
 
 import numpy as np
 import pytest
@@ -20,6 +25,65 @@ from gsdf_tpu_torch.render.stl import (
     write_binary_stl,
     write_stl_file,
 )
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_native_copy_matches_reference():
+    """The port compiles its own native.cpp; the copy must not drift from
+    the JAX package's file while that package stays frozen."""
+    assert os.path.dirname(native.NATIVE_SRC) == os.path.join(REPO, "gsdf_tpu_torch", "native")
+    with open(native.NATIVE_SRC, "rb") as f, \
+            open(os.path.join(REPO, "gsdf_tpu", "native", "native.cpp"), "rb") as g:
+        assert f.read() == g.read()
+
+
+def _port_sources():
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.join(REPO, "gsdf_tpu_torch")):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(paths)
+
+
+def _docstrings(tree):
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)):
+            body = node.body
+            if body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant):
+                out.add(id(body[0].value))
+    return out
+
+
+def test_port_uses_nothing_of_the_jax_package():
+    """No module of the port, nor chip_smoke.py, imports jax or gsdf_tpu,
+    and none holds a string that names a path into gsdf_tpu/ (a citation
+    of the reference by file and line, "gsdf_tpu/x.py:12", is none)."""
+    sources = _port_sources()
+    assert len(sources) > 30
+    citation = re.compile(r"^gsdf_tpu/[\w/.]+:\d+(-\d+)?$")
+    bad = []
+    for path in sources:
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        docs = _docstrings(tree)
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            for name in names:
+                if name.split(".")[0] in ("jax", "jaxlib", "gsdf_tpu"):
+                    bad.append(f"{path}:{node.lineno} imports {name}")
+            if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                    and id(node) not in docs):
+                v = node.value
+                if (v == "gsdf_tpu" or v.startswith(("gsdf_tpu/", "gsdf_tpu\\"))) \
+                        and not citation.match(v):
+                    bad.append(f"{path}:{node.lineno} names the path {v!r}")
+    assert not bad, bad
 
 
 def _sphere_soup(r=0.6, res=0.05):
