@@ -9,7 +9,15 @@
    started together (sm_90a): K1 + K2 per tree, and the four
    tree-independent marching-cubes kernels K3 (compact_active), K4
    (compact_emit), K7s (emit_soup), K7w (emit_welded); prints ptxas'
-   registers and spills. Holds K2 (grid eval) and K1 (eval + classify)
+   registers and spills; KP (point_eval) per tree, 3D and 2D, and K2-2D
+   (grid_eval_2d) per 2D tree, each a library of its own. Holds KP against
+   its plain torch version at seeded points on every tree, on one 2D
+   recipe per 2D node type, on the three 2D scenes the example programs
+   render and on the special evaluators' trees, and holds it equal to K2
+   bit for bit at a grid's positions; holds K2-2D against its plain
+   version on the same 2D trees (the scenes at the examples' sizes: plant
+   pot 1080 x 1080, mandala 768 x 768, thread profile 512 x 512) and equal
+   to KP at the pixels' positions. Holds K2 (grid eval) and K1 (eval + classify)
    against their plain torch versions: on the nine-type tree of
    the first slice, on a tree holding each of the 55 node types, on
    seeded random CSG trees, and at every main-path grid shape (case grids
@@ -46,6 +54,18 @@
    - evaluate_grid, the dense-field entry point, on three grids.
    Also holds the threaded native mc_decode against the single-threaded
    numpy mc_decode_plain bit for bit on the flange-800 payload.
+   Then the point and 2D slice, at full width and with no `device`
+   argument (the default is the card): new_sdf3(part).evaluate at 2^20
+   seeded points on the four golden parts (one KP launch a call, equal to
+   plain, and evaluate_device without a synchronising call), the
+   reference's special-evaluator battery (eval.special.run_benchmarks:
+   a 64-vertex polygon, 128 segments, 128 displacements, a deep 3D tree,
+   and throughput_grid at 256^3), normals_central_diff on the bolt at
+   2^18 points (six KP launches, bit for bit the six-call host form), the
+   three example scenes through render_png_file_2d into a temporary
+   directory (one K2-2D launch an image, the PNG read back and held to the
+   array), the flange at resdiv 400 through pipeline.render_shader3d with
+   an in-memory STL, and a Batcher round on two 2^20 buffers.
 4. Fails unless each kernel launched on every path that runs it, once per
    render and slab (the wrapper calls counted per render of each path are
    printed and held to what the path should make); prints the device
@@ -163,6 +183,49 @@ def every_type_tree(b, threads, with_bounds, Box):
     return b.union(*parts)
 
 
+def recipes_2d(b, with_bounds, Box):
+    """name -> a small 2D tree, one per 2D node type of the Builder (28
+    types; the polygon twice, short and long enough for its scanned
+    fold). Takes either package's Builder, with_bounds and Box, so the
+    tests build them through both."""
+    t2 = b.translate2d
+    sq = b.new_rectangle(0.8, 0.5)
+    a = [2 * math.pi * k / 12 for k in range(12)]
+    star = [((1.0 + 0.3 * math.cos(3 * t)) * math.cos(t), (1.0 + 0.3 * math.cos(3 * t)) * math.sin(t))
+            for t in a]
+    return {
+        "Circle": b.new_circle(0.8),
+        "Line2D": b.new_line2d(-0.4, -0.2, 0.5, 0.35, 0.1),
+        "Lines2D": b.new_lines2d([[(-0.5, 0), (0, 0.3)], [(0, 0.3), (0.5, -0.2)]], 0.08),
+        "Arc2D": b.new_arc(0.6, math.pi / 1.5, 0.08),
+        "EquilateralTriangle": b.new_equilateral_triangle(0.6),
+        "Rectangle": b.new_rectangle(1.0, 0.6),
+        "Hexagon2D": b.new_hexagon(0.5),
+        "Octagon2D": b.new_octagon(0.7),
+        "Ellipse2D": b.new_ellipse(0.8, 0.45),
+        "Diamond2D": b.new_diamond2d(1.0, 0.6),
+        "RoundedX2D": b.new_rounded_x(1.0, 0.1),
+        "QuadraticBezier2D": b.new_quadratic_bezier2d((-0.5, -0.2), (0.1, 0.6), (0.6, -0.1), 0.1),
+        "Polygon2D": b.new_polygon([(0.0, 0.0), (1.0, 0.1), (0.8, 0.9), (0.2, 1.1), (-0.3, 0.5)]),
+        "Polygon2D-scan": b.new_polygon(star),
+        "OpUnion2D": b.union2d(b.new_circle(0.4), t2(sq, 0.3, 0.1), b.new_hexagon(0.3)),
+        "Difference2D": b.difference2d(sq, b.new_circle(0.2)),
+        "Intersection2D": b.intersection2d(sq, b.new_circle(0.35)),
+        "Xor2D": b.xor2d(sq, t2(b.new_circle(0.3), 0.2, 0)),
+        "Array2D": b.array2d(b.new_circle(0.2), 0.5, 0.6, 3, 2),
+        "Offset2D": b.offset2d(sq, -0.05),
+        "Translate2D": t2(b.new_hexagon(0.4), 0.2, -0.3),
+        "Rotation2D": b.rotate2d(sq, 0.6),
+        "Symmetry2D": b.symmetry2d(t2(b.new_circle(0.3), 0.4, 0.2), True, True),
+        "Annulus2D": b.annulus(b.new_circle(0.6), 0.1),
+        "CircularArray2D": b.circular_array2d(t2(b.new_rectangle(0.3, 0.2), 0.8, 0), 5, 6),
+        "Scale2D": b.scale2d(b.new_hexagon(0.4), 1.7),
+        "TranslateMulti2D": b.translate_multi2d(b.new_circle(0.2), [(0, 0), (0.5, 0.1), (-0.3, 0.4)]),
+        "Elongate2D": b.elongate2d(b.new_circle(0.3), 0.4, 0.2),
+        "BoundsOverride2": with_bounds(b.new_circle(0.7), Box([-0.5, -0.6], [0.6, 0.5])),
+    }
+
+
 def random_tree(b, rng):
     """A seeded random CSG tree for the card: random primitives (2D
     profiles extruded or revolved) combined by the boolean and smooth
@@ -247,6 +310,78 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def in_turns(kernel, plain):
+    """(kernel ms, plain ms) by CUDA events, in turns: plain, kernel,
+    kernel, plain; the better of each pair."""
+    p1 = cuda_ms(plain, 3)
+    k1, k2 = cuda_ms(kernel, 10), cuda_ms(kernel, 10)
+    return min(k1, k2), min(p1, cuda_ms(plain, 3))
+
+
+def seeded_points(tree, n, seed, dev):
+    """(n, NDIM) float32 points drawn from a seed in the tree's bounds
+    grown by 10%, as a tensor on `dev`."""
+    import numpy as np
+    import torch
+
+    bb = tree.bounds()
+    lo, hi = np.asarray(bb.min, np.float64), np.asarray(bb.max, np.float64)
+    pad = 0.1 * (hi - lo)
+    pts = np.random.default_rng(seed).uniform(lo - pad, hi + pad, (n, len(lo)))
+    return torch.from_numpy(pts.astype(np.float32)).to(dev)
+
+
+def held_to_plain(label, d, ref):
+    """Max |d - ref| of a kernel's distances against its plain version's;
+    raises on a non-finite value or past TOL * max(1, |ref|)."""
+    import torch
+
+    if not bool(torch.isfinite(d).all()):
+        raise RuntimeError(f"{label}: non-finite distances")
+    diff = (d - ref).abs()
+    rel = float((diff / ref.abs().clamp(min=1.0)).max())
+    log(f"  {label}: max|d-plain| {float(diff.max()):.3e} (rel {rel:.3e}), "
+        f"differing floats {int((diff > 0).sum())} of {d.numel()}")
+    if rel > TOL:
+        raise RuntimeError(f"{label}: distances off by {rel:.3e} > {TOL}")
+    return float(diff.max())
+
+
+def compare_points(name, tree, dev, pk, n=1 << 16):
+    """KP vs its plain version at n seeded points of the tree's bounds."""
+    import torch
+
+    pos = seeded_points(tree, n, 1, dev)
+    d = pk.evaluate_points(tree, pos, dev)
+    ref = pk.point_eval_plain(tree, pos)
+    torch.cuda.synchronize()
+    return held_to_plain(f"point_eval      {name:22s} {n} points", d, ref)
+
+
+def compare_field(name, tree, width, height, dev, pk):
+    """K2-2D vs its plain version on the tree's pixel grid, and KP at the
+    pixels' positions equal to K2-2D bit for bit."""
+    import torch
+
+    d = pk.distance_field(tree, width, height, dev)
+    pos = pk.pixel_positions(tree, width, height, dev).reshape(-1, 2).contiguous()
+    ref = pk.distance_field_plain(tree, width, height, dev)
+    at_pixels = pk.evaluate_points(tree, pos, dev).reshape(height, width)
+    torch.cuda.synchronize()
+    err = held_to_plain(f"grid_eval_2d    {name:22s} {width}x{height}", d, ref)
+    if not torch.equal(at_pixels, d):
+        raise RuntimeError(f"{name}: KP at the pixels' positions differs from K2-2D")
+    return err
+
+
+class HostOnly:
+    """An evaluator with `evaluate` alone, as the host-side caches are:
+    normals_central_diff gives it the six-call host-to-host form."""
+
+    def __init__(self, sdf):
+        self.evaluate = sdf.evaluate
+
+
 def grid_of(tree, resdiv, dev, slab):
     """(renderer, corner shape, k0) of the whole grid at diag/resdiv, or of
     its fused soup slab number `slab` (FlatRenderer.soup_slabs)."""
@@ -261,28 +396,26 @@ def grid_of(tree, resdiv, dev, slab):
 
 def compare(name, tree, resdiv, dev, gk, slab=None):
     """K2 and K1 vs their plain versions on one grid (or soup slab, at its
-    plane offset k0); returns the max absolute error of each and raises on
-    a disagreement."""
+    plane offset k0), and KP at the grid's positions equal to K2 bit for
+    bit (grids up to 8M corners: their positions are 12 B a corner);
+    returns the max absolute error of each and raises on a disagreement."""
     import torch
+    from gsdf_tpu_torch.eval import point_kernels as pk
 
     fr, shape, k0 = grid_of(tree, resdiv, dev, slab)
     d2 = gk.evaluate_grid(tree, fr.origin, fr.res, shape, dev, k0)
+    if d2.numel() <= 8_000_000:
+        pos = gk.grid_positions(fr.origin, fr.res, shape, dev, k0).reshape(-1, 3).contiguous()
+        at_corners = pk.evaluate_points(tree, pos, dev).reshape(shape)
+        if not torch.equal(at_corners, d2):
+            raise RuntimeError(f"{name}: KP at the grid's positions differs from K2")
+        log(f"  point_eval      {name:14s} grid {shape} k0 {k0}: equal to K2 bit for bit")
+        del pos, at_corners
     d1, c1 = gk.classified_grid(tree, fr.origin, fr.res, shape, dev, k0)
     pd, pc = gk.classified_grid_plain(tree, fr.origin, fr.res, shape, dev, k0)
     torch.cuda.synchronize()
-    out = {}
-    for kname, d in (("grid_eval", d2), ("classified_grid", d1)):
-        if not bool(torch.isfinite(d).all()):
-            raise RuntimeError(f"{kname} {name}: non-finite distances")
-        diff = (d - pd).abs()
-        rel = float((diff / pd.abs().clamp(min=1.0)).max())
-        out[kname] = float(diff.max())
-        log(
-            f"  {kname:15s} {name:14s} grid {shape} k0 {k0}: max|d-plain| {out[kname]:.3e} "
-            f"(rel {rel:.3e}), differing floats {int((diff > 0).sum())} of {d.numel()}"
-        )
-        if rel > TOL:
-            raise RuntimeError(f"{kname} {name}: distances off by {rel:.3e} > {TOL}")
+    out = {kname: held_to_plain(f"{kname:15s} {name:14s} grid {shape} k0 {k0}", d, pd)
+           for kname, d in (("grid_eval", d2), ("classified_grid", d1))}
     n_case_diff = int((c1 != pc).sum())
     log(
         f"  classified_grid {name:14s} cases: {n_case_diff} differing of {c1.numel()}, "
@@ -303,6 +436,8 @@ KERNELS = (
     ("classified_grid", "gsdf_tpu_torch/csrc/classified_grid.cu",
      "gsdf_tpu/eval/pallas_grid.py:187"),
     ("grid_eval", "gsdf_tpu_torch/csrc/grid_eval.cu", "gsdf_tpu/eval/pallas_grid.py:108"),
+    ("point_eval", "gsdf_tpu_torch/csrc/point_eval.cu", "gsdf_tpu/eval/evaluator.py:44"),
+    ("grid_eval_2d", "gsdf_tpu_torch/csrc/grid_eval_2d.cu", "gsdf_tpu/render/image.py:53"),
     ("compact_active", "gsdf_tpu_torch/csrc/compact_active.cu", "gsdf_tpu/ops/mc_emit.py:190"),
     ("compact_emit", "gsdf_tpu_torch/csrc/compact_emit.cu",
      "gsdf_tpu/ops/compact_field.py:217"),
@@ -469,9 +604,13 @@ def main() -> int:
         return 2
     try:
         from gsdf_tpu_torch import (
-            Builder, Flags, bounds, cli, flagships, kernels, native, with_bounds,
+            Builder, Flags, bounds, cli, flagships, kernels, native, pipeline, render, with_bounds,
+        )
+        from gsdf_tpu_torch.eval import (
+            Batcher, new_sdf3, normals_central_diff, special,
         )
         from gsdf_tpu_torch.eval import grid_kernels as gk
+        from gsdf_tpu_torch.eval import point_kernels as pk
         from gsdf_tpu_torch.forge import threads
         from gsdf_tpu_torch.geometry.boxes import Box
         from gsdf_tpu_torch.ops import fused_welded, mc_emit
@@ -504,18 +643,35 @@ def main() -> int:
         tree = random_tree(Builder(Flags.NO_DIMENSION_PANIC), np.random.default_rng(seed))
         if tree is not None:
             trees[f"fuzz{seed}"] = tree
+    # the 2D trees: one recipe per 2D node type, the example programs' three
+    # PNG scenes at their sizes, and the special evaluators' trees
+    trees2d = {f"2d:{k}": (t, 256, 192)
+               for k, t in recipes_2d(Builder(), with_bounds, Box).items()}
+    for name, make, width, height in flagships.PNG_SCENES:
+        trees2d[name] = (make(Builder()), width, height)
+    battery = special.benchmark_trees()
+    point_trees = {**trees, **{k: t for k, (t, _, _) in trees2d.items()}, **battery}
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(trees) + len(kernels.STATIC_KERNELS)) as pool:
+    # one nvcc per library, all queued together; 32 at a time keep the
+    # host's cores busy without holding every compiler in memory at once
+    with ThreadPoolExecutor(max_workers=32) as pool:
         futs = [pool.submit(gk.build, tree) for tree in trees.values()]
+        futs += [pool.submit(gk.build, battery["deep_tree_3d"])]
         futs += [pool.submit(kernels.static_lib, n) for n in kernels.STATIC_KERNELS]
+        futs += [pool.submit(gk.build, tree, pk.POINT_TEMPLATES) for tree in point_trees.values()]
+        futs += [pool.submit(gk.build, tree, pk.FIELD_TEMPLATES) for tree, _, _ in trees2d.values()]
         for fut in futs:
             fut.result()
     build_s = time.perf_counter() - t0
-    log(f"phase 2: built {len(futs)} kernel libraries ({len(trees)} trees + "
-        f"{len(kernels.STATIC_KERNELS)} MC kernels; one nvcc each, in parallel) "
-        f"in {build_s:.1f} s")
+    log(f"phase 2: built {len(futs)} kernel libraries ({len(trees) + 1} trees' K1 + K2, "
+        f"{len(kernels.STATIC_KERNELS)} MC kernels, {len(point_trees)} trees' KP, "
+        f"{len(trees2d)} 2D trees' K2-2D; one nvcc each, in parallel) in {build_s:.1f} s")
     logs = [(name, gk.build_log(tree)) for name, tree in trees.items()]
     logs += [(name, kernels.static_build_log(name)) for name in kernels.STATIC_KERNELS]
+    logs += [(f"KP {name}", gk.build_log(trees[name], pk.POINT_TEMPLATES))
+             for name in ("flange", "showerhead", "bolt", "knurled")]
+    logs += [(f"K2-2D {name}", gk.build_log(trees2d[name][0], pk.FIELD_TEMPLATES))
+             for name, _, _, _ in flagships.PNG_SCENES]
     for name, text in logs:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -541,9 +697,18 @@ def main() -> int:
             mc_inputs[(name, resdiv)] = inputs
         del inputs
 
+    # KP at seeded points on every tree, 3D and 2D; K2-2D on every 2D tree
+    for name, tree in point_trees.items():
+        max_err["point_eval"] = max(max_err["point_eval"], compare_points(name, tree, dev, pk))
+    for name, (tree, width, height) in trees2d.items():
+        max_err["grid_eval_2d"] = max(max_err["grid_eval_2d"],
+                                      compare_field(name, tree, width, height, dev, pk))
+
     # bounds: the tree's operations per corner, counted on the CPU
     ops_per_point = {name: bounds.tree_ops_per_point(trees[name])
                      for name in dict.fromkeys(n for n, _ in MAIN_GRIDS)}
+    ops_per_point.update({name: bounds.tree_ops_per_point(trees2d[name][0])
+                          for name, _, _, _ in flagships.PNG_SCENES})
     log(f"  tree operations per corner (plain torch on the CPU): {ops_per_point}")
     times = {}
     for name, resdiv in MAIN_GRIDS:
@@ -607,6 +772,41 @@ def main() -> int:
         if inside["emit_welded"]["kernels"] > 2 or inside["emit_welded"]["copies"]:
             raise RuntimeError(f"K7w should be at most two launches and copy nothing: {inside}")
         del dist, cases, comp
+    torch.cuda.empty_cache()
+
+    # KP at the evaluators' full batch (2^20 seeded points) on the four
+    # golden parts, K2-2D on the three scenes at the examples' sizes
+    n_points = 1 << 20
+    one_kernel = {"kernels": 1, "memsets": 0, "copies": 0}
+    timed = []
+    for name in ("flange", "showerhead", "bolt", "knurled"):
+        tree, pos = trees[name], seeded_points(trees[name], n_points, 2, dev)
+        timed.append((f"KP {name} N={n_points}", "point_eval", ops_per_point[name] * n_points,
+                      {"points": n_points, "ndim": 3},
+                      lambda tree=tree, pos=pos: pk.evaluate_points(tree, pos, dev),
+                      lambda tree=tree, pos=pos: pk.point_eval_plain(tree, pos)))
+    for name, _, width, height in flagships.PNG_SCENES:
+        tree = trees2d[name][0]
+        timed.append((f"K2-2D {name} {width}x{height}", "grid_eval_2d",
+                      ops_per_point[name] * width * height, {"pixels": width * height},
+                      lambda tree=tree, w=width, h=height: pk.distance_field(tree, w, h, dev),
+                      lambda tree=tree, w=width, h=height: pk.distance_field_plain(tree, w, h, dev)))
+    for label, kname, ops, sizes, kernel, plain in timed:
+        ms, plain_ms = in_turns(kernel, plain)
+        b = bounds.bound(ops, bounds.kernel_bytes(kname, **sizes))
+        on_device = device_launches(kernel)
+        times[label] = {kname: {"ms": ms, "plain_ms": plain_ms, "library_ms": None, **b,
+                                "share": b["bound_ms"] / ms,
+                                "device_share": b["bound_ms"] / on_device["device_ms"],
+                                "published_fp32_share": b["published_fp32_ms"] / ms,
+                                "on_device": on_device}}
+        log(f"  device ms {label}: {kname} {ms:.4f} (on the card {on_device['device_ms']:.4f}, "
+            f"bound {b['bound_ms']:.4f} by {b['bound_by']}, share {b['bound_ms'] / ms:.2f}, "
+            f"plain {plain_ms:.3f}, no library call)  [{card}]")
+        if {k: v for k, v in on_device.items() if k != "device_ms"} != one_kernel:
+            raise RuntimeError(f"{label}: one wrapper call should be one kernel launch and "
+                               f"nothing else: {on_device}")
+    del timed
     torch.cuda.empty_cache()
 
     # --- phases 3 and 4: each path, counts from 0 around each run -------
@@ -747,6 +947,167 @@ def main() -> int:
         if not bool(torch.isfinite(field).all()):
             raise RuntimeError(f"evaluate_grid: non-finite distances on {name}")
         del field
+    # --- the point and 2D slice, at full width, on the default device ---
+    def host_ms(fn, reps=3):
+        """(fn's last result, median host-clock ms of `reps` calls that end
+        synchronised)."""
+        out, ms = None, []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return out, sorted(ms)[len(ms) // 2]
+
+    def exactly(label, counts, want):
+        """Fail unless the launches counted around one call are exactly `want`."""
+        got = {k: n for k, n in counts.items() if n}
+        if got != want:
+            raise RuntimeError(f"{label}: expected launches {want}, got {got}")
+
+    slice_ms = {}
+    for name in ("flange", "showerhead", "bolt", "knurled"):
+        tree = trees[name]
+        sdf, counts = run(f"new_sdf3({name}), the constructor's smoke eval", ("point_eval",),
+                          lambda: new_sdf3(tree))
+        exactly(f"new_sdf3({name})", counts, {"point_eval": 1})
+        if sdf.device != dev or sdf.evaluations() != 0:
+            raise RuntimeError(f"new_sdf3({name}) is not a fresh evaluator on the card: "
+                               f"{sdf.device}, {sdf.evaluations()} evaluations")
+        pts = seeded_points(tree, n_points, 3, "cpu").numpy()
+        sdf.evaluate(pts)  # warm-up
+        (d, whole_ms), counts = run(f"SDF3.evaluate {name} N={n_points}", ("point_eval",),
+                                    lambda: host_ms(lambda: sdf.evaluate(pts)))
+        exactly(f"SDF3.evaluate {name}", counts, {"point_eval": 3})  # one a call, three calls
+        if d.shape != (n_points,) or d.dtype != np.float32 or sdf.evaluations() != 4 * n_points:
+            raise RuntimeError(f"SDF3.evaluate {name}: {d.shape} {d.dtype}, "
+                               f"{sdf.evaluations()} evaluations")
+        pos, upload_ms = host_ms(lambda: torch.from_numpy(pts).to(dev))
+        held_to_plain(f"SDF3.evaluate   {name:22s} {n_points} points",
+                      torch.from_numpy(d).to(dev), pk.point_eval_plain(tree, pos))
+        on_card, syncs = synchronising(lambda: sdf.evaluate_device(pos))
+        if syncs:
+            raise RuntimeError(f"evaluate_device made synchronising calls: {syncs}")
+        _, fetch_ms = host_ms(on_card.cpu)
+        if not np.array_equal(on_card.cpu().numpy(), d):
+            raise RuntimeError(f"{name}: evaluate_device differs from evaluate")
+        kernel_ms = times[f"KP {name} N={n_points}"]["point_eval"]["ms"]
+        slice_ms[f"SDF3.evaluate {name} N={n_points}"] = {
+            "whole_call_ms": whole_ms, "upload_ms": upload_ms, "kernel_ms": kernel_ms,
+            "fetch_ms": fetch_ms}
+        log(f"phase 3: SDF3.evaluate {name} at {n_points} points: whole call {whole_ms:.3f} ms "
+            f"host to host (upload of {pts.nbytes / 1e6:.1f} MB {upload_ms:.3f}, KP "
+            f"{kernel_ms:.4f}, fetch of {d.nbytes / 1e6:.1f} MB {fetch_ms:.3f}); "
+            f"evaluate_device: no synchronising call  [{card}]")
+        del pos, on_card
+
+    rates, counts = run(f"eval.special.run_benchmarks N={n_points}", ("point_eval", "grid_eval"),
+                        lambda: special.run_benchmarks(n_points, log=lambda m: log("  " + m)))
+    # four evaluators: the constructor's launch, a warm-up and five timed
+    # calls each; throughput_grid: a warm-up and five timed grids
+    exactly("run_benchmarks", counts, {"point_eval": 4 * 7, "grid_eval": 6})
+    if not all(math.isfinite(v) and v > 0 for v in rates.values()):
+        raise RuntimeError(f"run_benchmarks: {rates}")
+    slice_ms["run_benchmarks evals per second"] = rates
+
+    bolt = trees["bolt"]
+    bolt_sdf = new_sdf3(bolt)
+    n_normals = 1 << 18
+    npts = seeded_points(bolt, n_normals, 4, "cpu").numpy()
+    step = float(bolt.bounds().diagonal() / 300)
+    normals_central_diff(bolt_sdf, npts, step)  # warm-up
+    (normals, normals_ms), counts = run(
+        f"normals_central_diff bolt N={n_normals}", ("point_eval",),
+        lambda: host_ms(lambda: normals_central_diff(bolt_sdf, npts, step), 1))
+    exactly("normals_central_diff", counts, {"point_eval": 6})
+    six_call, six_ms = host_ms(lambda: normals_central_diff(HostOnly(bolt_sdf), npts, step), 1)
+    if not (np.isfinite(normals).all() and np.array_equal(normals, six_call)):
+        raise RuntimeError("normals_central_diff differs from its six-call host form")
+    if bolt_sdf.evaluations() != 18 * n_normals:
+        raise RuntimeError(f"normals: {bolt_sdf.evaluations()} evaluations")
+    pos = torch.from_numpy(npts).to(dev)
+    six_kp_ms = 6 * cuda_ms(lambda: bolt_sdf.evaluate_device(pos), 10)
+    slice_ms[f"normals_central_diff bolt N={n_normals}"] = {
+        "one_upload_ms": normals_ms, "six_call_host_form_ms": six_ms, "six_kp_launches_ms": six_kp_ms}
+    log(f"phase 3: normals_central_diff bolt at {n_normals} points: {normals_ms:.3f} ms with one "
+        f"upload (six KP launches {six_kp_ms:.4f} ms of it), bit for bit the six-call host "
+        f"form's ({six_ms:.3f} ms)  [{card}]")
+    del pos
+
+    import tempfile
+
+    from PIL import Image
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, _, width, height in flagships.PNG_SCENES:
+            tree = trees2d[name][0]
+            path = os.path.join(tmp, f"{name}.png")
+            pipeline.render_png_file_2d(path, tree, width, height)  # warm-up
+            (img, png_ms), counts = run(
+                f"render_png_file_2d {name} {width}x{height}", ("grid_eval_2d",),
+                lambda: host_ms(lambda: pipeline.render_png_file_2d(path, tree, width, height), 1))
+            exactly(f"render_png_file_2d {name}", counts, {"grid_eval_2d": 1})
+            with Image.open(path) as f:
+                back = np.asarray(f)
+            want = render.bw_conversion(pk.distance_field_plain(tree, width, height, dev).cpu().numpy())
+            if img.shape != (height, width, 4) or img.dtype != np.uint8 \
+                    or not np.array_equal(back, img) or not np.array_equal(img, want):
+                raise RuntimeError(f"{name}: the PNG, the image and the plain version's image "
+                                   f"differ ({int((img != want).any(-1).sum())} pixels from plain)")
+            inside = int((img[..., 0] == 0).sum())
+            if not 0 < inside < width * height:
+                raise RuntimeError(f"{name}: {inside} pixels inside of {width * height}")
+            slice_ms[f"render_png_file_2d {name} {width}x{height}"] = png_ms
+            log(f"phase 3: render_png_file_2d {name} {width}x{height}: {png_ms:.2f} ms to the "
+                f"file, {inside} pixels inside, PNG read back equal to the image and to the "
+                f"plain version's  [{card}]")
+        # the showerhead's own argument renders the same thread profile
+        path = os.path.join(tmp, "thread.png")
+        _, counts = run("showerhead_scene(thread_png=...)", ("grid_eval_2d",),
+                        lambda: flagships.showerhead_scene(Builder(), thread_png=path))
+        exactly("showerhead_scene(thread_png)", counts, {"grid_eval_2d": 1})
+        with Image.open(path) as f, Image.open(os.path.join(tmp, "showerhead-thread.png")) as g:
+            if f.size != (512, 512) or not np.array_equal(np.asarray(f), np.asarray(g)):
+                raise RuntimeError("showerhead_scene's thread PNG differs from the scene's")
+
+    import io
+
+    stl = io.BytesIO()
+    stats, counts = run("pipeline.render_shader3d flange@400, STL in memory", compact_path,
+                        lambda: pipeline.render_shader3d(f400, pipeline.RenderConfig(
+                            stl_output=stl, resolution=float(res400), silent=True)))
+    exactly("render_shader3d", counts, {k: 1 for k in compact_path})
+    if stats["triangles"] != flagships.GOLDEN_FLANGE_TRIS \
+            or not stats["stl_bytes"] == len(stl.getvalue()) == 84 + 50 * stats["triangles"] \
+            or stats["evaluations"] != math.prod(FlatRenderer(f400, res400, dev).shape()):
+        raise RuntimeError(f"render_shader3d flange@400: {stats['triangles']} triangles, "
+                           f"{stats['stl_bytes']} STL bytes, {stats['evaluations']} evaluations")
+    log(f"phase 3: render_shader3d flange@400: {stats['triangles']} triangles (golden "
+        f"{flagships.GOLDEN_FLANGE_TRIS}), {stats['stl_bytes']} STL bytes, render "
+        f"{stats['render_seconds'] * 1e3:.2f} ms, STL {stats['stl_seconds'] * 1e3:.2f} ms  [{card}]")
+    del stl, stats
+
+    rng = np.random.default_rng(5)
+    buf_a, buf_b = rng.normal(size=(2, n_points)).astype(np.float32)
+
+    def batcher_round():
+        batcher = Batcher()
+        dst = np.empty_like(buf_a)
+        return (batcher.union(None, buf_a, buf_b), batcher.diff(None, buf_a, buf_b),
+                batcher.intersect(None, buf_a, buf_b),
+                batcher.execute_raw_binary_operation(lambda x, y: x * 2 + y, dst, buf_a, buf_b))
+
+    (outs, batch_ms), counts = run(f"Batcher round on two buffers of {n_points}", (),
+                                   lambda: host_ms(batcher_round, 1))
+    exactly("Batcher", counts, {})  # torch.minimum / maximum on the card: no kernel of the port
+    wants = (np.minimum(buf_a, buf_b), np.maximum(buf_a, -buf_b), np.maximum(buf_a, buf_b),
+             buf_a * 2 + buf_b)
+    if not all(np.array_equal(o, w) for o, w in zip(outs, wants)):
+        raise RuntimeError("Batcher: a result differs from numpy's")
+    slice_ms[f"Batcher four operations N={n_points}"] = batch_ms
+    log(f"phase 3: Batcher union, diff, intersect and a custom operation on two buffers of "
+        f"{n_points}: equal to numpy's, {batch_ms:.2f} ms host to host  [{card}]")
     log(f"phase 4: kernel launches over the paths: {launches}")
 
     fr = FlatRenderer(f800, res800, dev)
@@ -764,7 +1125,12 @@ def main() -> int:
         f"mc_decode_plain bit for bit on flange 800 ({len(tri_nat)} triangles); "
         f"{nat_ms:.1f} ms vs {np_ms:.1f} ms")
 
+    # each kernel's row at one main-path size: the MC kernels and K1, K2 at
+    # flange 400, KP at the flange's 2^20 points, K2-2D at the plant pot
     t400 = times["flange@400"]
+    rows = {name: t400[name] for name, _, _ in KERNELS if name in t400}
+    rows["point_eval"] = times[f"KP flange N={n_points}"]["point_eval"]
+    rows["grid_eval_2d"] = times["K2-2D plantpot 1080x1080"]["grid_eval_2d"]
     line = [
         {
             "name": name,
@@ -773,22 +1139,22 @@ def main() -> int:
             "replaces": replaces,
             "launches": launches[name],
             "max_abs_err": max_err[name],
-            "ms": t400[name]["ms"],
-            "plain_ms": t400[name]["plain_ms"],
-            "bound_ms": t400[name]["bound_ms"],
-            "bound_by": t400[name]["bound_by"],
-            "library_ms": t400[name]["library_ms"],
-            "share": t400[name]["share"],
+            "ms": rows[name]["ms"],
+            "plain_ms": rows[name]["plain_ms"],
+            "bound_ms": rows[name]["bound_ms"],
+            "bound_by": rows[name]["bound_by"],
+            "library_ms": rows[name]["library_ms"],
+            "share": rows[name]["share"],
             "launches_per_render": {
                 path: per_render[f"{path} flange@400"].get(name, 0)
                 for path in ("compact", "soup", "indexed")
             },
-            "on_device_per_call": t400[name]["on_device"],
+            "on_device_per_call": rows[name]["on_device"],
         }
         for name, source, replaces in KERNELS
     ]
     log(json.dumps({"build_s": build_s, "device_ms": times, "sdf_to_stl_ms": e2e,
-                    "launches_per_render": per_render}))
+                    "launches_per_render": per_render, "point_and_2d_slice": slice_ms}))
     log(json.dumps({"kernels": line}))
     log(card)
     log(json.dumps({

@@ -12,7 +12,8 @@
   indexing and fills count nothing, so `core.mathx._rounded`'s float64
   detour counts as the one float32 op it stands for. For the tree
   (K1, K2) `tree_ops_per_point` counts the plain tree on seeded points on
-  the CPU; the card's kernel evaluates the same expression.
+  the CPU; the card's kernel evaluates the same expression (KP and K2-2D
+  too, on 2D trees as well).
 - **PEAK_OPS** is half the H100 SXM's published 67 TFLOP/s float32: that
   peak counts a fused multiply-add as two operations, and the kernels are
   built with -fmad=false (the golden counts need it), so every operation
@@ -83,7 +84,7 @@ def tree_ops_per_point(tree, n: int = 256, seed: int = 0) -> int:
     drops out."""
     bb = tree.bounds()
     lo, hi = np.asarray(bb.min, np.float32), np.asarray(bb.max, np.float32)
-    pts = np.random.default_rng(seed).uniform(lo, hi, (2 * n, 3)).astype(np.float32)
+    pts = np.random.default_rng(seed).uniform(lo, hi, (2 * n, tree.NDIM)).astype(np.float32)
     p = torch.from_numpy(pts)
     _, ops2 = count_ops(tree.distance, p)
     _, ops1 = count_ops(tree.distance, p[:n].contiguous())
@@ -93,11 +94,14 @@ def tree_ops_per_point(tree, n: int = 256, seed: int = 0) -> int:
     return per
 
 
-def kernel_bytes(name: str, *, corners=0, cubes=0, active=0, n_t=0, tris=0, verts=0) -> int:
+def kernel_bytes(name: str, *, corners=0, cubes=0, active=0, n_t=0, tris=0, verts=0,
+                 points=0, ndim=3, pixels=0) -> int:
     """Bytes a kernel must move: each input read once, each output written
     once, from this run's shapes and counts.
 
     - grid_eval (K2): writes 4 B per corner;
+    - point_eval (KP): reads 4 * ndim B per point, writes 4 B per point;
+    - grid_eval_2d (K2-2D): writes 4 B per pixel;
     - classified_grid (K1): writes 4 B per corner and 1 B per cube;
     - compact_active (K3): reads 1 B per cube, writes 4 B per active cube
       (ids), 16 B per 256 active cubes (the edge and triangle block
@@ -117,6 +121,8 @@ def kernel_bytes(name: str, *, corners=0, cubes=0, active=0, n_t=0, tris=0, vert
     offsets = 8 * -(-active // 256)
     per = {
         "grid_eval": 4 * corners,
+        "point_eval": (4 * ndim + 4) * points,
+        "grid_eval_2d": 4 * pixels,
         "classified_grid": 4 * corners + cubes,
         "compact_active": cubes + 4 * active + 2 * offsets + 24,
         "compact_emit": (4 + 1 + 16 + 1) * active + offsets + 4 * n_t,

@@ -17,8 +17,9 @@ node, the counterpart of the reference's GLSL Programmer
   builds it into the grid kernels (csrc/), and g++ builds the very same
   text for the CPU test of the emitters.
 
-`tree_source(tree)` ends with `gsdf_tree(px, py, pz)`, the root function
-the kernel templates call.
+`tree_source(tree)` ends with the root function the kernel templates call,
+`gsdf_tree(px, py, pz)` for a 3D tree and `gsdf_tree(px, py)` for a 2D one,
+and defines GSDF_NDIM (3 or 2) so that a template can tell which it got.
 """
 from __future__ import annotations
 
@@ -138,12 +139,12 @@ class Codegen:
 
 def tree_source(tree: Shader) -> str:
     """Self-contained C++/CUDA source of `tree` ending in gsdf_tree()."""
-    if tree.NDIM != 3:
-        raise ValueError("the grid kernels evaluate 3D trees")
     cg = Codegen()
     root = cg.emit(tree)
+    names = ("px", "py", "pz")[: tree.NDIM]
     return (
         cg.source()
-        + "\nGSDF_HD float gsdf_tree(float px, float py, float pz) {\n"
-        + f"    return {root}(px, py, pz);\n}}\n"
+        + f"\n#undef GSDF_NDIM\n#define GSDF_NDIM {tree.NDIM}\n"
+        + f"GSDF_HD float gsdf_tree({', '.join('float ' + n for n in names)}) {{\n"
+        + f"    return {root}({', '.join(names)});\n}}\n"
     )

@@ -11,7 +11,8 @@ Pallas TPU kernels (gsdf_tpu/eval/pallas_grid.py).
 Both are hand-written CUDA C++ templates (gsdf_tpu_torch/csrc/) around
 the per-tree distance function that codegen/cuda.py generates; nvcc
 builds them for sm_90a at first use, cached by source hash under
-build/gsdf_tpu_torch/. On a CPU tensor device each wrapper runs its plain
+build/gsdf_tpu_torch/. `build` also serves the two per-tree kernels of
+eval/point_kernels.py (KP, K2-2D), each a library of its own. On a CPU tensor device each wrapper runs its plain
 torch version; on a CUDA device it launches the kernel or raises.
 
 Grid layout is [k, j, i], x contiguous; the corner at integer index
@@ -43,52 +44,55 @@ _f32 = np.float32
 
 TEMPLATES = ("grid_eval.cu", "classified_grid.cu")
 
+_V, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: each per-tree template's C entry points (the last argument is the stream)
 _SIGNATURES = {
-    "gsdf_grid_eval": (
-        ctypes.c_int,
-        [ctypes.c_void_p] + [ctypes.c_float] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
-    ),
-    "gsdf_classified_grid": (
-        ctypes.c_int,
-        [ctypes.c_void_p] * 2 + [ctypes.c_float] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
-    ),
+    "grid_eval.cu": {"gsdf_grid_eval": (_I, [_V] + [_F] * 4 + [_I] * 4 + [_V])},
+    "classified_grid.cu": {"gsdf_classified_grid": (_I, [_V] * 2 + [_F] * 5 + [_I] * 4 + [_V])},
+    "point_eval.cu": {"gsdf_point_eval": (_I, [_V, ctypes.c_int64, _V, _V])},
+    "grid_eval_2d.cu": {"gsdf_grid_eval_2d": (_I, [_V] + [_F] * 4 + [_I] * 2 + [_V])},
 }
 
-_libs: dict = {}  # tree hash -> loaded kernel library
+_libs: dict = {}  # (tree hash, templates) -> loaded kernel library
 
 
-def _sources(tree):
-    """(generated header, template paths, cache key) of the tree's build."""
+def _sources(tree, templates):
+    """(generated header, template paths, cache key) of one build: the
+    tree's source (which states its NDIM) and the named templates."""
     src = tree_source(tree)
-    paths = [os.path.join(CSRC, t) for t in TEMPLATES]
-    templates = []
+    paths = [os.path.join(CSRC, t) for t in templates]
+    texts = []
     for p in paths:
         with open(p) as f:
-            templates.append(f.read())
-    return src, paths, _build.source_key(src, *templates, *NVCC_FLAGS)
+            texts.append(f.read())
+    return src, paths, _build.source_key(src, *templates, *texts, *NVCC_FLAGS)
 
 
-def build(tree) -> ctypes.CDLL:
-    """The tree's kernel library (K1 + K2), built by nvcc at first use."""
-    lib = _libs.get(tree.tree_hash())
+def build(tree, templates=TEMPLATES) -> ctypes.CDLL:
+    """The library of `templates` around the tree's generated source (K1 +
+    K2 unless named otherwise), built by nvcc at first use. Each set of
+    templates is a library of its own, so a render never pays for the
+    point kernel's compile, nor a 2D tree for a 3D template."""
+    key = (tree.tree_hash(), templates)
+    lib = _libs.get(key)
     if lib is not None:
         return lib
-    src, paths, key = _sources(tree)
+    src, paths, source_key = _sources(tree, templates)
 
     def command(out, d):
         _build.write_atomic(os.path.join(d, "gsdf_tree.cuh"), src)
         return [nvcc(), *NVCC_FLAGS, "-I", d, "-o", out, *paths]
 
-    so = _build.build_shared("gsdf_tree", key, command)
-    lib = _build.load(so, _SIGNATURES)
-    _libs[tree.tree_hash()] = lib
+    so = _build.build_shared("gsdf_tree", source_key, command)
+    lib = _build.load(so, {fn: sig for t in templates for fn, sig in _SIGNATURES[t].items()})
+    _libs[key] = lib
     return lib
 
 
-def build_log(tree) -> str:
+def build_log(tree, templates=TEMPLATES) -> str:
     """nvcc's output (the ptxas register/spill report) for the tree."""
-    build(tree)
-    key = _sources(tree)[2]
+    build(tree, templates)
+    key = _sources(tree, templates)[2]
     with open(os.path.join(_build.BUILD_DIR, f"gsdf_tree-{key}", "build.log")) as f:
         return f.read()
 

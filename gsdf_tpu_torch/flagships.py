@@ -5,6 +5,12 @@ package builds them, so both packages hash and render the same part:
 - fibonacci showerhead (reference examples/fibonacci-showerhead/main.go:30-88)
 - ISO M3 bolt          (reference examples/bolt/main.go:27-40)
 - knurled cylinder     (reference examples/knurled-cylinder/knurled-cyl.go:57-110)
+
+and the 2D scenes that the example programs render to PNG:
+
+- the plant pot's revolved profile (reference examples/plantpot/main.go:33-64)
+- the mandala                       (reference examples/ui-mandala/mandala.go:12-31)
+- the showerhead's thread profile   (`showerhead_thread_profile`)
 """
 from __future__ import annotations
 
@@ -12,6 +18,7 @@ import math
 
 from .core import Builder
 from .forge import threads
+from .geometry.polygon import PolygonBuilder
 
 # Exact golden triangle counts of the compact path; backend-invariant
 # (the JAX package's CPU oracle and its TPU render the same counts; the
@@ -58,10 +65,11 @@ def fibonacci(n: int):
     return r * math.cos(a), r * math.sin(a)
 
 
-def showerhead_scene(bld: Builder):
+def showerhead_scene(bld: Builder, thread_png=None):
     """Showerhead with plastic buttress thread, knurled grip and 130
     fibonacci-spaced holes (reference
-    examples/fibonacci-showerhead/main.go:30-88)."""
+    examples/fibonacci-showerhead/main.go:30-88). `thread_png` names a file
+    to render the thread's 2D profile into, 512 x 512."""
     thread_ext_diameter = 65.0
     threaded_length = 5.0
     thread_turns = 3.0
@@ -72,6 +80,11 @@ def showerhead_scene(bld: Builder):
     thread_height = 5.0
 
     shower_thread = threads.PlasticButtress(d=thread_ext_diameter, p=thread_pitch)
+    if thread_png:
+        from .pipeline import render_png_file_2d
+
+        render_png_file_2d(thread_png, shower_thread.thread(bld), 512, 512)
+
     knurled = threads.knurled_head(
         bld, thread_ext_diameter / 2 + showerhead_wall, thread_height, 1
     )
@@ -145,6 +158,53 @@ def knurled_scene(bld: Builder, diameter=20.0, hole_diam=0.0, length=0.0,
     vent = bld.rotate(vent, math.pi / 2, (0, 1, 0))
     obj = bld.smooth_difference(sk, obj, bld.translate(vent, 0, 0, -length / 2))
     return bld.smooth_difference(sk, obj, bld.translate(vent, 0, 0, length / 2))
+
+
+def plantpot_profile(bld: Builder):
+    """The plant pot base's polygon profile, which the example revolves
+    about the axis and renders to a 1080 x 1080 PNG (reference
+    examples/plantpot/main.go:33-64)."""
+    pot_base_radius = 40.0
+    base_height = 10.0
+    base_inclination = 45.0 * math.pi / 180
+    base_wall_thick = 5.0
+    base_lip_radius = base_wall_thick * 0.54
+
+    x_off = base_height * math.sin(base_inclination)
+    poly = PolygonBuilder()
+    poly.add_xy(0, 0)
+    poly.add_xy(pot_base_radius, 0)
+    poly.add_xy(pot_base_radius + x_off, base_height)
+    poly.add_relative_xy(base_wall_thick / 3, -base_wall_thick).arc(-base_lip_radius, 20)
+    poly.add_xy(pot_base_radius + base_wall_thick / 2, -base_wall_thick)
+    poly.add_xy(0, -base_wall_thick)
+    return bld.new_polygon(poly.vertices())
+
+
+def mandala_scene2d(bld: Builder):
+    """The mandala: a 12-way circular array of an annular circle-hexagon
+    union, which the example renders to a 768 x 768 PNG (reference
+    examples/ui-mandala/mandala.go:12-21)."""
+    circle = bld.translate2d(bld.new_circle(1), 1, 1)
+    shape = bld.union2d(circle, bld.new_hexagon(1))
+    shape = bld.offset2d(shape, 0.2)
+    shape = bld.annulus(shape, 0.3)
+    shape = bld.translate2d(shape, 3, 0)
+    return bld.circular_array2d(shape, 12, 12)
+
+
+def showerhead_thread_profile(bld: Builder):
+    """The 2D profile of the showerhead's plastic buttress thread, which
+    `showerhead_scene(bld, thread_png=...)` renders at 512 x 512."""
+    return threads.PlasticButtress(d=65.0, p=5.0 / 3.0).thread(bld)
+
+
+#: (scene name, builder function, PNG width, height) as the examples render them
+PNG_SCENES = (
+    ("plantpot", plantpot_profile, 1080, 1080),
+    ("mandala", mandala_scene2d, 768, 768),
+    ("showerhead-thread", showerhead_thread_profile, 512, 512),
+)
 
 
 def _checked(bld: Builder, obj):

@@ -5,6 +5,8 @@ tree-independent marching-cubes kernels.
 Kernels (all hand-written CUDA C++ in gsdf_tpu_torch/csrc/, nvcc sm_90a):
 
 - K1 `classified_grid`, K2 `grid_eval`: per tree (eval/grid_kernels.py);
+- KP `point_eval`, K2-2D `grid_eval_2d`: per tree, distances at given
+  points and on a 2D tree's pixel grid (eval/point_kernels.py);
 - K3 `compact_active`: order-preserving compaction of the active cubes,
   with the crossing-edge and triangle counts and block offsets that K4,
   K7s and K7w need (ops/mc_emit.py::compact_active);
@@ -36,6 +38,8 @@ from .ops import mc_tables
 LAUNCHES = {
     "classified_grid": 0,
     "grid_eval": 0,
+    "point_eval": 0,
+    "grid_eval_2d": 0,
     "compact_active": 0,
     "compact_emit": 0,
     "emit_soup": 0,
@@ -98,13 +102,30 @@ def nvcc() -> str:
 
 
 def cuda_device(device) -> torch.device:
-    """`device` as an indexed CUDA device; raises for any other type."""
+    """`device` as an indexed CUDA device; raises for any other type, and
+    where there is no card."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"the CUDA kernels run on CUDA devices, not {device}")
     if device.index is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass device='cpu' for a CPU run")
         device = torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+def default_device() -> torch.device:
+    """Where every entry point of the port runs when the caller names no
+    device: the card. With no card such a call raises (`entry_device`); it
+    does not carry on on the CPU."""
+    return torch.device("cuda")
+
+
+def entry_device(device=None) -> torch.device:
+    """An entry point's `device` argument as the device it runs on: the
+    default for None, a CUDA device with its index, or the CPU."""
+    device = default_device() if device is None else torch.device(device)
+    return device if device.type == "cpu" else cuda_device(device)
 
 
 def check_out(t: torch.Tensor, shape, dtype, device) -> None:

@@ -1,5 +1,12 @@
 """Renderers and mesh output."""
 from .flat import FlatRenderer, render_flat
+from .image import (
+    bw_conversion,
+    iq_debug_conversion,
+    render_distance_field,
+    render_image_2d,
+    write_png,
+)
 from .mesh_export import (
     write_obj,
     write_obj_file,
@@ -14,8 +21,12 @@ from .stl import read_binary_stl, write_binary_stl, write_binary_stl_indexed, wr
 
 __all__ = [
     "FlatRenderer",
+    "bw_conversion",
+    "iq_debug_conversion",
     "read_binary_stl",
+    "render_distance_field",
     "render_flat",
+    "render_image_2d",
     "write_binary_stl",
     "write_binary_stl_indexed",
     "write_obj",
@@ -26,5 +37,6 @@ __all__ = [
     "write_ply_file",
     "write_ply_indexed",
     "write_ply_indexed_file",
+    "write_png",
     "write_stl_file",
 ]

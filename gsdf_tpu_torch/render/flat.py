@@ -30,6 +30,7 @@ import torch
 
 from ..core.node import Shader3D
 from ..eval.grid_kernels import evaluate_grid
+from ..kernels import entry_device
 from ..native import mc_decode, weld
 from ..ops.compact_field import compact_field_render, compact_field_render_slabbed
 from ..ops.fused_render import fused_render
@@ -57,13 +58,13 @@ class FlatRenderer:
     #: known): 1 GB of ids, about 2.3 GB in all, at 256M
     compact_cubes = 256_000_000
 
-    def __init__(self, s: Shader3D, cube_resolution: float, device,
+    def __init__(self, s: Shader3D, cube_resolution: float, device=None,
                  max_slab_points: int = 1 << 27):
         if cube_resolution <= 0:
             raise ValueError("invalid renderer cube resolution")
         self.s = s
         self.res = _f32(cube_resolution)
-        self.device = torch.device(device)
+        self.device = entry_device(device)  # the card unless the caller names one
         self.max_slab_points = int(max_slab_points)
 
         bb = s.bounds().scale_centered((1.01, 1.01, 1.01))
@@ -189,5 +190,5 @@ class FlatRenderer:
             return self.render_indexed()
 
 
-def render_flat(s: Shader3D, cube_resolution: float, device) -> np.ndarray:
+def render_flat(s: Shader3D, cube_resolution: float, device=None) -> np.ndarray:
     return FlatRenderer(s, cube_resolution, device).render()

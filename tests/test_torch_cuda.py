@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain torch versions on a card:
 K1 classified grid, K2 grid eval, K3 compaction, K4 compact emit, K7s
-soup emit and K7w welded emit, then every FlatRenderer path. Every test
+soup emit and K7w welded emit, then every FlatRenderer path; KP point
+eval and K2-2D pixel-grid eval, then the evaluators and the PNG path. Every test
 here needs an NVIDIA GPU and nvcc and skips without them. This file
 imports no JAX, so on a machine without JAX it runs alone:
 
@@ -24,6 +25,7 @@ import torch
 
 from gsdf_tpu_torch import Builder, flagships, kernels, with_bounds
 from gsdf_tpu_torch.eval import grid_kernels as gk
+from gsdf_tpu_torch.eval import point_kernels as pk
 from gsdf_tpu_torch.forge import threads
 from gsdf_tpu_torch.geometry.boxes import Box
 from gsdf_tpu_torch.ops import compact_field, fused_welded, mc_emit
@@ -481,3 +483,160 @@ def test_render_compact_on_card_matches_plain_payload(cuda_device):
     )
     np.testing.assert_array_equal(tri, tri_ref)
     np.testing.assert_allclose(verts, v_ref, rtol=0, atol=1e-5)
+
+
+# --- KP (point eval) and K2-2D (pixel-grid eval) --------------------------
+def _recipes_2d():
+    import chip_smoke
+
+    return chip_smoke.recipes_2d(Builder(), with_bounds, Box)
+
+
+#: the 2D trees: one recipe per 2D node type and the three PNG scenes
+TREES_2D = {**{name: (lambda name=name: _recipes_2d()[name]) for name in _recipes_2d()},
+            **{name: (lambda make=make: make(Builder())) for name, make, _, _ in flagships.PNG_SCENES}}
+
+
+def _points(tree, n, seed, device):
+    import chip_smoke
+
+    return chip_smoke.seeded_points(tree, n, seed, device)
+
+
+def _close(d, ref):
+    return bool(((d - ref).abs() <= 1e-5 * ref.abs().clamp(min=1.0)).all())
+
+
+@pytest.mark.parametrize("name", list(TREES))
+def test_point_eval_matches_plain(name, cuda_device):
+    """KP at seeded points of a 3D tree: within tolerance of plain, one
+    launch a call."""
+    tree = TREES[name]()
+    pos = _points(tree, 1 << 15, 1, cuda_device)
+    d = _counted("point_eval", lambda: pk.evaluate_points(tree, pos, cuda_device))
+    assert d.shape == (1 << 15,) and d.dtype == torch.float32 and d.device == cuda_device
+    assert _close(d, pk.point_eval_plain(tree, pos))
+    assert bool((d < 0).any()) and bool((d > 0).any())
+
+
+@pytest.mark.parametrize("name", list(TREES_2D))
+def test_2d_kernels_match_plain(name, cuda_device):
+    """KP and K2-2D on a 2D root: each within tolerance of its plain
+    version, and KP at the pixels' positions equal to K2-2D bit for bit."""
+    tree = TREES_2D[name]()
+    pos = _points(tree, 1 << 14, 1, cuda_device)
+    d = _counted("point_eval", lambda: pk.evaluate_points(tree, pos, cuda_device))
+    assert _close(d, pk.point_eval_plain(tree, pos))
+    w, h = 203, 97
+    field = _counted("grid_eval_2d", lambda: pk.distance_field(tree, w, h, cuda_device))
+    assert field.shape == (h, w) and field.dtype == torch.float32
+    assert _close(field, pk.distance_field_plain(tree, w, h, cuda_device))
+    pixels = pk.pixel_positions(tree, w, h, cuda_device).reshape(-1, 2).contiguous()
+    assert torch.equal(pk.evaluate_points(tree, pixels, cuda_device).reshape(h, w), field)
+
+
+@pytest.mark.parametrize("name", ["solid", "flange", "bolt", "every-type"])
+def test_point_eval_equals_grid_eval_at_grid_positions(name, cuda_device):
+    """Same tree, same bits: KP fed a grid's positions gives K2's grid,
+    at a slab offset too."""
+    tree = TREES[name]()
+    fr = FlatRenderer(tree, tree.bounds().diagonal() / 70, cuda_device)
+    for shape, k0 in ((fr.shape(), 0), ((5, fr.ny + 1, fr.nx + 1), 11)):
+        grid = gk.evaluate_grid(tree, fr.origin, fr.res, shape, cuda_device, k0)
+        pos = gk.grid_positions(fr.origin, fr.res, shape, cuda_device, k0).reshape(-1, 3)
+        assert torch.equal(pk.evaluate_points(tree, pos.contiguous(), cuda_device).reshape(shape),
+                           grid)
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 100_003])
+def test_point_eval_any_batch_length(n, cuda_device):
+    """Whole tiles of 256 points, a short last tile, one point: each
+    point's distance is the one it gets in any other batch."""
+    tree = _solid()
+    pos = _points(tree, 100_003, 2, cuda_device)
+    whole = pk.evaluate_points(tree, pos, cuda_device)
+    part = _counted("point_eval", lambda: pk.evaluate_points(tree, pos[:n].contiguous(),
+                                                             cuda_device))
+    assert torch.equal(part, whole[:n])
+    tail = pk.evaluate_points(tree, pos[-n:], cuda_device)  # a view that starts mid-buffer
+    assert torch.equal(tail, whole[-n:])
+
+
+def test_point_eval_empty_batch_launches_nothing(cuda_device):
+    before = kernels.LAUNCHES["point_eval"]
+    out = pk.evaluate_points(_solid(), torch.empty((0, 3), device=cuda_device), cuda_device)
+    assert out.shape == (0,) and out.device == cuda_device
+    assert kernels.LAUNCHES["point_eval"] == before
+
+
+def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
+    """A CUDA device with a CPU tensor, a wrong dtype, shape or layout:
+    the wrapper raises; it never gives way to the plain version."""
+    tree = _solid()
+    good = torch.zeros((8, 3), device=cuda_device)
+    before = dict(kernels.LAUNCHES)
+    for bad in (good.cpu(), good.double(), good.half(), good[:, :2], torch.zeros((8, 6),
+                device=cuda_device)[:, ::2], good.reshape(-1)):
+        with pytest.raises(ValueError):
+            pk.evaluate_points(tree, bad, cuda_device)
+    with pytest.raises(ValueError):
+        pk.evaluate_points(tree, good, "cpu")  # a CUDA tensor with the CPU named
+    with pytest.raises(TypeError):
+        pk.distance_field(tree, 8, 8, cuda_device)  # a 3D tree
+    with pytest.raises(ValueError):
+        pk.distance_field(Builder().new_circle(1.0), 0, 8, cuda_device)
+    assert dict(kernels.LAUNCHES) == before
+
+
+@pytest.mark.parametrize("w,h", [(1, 1), (257, 3), (3, 1025)])
+def test_distance_field_ragged_sizes(w, h, cuda_device):
+    tree = flagships.mandala_scene2d(Builder())
+    field = pk.distance_field(tree, w, h, cuda_device)
+    assert torch.equal(field, pk.distance_field_plain(tree, w, h, cuda_device))
+
+
+def test_evaluators_on_card(cuda_device):
+    """With no device named the evaluators run on the card: one KP launch
+    per evaluate after the constructor's, six per normals call (equal to
+    the six-call host form bit for bit), no synchronising call inside
+    evaluate_device."""
+    from gsdf_tpu_torch.eval import new_cpu_sdf3, new_sdf3, normals_central_diff
+
+    tree = flagships.build_bolt()
+    before = kernels.LAUNCHES["point_eval"]
+    sdf = new_sdf3(tree)
+    assert sdf.device == cuda_device and sdf.evaluations() == 0
+    assert kernels.LAUNCHES["point_eval"] == before + 1
+    pts = _points(tree, 50_000, 3, "cpu").numpy()
+    d = _counted("point_eval", lambda: sdf.evaluate(pts))
+    assert d.dtype == np.float32 and sdf.evaluations() == 50_000
+    np.testing.assert_allclose(d, new_cpu_sdf3(tree).evaluate(pts), rtol=1e-5, atol=1e-5)
+    pos = torch.from_numpy(pts).to(cuda_device)
+    on_card, syncs = _synchronising(lambda: sdf.evaluate_device(pos.reshape(50, 1000, 3)))
+    assert not syncs and on_card.shape == (50, 1000)
+    np.testing.assert_array_equal(on_card.reshape(-1).cpu().numpy(), d)
+
+    import chip_smoke
+
+    before = kernels.LAUNCHES["point_eval"]
+    normals = normals_central_diff(sdf, pts, 0.02)
+    assert kernels.LAUNCHES["point_eval"] == before + 6
+    np.testing.assert_array_equal(
+        normals, normals_central_diff(chip_smoke.HostOnly(sdf), pts, 0.02))
+    assert FlatRenderer(tree, 0.5).device == cuda_device
+
+
+def test_png_path_on_card(cuda_device, tmp_path):
+    """render_png_file_2d on the default device: one K2-2D launch, the
+    image equal to the plain version's, the PNG read back equal."""
+    from PIL import Image
+
+    from gsdf_tpu_torch import pipeline, render
+
+    tree = flagships.mandala_scene2d(Builder())
+    path = str(tmp_path / "mandala.png")
+    img = _counted("grid_eval_2d", lambda: pipeline.render_png_file_2d(path, tree, 300, 200))
+    plain = pk.distance_field_plain(tree, 300, 200, cuda_device).cpu().numpy()
+    np.testing.assert_array_equal(img, render.bw_conversion(plain))
+    with Image.open(path) as f:
+        np.testing.assert_array_equal(np.asarray(f), img)

@@ -411,15 +411,22 @@ def _nine_type_tree(b, t):
     return b.union(b.intersection(body, b.new_cylinder(1.8, 1.8, 0.1)), _screw(b, t))
 
 
+#: the recipes whose root is a 2D node
+RECIPES_2D = [n for n, r in NODE_CASES.items() if r(TorchBuilder(), TORCH_KIT).NDIM == 2]
+
+
 def _codegen_trees():
-    """name -> 3D torch tree: every recipe (2D ones extruded), the golden
-    parts, the nine-type tree and chip_smoke's every-type tree."""
+    """name -> torch tree: every recipe (2D ones extruded, and as the 2D
+    root they are under "<name>/2d"), the golden parts, the nine-type tree
+    and chip_smoke's every-type tree."""
     import chip_smoke
 
     trees = {}
     for name, recipe in NODE_CASES.items():
         tree = recipe(TorchBuilder(), TORCH_KIT)
         trees[name] = tree if tree.NDIM == 3 else TorchBuilder().extrude(tree, 0.9)
+        if tree.NDIM == 2:
+            trees[f"{name}/2d"] = tree
     for name in PARTS:
         trees[name] = _parts(name)[1]
     trees["nine-types"] = _nine_type_tree(TorchBuilder(), torch_threads)
@@ -440,11 +447,13 @@ def host_kernels(tmp_path_factory):
     shim = ["#include <math.h>", "#include <stdint.h>", "#include <string.h>"]
     for i, tree in enumerate(trees.values()):
         (d / f"tree{i}.cuh").write_text(tree_source(tree))
+        point = ", ".join(f"p[{tree.NDIM} * k + {c}]" for c in range(tree.NDIM))
         shim.append(
             f'namespace tree{i} {{\n#include "tree{i}.cuh"\n}}\n'
+            f"static_assert(GSDF_NDIM == {tree.NDIM}, \"the source states its tree's NDIM\");\n"
             f'extern "C" void eval{i}(const float* p, float* out, long n) {{\n'
             f"    for (long k = 0; k < n; ++k)\n"
-            f"        out[k] = tree{i}::gsdf_tree(p[3 * k], p[3 * k + 1], p[3 * k + 2]);\n}}"
+            f"        out[k] = tree{i}::gsdf_tree({point});\n}}"
         )
     (d / "shim.cpp").write_text("\n".join(shim) + "\n")
     so = d / "libshim.so"
@@ -489,6 +498,27 @@ def test_codegen_matches_plain_torch(name, host_kernels):
         assert len(kinds) == 9, kinds
     if name == "every-type":
         assert kinds == set(NODE_TYPES), set(NODE_TYPES) - kinds
+
+
+@pytest.mark.parametrize("name", RECIPES_2D)
+def test_codegen_2d_root_matches_plain_torch(name, host_kernels):
+    """A 2D root's generated source (`gsdf_tree(px, py)`, GSDF_NDIM 2), as
+    the point kernel and the pixel-grid kernel build it, against plain
+    torch at the same tolerance."""
+    tree, run = host_kernels[f"{name}/2d"]
+    assert tree.NDIM == 2 and "gsdf_tree(float px, float py)" in tree_source(tree)
+    p = points(tree, seed=3)
+    got = run(p)
+    ref = torch_distance(tree, p)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(got < 0, ref < 0)
+
+
+def test_tree_source_states_ndim():
+    for tree, ndim in ((TorchBuilder().new_sphere(1.0), 3), (TorchBuilder().new_circle(1.0), 2)):
+        src = tree_source(tree)
+        assert f"#define GSDF_NDIM {ndim}" in src
+        assert ("float pz" in src.split("gsdf_tree(")[1].split(")")[0]) == (ndim == 3)
 
 
 def test_every_type_tree_matches_jax():
