@@ -34,6 +34,18 @@
    bound from this run's sizes (gsdf_tpu_torch/bounds.py: the tree's
    operations per corner counted on the CPU, the MC kernels' from their
    plain versions on these inputs) and K1's time over K2's.
+   The parametric forms K1p and KPp (one library per tree STRUCTURE, the
+   continuous parameters a launch argument): built beside the baked ones
+   for every 3D tree (KPp for the 2D trees too), ptxas' registers beside
+   the baked kernels'; on every grid above K1p's cases exactly equal to
+   plain's and to the baked K1's, its distances held to plain and compared
+   with the baked K1's bit for bit (the count of differing floats is
+   printed); KPp the same against plain and KP at the seeded points; then
+   the SAME library with another tree's values (a structurally equal copy
+   with every continuous parameter changed), held against that tree's
+   plain version. Both are timed in turns against their baked forms at
+   the five main grids and at 2^20 points, and the by-value form of the
+   parameter argument against the pointer form.
 3. Drives each FlatRenderer path, every launch count set to 0 just before
    it and read just after (golden triangle counts exact; SDF->STL wall ms,
    median of warm renders after two warm-ups):
@@ -66,13 +78,25 @@
    directory (one K2-2D launch an image, the PNG read back and held to the
    array), the flange at resdiv 400 through pipeline.render_shader3d with
    an in-memory STL, and a Batcher round on two 2^20 buffers.
+   Then the parametric slice, at full width: render_compact(parametric=
+   True) on flange 400, showerhead 350, bolt 300 and knurled 350 (golden
+   counts exact, ids, case bytes and t equal to the baked render's); an
+   edit loop on the flange pinned by with_bounds, on render_compact and on
+   render_indexed: three rebinds of one dimension each, every one rendered
+   through the same library with no nvcc run and no library loaded, every
+   mesh equal to a baked render of the edited tree (which builds: its
+   edit-to-mesh time is printed beside the parametric one); one member of
+   the showerhead's 130-hole loop group moved and seen in the mesh;
+   ParametricSDF3.evaluate at 2^20 points on each golden part and on a
+   structurally equal tree through one library; the host's time to pack a
+   part's parameters and hash its structure.
 4. Fails unless each kernel launched on every path that runs it, once per
    render and slab (the wrapper calls counted per render of each path are
    printed and held to what the path should make); prints the device
    launches that torch.profiler sees inside one call of each wrapper, with
    their device time (K7s must be one kernel, K7w at most two), and fails
-   unless one soup render
-   and one indexed render synchronise once before their fetch
+   unless one soup render, one indexed render and one parametric indexed
+   render synchronise once before their fetch
    (torch.cuda.set_sync_debug_mode). A time fails nothing.
 
 The line before the last is nvidia-smi's card name and power limit; the
@@ -318,6 +342,23 @@ def in_turns(kernel, plain):
     return min(k1, k2), min(p1, cuda_ms(plain, 3))
 
 
+def perturbed(tree):
+    """A structurally equal copy of `tree` with every continuous parameter
+    changed (x * 1.05 + 0.01; a transform's inverse follows its matrix)."""
+    import copy
+
+    import numpy as np
+    from gsdf_tpu_torch.eval.parametric import param_spec
+
+    other = copy.deepcopy(tree)
+    edits: dict = {}
+    for node, name, _ in param_spec(other):
+        if name in node.PARAMS:
+            old = np.asarray(getattr(node, name), np.float32)
+            edits.setdefault(node, {})[name] = old * np.float32(1.05) + np.float32(0.01)
+    return other.rebind(edits)
+
+
 def seeded_points(tree, n, seed, dev):
     """(n, NDIM) float32 points drawn from a seed in the tree's bounds
     grown by 10%, as a tensor on `dev`."""
@@ -358,6 +399,24 @@ def compare_points(name, tree, dev, pk, n=1 << 16):
     return held_to_plain(f"point_eval      {name:22s} {n} points", d, ref)
 
 
+def compare_points_param(name, tree, other, dev, pk, n=1 << 16):
+    """KPp at n seeded points: against plain, against the baked KP (the
+    count of floats that differ is returned), and the same library with
+    `other`'s values (a structurally equal tree) against other's plain."""
+    import torch
+
+    pos = seeded_points(tree, n, 1, dev)
+    d = pk.evaluate_points(tree, pos, dev, parametric=True)
+    baked = pk.evaluate_points(tree, pos, dev)
+    err = held_to_plain(f"point_eval_param {name:21s} {n} points", d,
+                        pk.point_eval_plain(tree, pos))
+    od = pk.evaluate_points(other, pos, dev, parametric=True)
+    err = max(err, held_to_plain(f"point_eval_param {name:21s} other values", od,
+                                 pk.point_eval_plain(other, pos)))
+    torch.cuda.synchronize()
+    return err, int((d != baked).sum())
+
+
 def compare_field(name, tree, width, height, dev, pk):
     """K2-2D vs its plain version on the tree's pixel grid, and KP at the
     pixels' positions equal to K2-2D bit for bit."""
@@ -394,11 +453,14 @@ def grid_of(tree, resdiv, dev, slab):
     return fr, shape, k0
 
 
-def compare(name, tree, resdiv, dev, gk, slab=None):
+def compare(name, tree, resdiv, dev, gk, slab=None, other=None):
     """K2 and K1 vs their plain versions on one grid (or soup slab, at its
     plane offset k0), and KP at the grid's positions equal to K2 bit for
-    bit (grids up to 8M corners: their positions are 12 B a corner);
-    returns the max absolute error of each and raises on a disagreement."""
+    bit (grids up to 8M corners: their positions are 12 B a corner); K1p
+    vs plain and vs K1, and through the same library with `other`'s values
+    (a structurally equal tree) vs other's plain; returns the max absolute
+    error of each, with the floats in which K1p differs from K1, and raises
+    on a disagreement."""
     import torch
     from gsdf_tpu_torch.eval import point_kernels as pk
 
@@ -425,7 +487,29 @@ def compare(name, tree, resdiv, dev, gk, slab=None):
         raise RuntimeError(f"classified_grid {name}: case grid differs from plain")
     if not torch.equal(d1, d2):
         raise RuntimeError(f"{name}: K1 and K2 distances differ")
-    return out
+    del d2
+    grid = (fr.origin, fr.res, shape, dev, k0)
+    dp, cp = gk.classified_grid(tree, *grid, parametric=True)
+    out["classified_grid_param"] = held_to_plain(
+        f"{'classified_grid_param':15s} {name:14s} grid {shape} k0 {k0}", dp, pd)
+    differing = int((dp != d1).sum())
+    log(f"  classified_grid_param {name:14s}: cases {int((cp != pc).sum())} differing from "
+        f"plain, {int((cp != c1).sum())} from the baked K1; distances differ from the baked "
+        f"K1's in {differing} floats of {dp.numel()} (max |delta| {_max_abs(dp, d1):.3e})")
+    if not (torch.equal(cp, pc) and torch.equal(cp, c1)):
+        raise RuntimeError(f"classified_grid_param {name}: case grid differs")
+    del dp, cp, d1, c1, pd, pc
+    od, oc = gk.classified_grid(other, *grid, parametric=True)
+    opd, opc = gk.classified_grid_plain(other, *grid)
+    torch.cuda.synchronize()
+    out["classified_grid_param"] = max(out["classified_grid_param"], held_to_plain(
+        f"{'classified_grid_param':15s} {name:14s} other values", od, opd))
+    if not torch.equal(oc, opc):
+        raise RuntimeError(f"classified_grid_param {name}: another tree's values through the "
+                           f"same library: {int((oc != opc).sum())} cases differ from plain")
+    log(f"  classified_grid_param {name:14s} other values: cases equal to plain, "
+        f"{int((oc != 0).sum())} active")
+    return out, differing
 
 
 #: the main-path grids, where every kernel is timed
@@ -444,6 +528,11 @@ KERNELS = (
     ("emit_soup", "gsdf_tpu_torch/csrc/emit_soup.cu", "gsdf_tpu/ops/mc_emit.py:332"),
     ("emit_welded", "gsdf_tpu_torch/csrc/emit_welded.cu",
      "gsdf_tpu/ops/fused_welded.py:43"),
+    # the parametric forms: the operand-bound executables cached by structure
+    ("classified_grid_param", "gsdf_tpu_torch/csrc/classified_grid.cu",
+     "gsdf_tpu/ops/compact_field.py:438"),
+    ("point_eval_param", "gsdf_tpu_torch/csrc/point_eval.cu",
+     "gsdf_tpu/eval/parametric.py:162"),
 )
 
 
@@ -541,23 +630,41 @@ def mc_compare(name, tree, resdiv, dev, gk, slab=None):
 def device_launches(fn) -> dict:
     """What torch.profiler sees on the card inside one call of fn: kernels,
     memsets and copies by count, and their device time summed (ms): the
-    call's time with the host's share taken out."""
+    call's time with the host's share taken out. Every fn given here
+    launches a kernel, and the profiler now and then returns a trace that
+    holds the host's launch calls and no device event (about 1 in 500 on
+    an idle host, several in a row on a busy one), so a trace without a
+    kernel is taken again, after a growing pause, at most six times before
+    it counts as a fault."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+    for attempt in range(6):
+        time.sleep(0.05 * attempt)
         torch.cuda.synchronize()
-    out = {"kernels": 0, "memsets": 0, "copies": 0, "device_ms": 0.0}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            kind = ("memsets" if "memset" in e.name.lower()
-                    else "copies" if "memcpy" in e.name.lower() else "kernels")
-            out[kind] += 1
-            out["device_ms"] += e.time_range.elapsed_us() / 1e3
-    return out
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out = {"kernels": 0, "memsets": 0, "copies": 0, "device_ms": 0.0}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                kind = ("memsets" if "memset" in e.name.lower()
+                        else "copies" if "memcpy" in e.name.lower() else "kernels")
+                out[kind] += 1
+                out["device_ms"] += e.time_range.elapsed_us() / 1e3
+        if out["kernels"]:
+            return out
+    raise RuntimeError("torch.profiler saw no kernel inside a wrapper call in six traces")
+
+
+def on_card_ms(a, b, turns: int = 3):
+    """The least device ms that torch.profiler sums inside one call of a
+    and of b, taken in turns (a, b, a, b, ...): the two with the host's
+    share taken out."""
+    pairs = [(device_launches(a)["device_ms"], device_launches(b)["device_ms"])
+             for _ in range(turns)]
+    return min(x for x, _ in pairs), min(y for _, y in pairs)
 
 
 def synchronising(fn):
@@ -604,12 +711,14 @@ def main() -> int:
         return 2
     try:
         from gsdf_tpu_torch import (
-            Builder, Flags, bounds, cli, flagships, kernels, native, pipeline, render, with_bounds,
+            Builder, Flags, _build, bounds, cli, flagships, kernels, native, pipeline, render,
+            with_bounds,
         )
         from gsdf_tpu_torch.eval import (
             Batcher, new_sdf3, normals_central_diff, special,
         )
         from gsdf_tpu_torch.eval import grid_kernels as gk
+        from gsdf_tpu_torch.eval import parametric as par
         from gsdf_tpu_torch.eval import point_kernels as pk
         from gsdf_tpu_torch.forge import threads
         from gsdf_tpu_torch.geometry.boxes import Box
@@ -651,6 +760,9 @@ def main() -> int:
         trees2d[name] = (make(Builder()), width, height)
     battery = special.benchmark_trees()
     point_trees = {**trees, **{k: t for k, (t, _, _) in trees2d.items()}, **battery}
+    # a structurally equal tree with other values, for each parametric library
+    others = {name: perturbed(tree) for name, tree in point_trees.items()}
+    golden_parts = ("flange", "showerhead", "bolt", "knurled")
     t0 = time.perf_counter()
     # one nvcc per library, all queued together; 32 at a time keep the
     # host's cores busy without holding every compiler in memory at once
@@ -660,16 +772,29 @@ def main() -> int:
         futs += [pool.submit(kernels.static_lib, n) for n in kernels.STATIC_KERNELS]
         futs += [pool.submit(gk.build, tree, pk.POINT_TEMPLATES) for tree in point_trees.values()]
         futs += [pool.submit(gk.build, tree, pk.FIELD_TEMPLATES) for tree, _, _ in trees2d.values()]
+        futs += [pool.submit(gk.build, tree, gk.PARAM_TEMPLATES, True) for tree in trees.values()]
+        futs += [pool.submit(gk.build, tree, pk.POINT_TEMPLATES, True)
+                 for tree in point_trees.values()]
         for fut in futs:
             fut.result()
     build_s = time.perf_counter() - t0
     log(f"phase 2: built {len(futs)} kernel libraries ({len(trees) + 1} trees' K1 + K2, "
         f"{len(kernels.STATIC_KERNELS)} MC kernels, {len(point_trees)} trees' KP, "
-        f"{len(trees2d)} 2D trees' K2-2D; one nvcc each, in parallel) in {build_s:.1f} s")
+        f"{len(trees2d)} 2D trees' K2-2D, {len(trees)} structures' K1p, {len(point_trees)} "
+        f"structures' KPp; one nvcc each, in parallel) in {build_s:.1f} s; "
+        f"compiler runs {_build.COUNTS['compiles']}, libraries loaded {_build.COUNTS['loads']}")
+    n_params = {name: int(par.kernel_params(trees[name]).size) for name in golden_parts}
+    log("  parameters per part (packed as the JAX package packs them / in the kernels' "
+        "layout): " + ", ".join(f"{name} {par.pack_params(trees[name]).size} / {n_params[name]}"
+                               for name in golden_parts))
     logs = [(name, gk.build_log(tree)) for name, tree in trees.items()]
     logs += [(name, kernels.static_build_log(name)) for name in kernels.STATIC_KERNELS]
     logs += [(f"KP {name}", gk.build_log(trees[name], pk.POINT_TEMPLATES))
-             for name in ("flange", "showerhead", "bolt", "knurled")]
+             for name in golden_parts]
+    logs += [(f"K1p {name}", gk.build_log(trees[name], gk.PARAM_TEMPLATES, True))
+             for name in golden_parts]
+    logs += [(f"KPp {name}", gk.build_log(trees[name], pk.POINT_TEMPLATES, True))
+             for name in golden_parts]
     logs += [(f"K2-2D {name}", gk.build_log(trees2d[name][0], pk.FIELD_TEMPLATES))
              for name, _, _, _ in flagships.PNG_SCENES]
     for name, text in logs:
@@ -679,6 +804,7 @@ def main() -> int:
 
     log("phase 2: kernels vs plain torch on the card")
     max_err = {name: 0.0 for name, _, _ in KERNELS}
+    differing = {"classified_grid_param": 0, "point_eval_param": 0}  # floats, from baked
     grids = [("nine-types", 60), ("every-type", 90), ("cropped", 40)]
     grids += [(name, 64) for name in trees if name.startswith("fuzz")]
     grids += [("flange", 100), *MAIN_GRIDS]
@@ -688,7 +814,8 @@ def main() -> int:
     slabs = [("flange", 800, 1)]
     for name, resdiv, slab in [(n, r, None) for n, r in grids] + slabs:
         label = f"{name}@{resdiv}" + ("" if slab is None else f" slab {slab}")
-        errs = compare(label, trees[name], resdiv, dev, gk, slab)
+        errs, n_diff = compare(label, trees[name], resdiv, dev, gk, slab, others[name])
+        differing["classified_grid_param"] += n_diff
         mc_errs, inputs = mc_compare(label, trees[name], resdiv, dev, gk, slab)
         errs.update(mc_errs)
         for k, v in errs.items():
@@ -700,6 +827,13 @@ def main() -> int:
     # KP at seeded points on every tree, 3D and 2D; K2-2D on every 2D tree
     for name, tree in point_trees.items():
         max_err["point_eval"] = max(max_err["point_eval"], compare_points(name, tree, dev, pk))
+        err, n_diff = compare_points_param(name, tree, others[name], dev, pk)
+        max_err["point_eval_param"] = max(max_err["point_eval_param"], err)
+        differing["point_eval_param"] += n_diff
+    log(f"  parametric against baked, over every grid and tree above: K1p's distances differ "
+        f"from K1's in {differing['classified_grid_param']} floats, KPp's from KP's in "
+        f"{differing['point_eval_param']} "
+        f"({'bit-identical' if not any(differing.values()) else 'NOT bit-identical'})")
     for name, (tree, width, height) in trees2d.items():
         max_err["grid_eval_2d"] = max(max_err["grid_eval_2d"],
                                       compare_field(name, tree, width, height, dev, pk))
@@ -751,10 +885,24 @@ def main() -> int:
         row["compact_active"]["with_edge_ranks_ms"] = min(cuda_ms(with_ranks, 10),
                                                           cuda_ms(with_ranks, 10))
         row["k1_over_k2"] = row["classified_grid"]["ms"] / row["grid_eval"]["ms"]
+        # K1p against the baked K1 in turns (baked, K1p, K1p, baked); its plain
+        # version is K1's, timed above on these inputs; its operations are K1's
+        def k1p():
+            return gk.classified_grid(*args, 0, True)
+
+        ms, baked_ms = in_turns(k1p, versions["classified_grid"][0])
+        b = bounds.bound(ops["classified_grid"], bounds.kernel_bytes(
+            "classified_grid_param", **sizes, n_params=n_params[name]))
+        row["classified_grid_param"] = {
+            "ms": ms, "baked_ms": baked_ms, "plain_ms": row["classified_grid"]["plain_ms"],
+            "library_ms": None, **b, "share": b["bound_ms"] / ms,
+            "published_fp32_share": b["published_fp32_ms"] / ms}
+        versions["classified_grid_param"] = (k1p, versions["classified_grid"][1])
         times[f"{name}@{resdiv}"] = row
         log(f"  device ms {name}@{resdiv} grid {fr.shape()}: "
             + ", ".join(f"{k} {v['ms']:.3f} (bound {v['bound_ms']:.3f} by {v['bound_by']}, "
                         f"share {v['share']:.2f}, plain {v['plain_ms']:.3f}"
+                        + (f", baked in turns {v['baked_ms']:.3f}" if "baked_ms" in v else "")
                         + (f", library {v['library_ms']:.3f})" if v["library_ms"] else ")")
                         for k, v in row.items() if k != "k1_over_k2")
             + f"; K3 with edge ranks {row['compact_active']['with_edge_ranks_ms']:.3f}"
@@ -779,11 +927,16 @@ def main() -> int:
     n_points = 1 << 20
     one_kernel = {"kernels": 1, "memsets": 0, "copies": 0}
     timed = []
-    for name in ("flange", "showerhead", "bolt", "knurled"):
+    for name in golden_parts:
         tree, pos = trees[name], seeded_points(trees[name], n_points, 2, dev)
         timed.append((f"KP {name} N={n_points}", "point_eval", ops_per_point[name] * n_points,
                       {"points": n_points, "ndim": 3},
                       lambda tree=tree, pos=pos: pk.evaluate_points(tree, pos, dev),
+                      lambda tree=tree, pos=pos: pk.point_eval_plain(tree, pos)))
+        timed.append((f"KPp {name} N={n_points}", "point_eval_param",
+                      ops_per_point[name] * n_points,
+                      {"points": n_points, "ndim": 3, "n_params": n_params[name]},
+                      lambda tree=tree, pos=pos: pk.evaluate_points(tree, pos, dev, True),
                       lambda tree=tree, pos=pos: pk.point_eval_plain(tree, pos)))
     for name, _, width, height in flagships.PNG_SCENES:
         tree = trees2d[name][0]
@@ -791,8 +944,10 @@ def main() -> int:
                       ops_per_point[name] * width * height, {"pixels": width * height},
                       lambda tree=tree, w=width, h=height: pk.distance_field(tree, w, h, dev),
                       lambda tree=tree, w=width, h=height: pk.distance_field_plain(tree, w, h, dev)))
+    baked_kp = {}  # label of a KP row -> its kernel call, for KPp's turns against it
     for label, kname, ops, sizes, kernel, plain in timed:
         ms, plain_ms = in_turns(kernel, plain)
+        baked_kp[label] = kernel
         b = bounds.bound(ops, bounds.kernel_bytes(kname, **sizes))
         on_device = device_launches(kernel)
         times[label] = {kname: {"ms": ms, "plain_ms": plain_ms, "library_ms": None, **b,
@@ -806,7 +961,68 @@ def main() -> int:
         if {k: v for k, v in on_device.items() if k != "device_ms"} != one_kernel:
             raise RuntimeError(f"{label}: one wrapper call should be one kernel launch and "
                                f"nothing else: {on_device}")
-    del timed
+        if kname == "point_eval_param":  # baked, KPp, KPp, baked
+            ms, baked_ms = in_turns(kernel, baked_kp[label.replace("KPp", "KP")])
+            times[label][kname]["baked_ms"] = baked_ms
+            log(f"  device ms {label} in turns with the baked KP: {ms:.4f} against "
+                f"{baked_ms:.4f}  [{card}]")
+    del timed, baked_kp
+
+    # the parameter argument by value (a kernel parameter, the constant
+    # bank) against the pointer form (an upload, device memory): the pointer
+    # libraries of the four parts, equal outputs, then in turns
+    def form(by_value, fn):
+        def call():
+            gk.PARAMS_BY_VALUE = by_value
+            try:
+                return fn()
+            finally:
+                gk.PARAMS_BY_VALUE = None
+        return call
+
+    gk.PARAMS_BY_VALUE = False  # one setting around all the threads' builds
+    try:
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            futs = [pool.submit(gk.build, trees[n], tm, True)
+                    for n in golden_parts for tm in (gk.PARAM_TEMPLATES, pk.POINT_TEMPLATES)]
+            for fut in futs:
+                fut.result()
+    finally:
+        gk.PARAMS_BY_VALUE = None
+    for name, resdiv in MAIN_GRIDS:
+        tree = trees[name]
+        fr = FlatRenderer(tree, tree.bounds().diagonal() / resdiv, dev)
+        args = (tree, fr.origin, fr.res, fr.shape(), dev, 0, True)
+        by_value = form(None, lambda: gk.classified_grid(*args))
+        by_pointer = form(False, lambda: gk.classified_grid(*args))
+        (d_v, c_v), (d_p, c_p) = by_value(), by_pointer()
+        if not (torch.equal(d_v, d_p) and torch.equal(c_v, c_p)):
+            raise RuntimeError(f"K1p {name}@{resdiv}: the pointer form differs from by value")
+        del d_v, c_v, d_p, c_p
+        _, syncs = synchronising(by_pointer)
+        ptr_ms, val_ms = in_turns(by_pointer, by_value)
+        ptr_card, val_card = on_card_ms(by_pointer, by_value)
+        times[f"{name}@{resdiv}"]["classified_grid_param"].update(
+            by_pointer_ms=ptr_ms, by_pointer_on_card_ms=ptr_card, by_value_on_card_ms=val_card)
+        log(f"  device ms K1p {name}@{resdiv}, {n_params[name]} parameters: by value "
+            f"{val_ms:.3f} (on the card {val_card:.4f}), through a pointer {ptr_ms:.3f} (on the "
+            f"card {ptr_card:.4f}, its upload included; {len(syncs)} synchronising calls in "
+            f"it)  [{card}]")
+    for name in golden_parts:
+        tree, pos = trees[name], seeded_points(trees[name], n_points, 2, dev)
+        by_value = form(None, lambda: pk.evaluate_points(tree, pos, dev, True))
+        by_pointer = form(False, lambda: pk.evaluate_points(tree, pos, dev, True))
+        if not torch.equal(by_value(), by_pointer()):
+            raise RuntimeError(f"KPp {name}: the pointer form differs from by value")
+        ptr_ms, val_ms = in_turns(by_pointer, by_value)
+        ptr_card, val_card = on_card_ms(by_pointer, by_value)
+        times[f"KPp {name} N={n_points}"]["point_eval_param"].update(
+            by_pointer_ms=ptr_ms, by_pointer_on_card_ms=ptr_card, by_value_on_card_ms=val_card)
+        log(f"  device ms KPp {name} N={n_points}: by value {val_ms:.4f} (on the card "
+            f"{val_card:.4f}), through a pointer {ptr_ms:.4f} (on the card {ptr_card:.4f}, its "
+            f"upload included)  [{card}]")
+    if gk.PARAMS_BY_VALUE is not None:
+        raise RuntimeError("the parameter form override was left set")
     torch.cuda.empty_cache()
 
     # --- phases 3 and 4: each path, counts from 0 around each run -------
@@ -1108,6 +1324,185 @@ def main() -> int:
     slice_ms[f"Batcher four operations N={n_points}"] = batch_ms
     log(f"phase 3: Batcher union, diff, intersect and a custom operation on two buffers of "
         f"{n_points}: equal to numpy's, {batch_ms:.2f} ms host to host  [{card}]")
+    # --- the parametric slice: the edit loop through the entry points ----
+    import copy
+
+    k1p_compact = ("classified_grid_param", "compact_active", "compact_emit")
+    k1p_welded = ("classified_grid_param", "compact_active", "emit_welded")
+    param_ms = {}
+    for name, resdiv in (("flange", 400), ("showerhead", 350), ("bolt", 300), ("knurled", 350)):
+        golden = goldens[(name, resdiv)]
+        (ms, ntris, all_ms), counts = run(
+            f"compact parametric {name}@{resdiv}", k1p_compact,
+            lambda: cli.bench_part(trees[name], resdiv, golden, 5, dev, "compact", True))
+        got = {k: n / 7 for k, n in counts.items() if n}  # two warm-ups + five
+        per_render[f"compact parametric {name}@{resdiv}"] = got
+        if got != {k: 1 for k in k1p_compact}:
+            raise RuntimeError(f"compact parametric {name}@{resdiv}: expected one call of each "
+                               f"of {k1p_compact} per render and no baked K1, got {got}")
+        fr = FlatRenderer(trees[name], trees[name].bounds().diagonal() / resdiv, dev)
+        grid = (trees[name], fr.origin, fr.res, fr.shape(), dev)
+        same = [np.array_equal(a, b) for a, b in zip(
+            compact_field_render(*grid, 0, True), compact_field_render(*grid))]
+        if not all(same):
+            raise RuntimeError(f"{name}@{resdiv}: the parametric payload (ids, cases, t) "
+                               f"differs from the baked one: {same}")
+        param_ms[f"compact parametric {name}@{resdiv}"] = {
+            "ms": ms, "baked_ms": e2e[f"compact {name}@{resdiv}"]}
+        log(f"phase 3: compact parametric {name} resdiv {resdiv}: {ntris} triangles (golden "
+            f"{golden}), ids, case bytes and t equal to the baked render's; SDF->STL warm "
+            f"median {ms:.2f} ms (baked {e2e[f'compact {name}@{resdiv}']:.2f})  [{card}]")
+
+    def same_mesh(a, b):
+        return all(x.shape == y.shape and np.array_equal(x, y) for x, y in zip(a, b))
+
+    # the edit loop: the flange pinned by with_bounds, one dimension an edit;
+    # each path edits a copy of its own, to other values, so that every
+    # baked render of an edited tree is a tree no library was built for
+    def edit_case(r, k, dz):
+        flange = copy.deepcopy(trees["flange"])
+        diff = flange.s  # Scale -> Difference(SmoothUnion(pipe, plate), through-hole)
+        hole, blend, plate = diff.s2, diff.s1, diff.s1.s2
+        return with_bounds(flange, flange.bounds()), [
+            ("the through-hole's radius", {hole: {"r": hole.r * np.float32(r)}}),
+            ("the smooth union's blend radius", {blend: {"k": blend.k * np.float32(k)}}),
+            ("the plate's offset", {plate: {"p_": plate.p_ + np.float32([0, 0, dz])}}),
+        ]
+
+    for path, expected, case in (("render_compact", k1p_compact, (1.25, 0.5, 0.05)),
+                                 ("render_indexed", k1p_welded, (1.15, 0.7, 0.03))):
+        pinned, edits = edit_case(*case)
+        fr = FlatRenderer(pinned, res400, dev)
+        first, _ = run(f"edit loop {path}: the first parametric render", expected,
+                       lambda: getattr(fr, path)(parametric=True))
+        built = (dict(_build.COUNTS), len(gk._libs))
+        loop_ms, baked_loop_ms, sizes = [], [], [len(first[1])]
+        for what, edit in edits:
+            t0 = time.perf_counter()
+            pinned.rebind(edit)
+            mesh, counts = run(f"edit loop {path}: {what}", expected,
+                               lambda: getattr(fr, path)(parametric=True))
+            loop_ms.append((time.perf_counter() - t0) * 1e3)
+            exactly(f"edit loop {path}", counts, {k: 1 for k in expected})
+            if (dict(_build.COUNTS), len(gk._libs)) != built:
+                raise RuntimeError(f"edit loop {path}: an edit built or loaded a library: "
+                                   f"{_build.COUNTS}, {len(gk._libs)} libraries, were {built}")
+            sizes.append(len(mesh[1]))
+            # the baked loop: the edited tree is a new tree hash, a new source, an nvcc run
+            compiles = _build.COUNTS["compiles"]
+            t0 = time.perf_counter()
+            baked = getattr(FlatRenderer(pinned, res400, dev), path)()
+            baked_loop_ms.append((time.perf_counter() - t0) * 1e3)
+            if _build.COUNTS["compiles"] != compiles + 1:
+                raise RuntimeError(f"edit loop {path}: the baked render of an edited tree made "
+                                   f"{_build.COUNTS['compiles'] - compiles} compiler runs")
+            built = (dict(_build.COUNTS), len(gk._libs))
+            if not same_mesh(mesh, baked):
+                raise RuntimeError(f"edit loop {path}, {what}: the parametric mesh differs from "
+                                   "the baked render of the edited tree")
+        if len(set(sizes)) != len(sizes):
+            raise RuntimeError(f"edit loop {path}: an edit did not change the mesh: {sizes}")
+        param_ms[f"edit loop {path} flange@400"] = {
+            "edit_to_mesh_ms": loop_ms, "baked_edit_to_mesh_ms": baked_loop_ms}
+        log(f"phase 3: edit loop {path} flange@400 pinned: {len(edits)} rebinds, 0 compiler "
+            f"runs and 0 libraries loaded by the parametric renders, triangles {sizes}, each "
+            f"mesh equal to the baked render of the edited tree; edit to mesh "
+            f"{', '.join(f'{t:.2f}' for t in loop_ms)} ms parametric, "
+            f"{', '.join(f'{t:.0f}' for t in baked_loop_ms)} ms baked (its nvcc run included)  "
+            f"[{card}]")
+
+    # one member of the showerhead's 130-hole loop group, moved
+    shower = copy.deepcopy(trees["showerhead"])
+    spinned = with_bounds(shower, shower.bounds())
+    holes = next(n for n in shower.visit_bfs() if len(n.children()) > 100)
+    member = holes.joined[40]
+    sfr = FlatRenderer(spinned, shower.bounds().diagonal() / 350, dev)
+    before = sfr.render_compact(parametric=True)
+    built = (dict(_build.COUNTS), len(gk._libs))
+    spinned.rebind({member: {"p_": member.p_ + np.float32([0.9, 0, 0])}})
+    moved, counts = run("showerhead: one hole of the loop group moved", k1p_compact,
+                        lambda: sfr.render_compact(parametric=True))
+    if (dict(_build.COUNTS), len(gk._libs)) != built:
+        raise RuntimeError("the showerhead's member edit built or loaded a library")
+    if same_mesh(before, moved) or len(before[1]) != flagships.GOLDEN_SHOWERHEAD_TRIS:
+        raise RuntimeError("the showerhead's member edit is not seen in the mesh")
+    if not same_mesh(moved, FlatRenderer(spinned, sfr.res, dev).render_compact()):
+        raise RuntimeError("the showerhead's member edit differs from the baked render")
+    log(f"phase 3: showerhead@350: one of the 130 holes moved by rebind: {len(before[1])} -> "
+        f"{len(moved[1])} triangles through the same library, equal to the baked render of "
+        "the edited tree")
+    del before, moved
+
+    # one synchronising read before the fetch on the parametric path too
+    def emitted_param():
+        dist, cases = gk.classified_grid(*grid_args, 0, True)
+        comp = mc_emit.compact_active(cases, edge_ranks=True)
+        return fused_welded.emit_welded(dist, cases, comp.ids, grid_args[1], grid_args[2],
+                                        comp=comp)
+
+    _, before_fetch = synchronising(emitted_param)
+    _, render_syncs = synchronising(lambda: fused_welded.welded_render(*grid_args, True))
+    log(f"phase 3: parametric indexed flange@400: {len(before_fetch)} synchronising call before "
+        f"the fetch, {len(render_syncs)} in a whole render")
+    if len(before_fetch) != 1 or len(render_syncs) != 2:
+        raise RuntimeError(f"parametric indexed: expected one read before the fetch and one "
+                           f"fetch: {before_fetch} / {render_syncs}")
+
+    # ParametricSDF3 on the default device: two trees of one structure, one library
+    for name in golden_parts:
+        tree, other = trees[name], others[name]
+        psdf = par.ParametricSDF3(tree)
+        pts = seeded_points(tree, n_points, 3, "cpu").numpy()
+        psdf.evaluate(pts)  # warm-up
+        built = (dict(_build.COUNTS), len(gk._libs))
+        (d, whole_ms), counts = run(f"ParametricSDF3.evaluate {name} N={n_points}",
+                                    ("point_eval_param",),
+                                    lambda: host_ms(lambda: psdf.evaluate(pts)))
+        exactly(f"ParametricSDF3.evaluate {name}", counts, {"point_eval_param": 3})
+        d2, counts = run(f"ParametricSDF3.evaluate {name}, another tree's values",
+                         ("point_eval_param",), lambda: psdf.evaluate(pts, other))
+        exactly(f"ParametricSDF3.evaluate {name}, other", counts, {"point_eval_param": 1})
+        if psdf.device != dev or (dict(_build.COUNTS), len(gk._libs)) != built:
+            raise RuntimeError(f"ParametricSDF3 {name}: not on the card, or a second tree "
+                               "built or loaded a library")
+        pos = torch.from_numpy(pts).to(dev)
+        for label, got, t in (("", d, tree), (" other values", d2, other)):
+            held_to_plain(f"ParametricSDF3  {name:22s}{label}", torch.from_numpy(got).to(dev),
+                          pk.point_eval_plain(t, pos))
+        param_ms[f"ParametricSDF3.evaluate {name} N={n_points}"] = {
+            "whole_call_ms": whole_ms,
+            "baked_whole_call_ms": slice_ms[f"SDF3.evaluate {name} N={n_points}"]["whole_call_ms"]}
+        log(f"phase 3: ParametricSDF3.evaluate {name} at {n_points} points: whole call "
+            f"{whole_ms:.3f} ms host to host ({psdf.n_params()} parameters; SDF3.evaluate "
+            f"{param_ms[f'ParametricSDF3.evaluate {name} N={n_points}']['baked_whole_call_ms']:.3f}"
+            f"); a structurally equal tree through the same library: equal to its plain "
+            f"version  [{card}]")
+        del pos
+
+    # what a parametric render pays on the host before its launch
+    host_walk = {}
+    for name in golden_parts:
+        tree = trees[name]
+
+        def cold():
+            t = copy.copy(tree)  # a root without the caches
+            t.__dict__.pop("_structural_hash_cache", None)
+            t.__dict__.pop("_param_layout_cache", None)
+            return par.structural_hash(t), par.pack_params(t)
+
+        def per_ms(fn, reps=20):
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            return (time.perf_counter() - t0) * 1e3 / reps
+
+        host_walk[name] = {
+            "nodes": tree.node_count(), "n_params": n_params[name],
+            "structural_hash_and_pack_params_uncached_ms": per_ms(cold),
+            "per_render_cached_ms": per_ms(
+                lambda: (par.structural_hash(tree), par.kernel_params(tree)))}
+    log(f"phase 3: host ms of pack_params + structural_hash per part: {host_walk}")
+    param_ms["host_walk"] = host_walk
     log(f"phase 4: kernel launches over the paths: {launches}")
 
     fr = FlatRenderer(f800, res800, dev)
@@ -1131,6 +1526,7 @@ def main() -> int:
     rows = {name: t400[name] for name, _, _ in KERNELS if name in t400}
     rows["point_eval"] = times[f"KP flange N={n_points}"]["point_eval"]
     rows["grid_eval_2d"] = times["K2-2D plantpot 1080x1080"]["grid_eval_2d"]
+    rows["point_eval_param"] = times[f"KPp flange N={n_points}"]["point_eval_param"]
     line = [
         {
             "name": name,
@@ -1147,14 +1543,18 @@ def main() -> int:
             "share": rows[name]["share"],
             "launches_per_render": {
                 path: per_render[f"{path} flange@400"].get(name, 0)
-                for path in ("compact", "soup", "indexed")
+                for path in ("compact", "soup", "indexed", "compact parametric")
             },
+            **({"baked_ms": rows[name]["baked_ms"], "by_pointer_ms": rows[name]["by_pointer_ms"]}
+               if name.endswith("_param") else {}),
             "on_device_per_call": rows[name]["on_device"],
         }
         for name, source, replaces in KERNELS
     ]
     log(json.dumps({"build_s": build_s, "device_ms": times, "sdf_to_stl_ms": e2e,
-                    "launches_per_render": per_render, "point_and_2d_slice": slice_ms}))
+                    "launches_per_render": per_render, "point_and_2d_slice": slice_ms,
+                    "parametric_slice": param_ms,
+                    "parametric_floats_differing_from_baked": differing}))
     log(json.dumps({"kernels": line}))
     log(card)
     log(json.dumps({

@@ -19,6 +19,12 @@ PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 REPO_ROOT = os.path.dirname(PKG_DIR)
 BUILD_DIR = os.path.join(REPO_ROOT, "build", "gsdf_tpu_torch")
 
+#: what this process has built and loaded: compiler runs (`build_shared`
+#: past its on-disk cache: the nvcc runs, and the host decoder's one g++
+#: run) and libraries loaded (`load`). An edit loop that needs no new
+#: kernel library moves neither.
+COUNTS = {"compiles": 0, "loads": 0}
+
 
 def source_key(*parts: str | bytes) -> str:
     h = hashlib.sha256()
@@ -56,6 +62,7 @@ def build_shared(
     os.makedirs(d, exist_ok=True)
     tmp = f"{so}.tmp.{os.getpid()}"
     argv = list(command(tmp, d))
+    COUNTS["compiles"] += 1
     proc = subprocess.run(argv, capture_output=True, text=True, timeout=timeout)
     write_atomic(
         os.path.join(d, "build.log"),
@@ -73,6 +80,7 @@ def build_shared(
 def load(path: str, signatures: dict) -> ctypes.CDLL:
     """CDLL with argtypes/restype declared for every named function."""
     lib = ctypes.CDLL(path)
+    COUNTS["loads"] += 1
     for fn, (restype, argtypes) in signatures.items():
         f = getattr(lib, fn)
         f.restype = restype

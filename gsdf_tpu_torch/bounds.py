@@ -95,7 +95,7 @@ def tree_ops_per_point(tree, n: int = 256, seed: int = 0) -> int:
 
 
 def kernel_bytes(name: str, *, corners=0, cubes=0, active=0, n_t=0, tris=0, verts=0,
-                 points=0, ndim=3, pixels=0) -> int:
+                 points=0, ndim=3, pixels=0, n_params=0) -> int:
     """Bytes a kernel must move: each input read once, each output written
     once, from this run's shapes and counts.
 
@@ -103,6 +103,9 @@ def kernel_bytes(name: str, *, corners=0, cubes=0, active=0, n_t=0, tris=0, vert
     - point_eval (KP): reads 4 * ndim B per point, writes 4 B per point;
     - grid_eval_2d (K2-2D): writes 4 B per pixel;
     - classified_grid (K1): writes 4 B per corner and 1 B per cube;
+    - classified_grid_param, point_eval_param (K1p, KPp): K1's and KP's
+      bytes and the 4 B per parameter that the launch carries (the
+      operations are the baked form's);
     - compact_active (K3): reads 1 B per cube, writes 4 B per active cube
       (ids), 16 B per 256 active cubes (the edge and triangle block
       offsets) and 24 B of counts; the edge-rank directory that only K7w
@@ -124,6 +127,8 @@ def kernel_bytes(name: str, *, corners=0, cubes=0, active=0, n_t=0, tris=0, vert
         "point_eval": (4 * ndim + 4) * points,
         "grid_eval_2d": 4 * pixels,
         "classified_grid": 4 * corners + cubes,
+        "classified_grid_param": 4 * corners + cubes + 4 * n_params,
+        "point_eval_param": (4 * ndim + 4) * points + 4 * n_params,
         "compact_active": cubes + 4 * active + 2 * offsets + 24,
         "compact_emit": (4 + 1 + 16 + 1) * active + offsets + 4 * n_t,
         "emit_soup": (4 + 1 + 32) * active + offsets + 36 * tris,

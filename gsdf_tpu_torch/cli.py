@@ -36,20 +36,24 @@ from .render.flat import FlatRenderer
 from .render.stl import write_binary_stl, write_binary_stl_indexed
 
 
-def render_stl(obj, resdiv, device, path="compact"):
+def render_stl(obj, resdiv, device, path="compact", parametric=False):
     """One SDF->STL render into memory through `path`, "compact" (the main
     path), "soup" (render()) or "indexed" (render_indexed()): (wall ms,
-    triangle count)."""
+    triangle count). parametric=True renders the compact and indexed paths
+    through the library of the part's structure."""
     res = obj.bounds().diagonal() / resdiv
     t0 = time.perf_counter()
     fr = FlatRenderer(obj, res, device)
     buf = io.BytesIO()
     if path == "soup":
+        if parametric:
+            raise ValueError("render() has no parametric form")
         tris = fr.render()
         write_binary_stl(buf, tris)
         n = len(tris)
     elif path in ("compact", "indexed"):
-        verts, tri_idx = fr.render_compact() if path == "compact" else fr.render_indexed()
+        render = fr.render_compact if path == "compact" else fr.render_indexed
+        verts, tri_idx = render(parametric=parametric)
         write_binary_stl_indexed(buf, verts, tri_idx)
         n = len(tri_idx)
     else:
@@ -57,17 +61,17 @@ def render_stl(obj, resdiv, device, path="compact"):
     return (time.perf_counter() - t0) * 1e3, n
 
 
-def bench_part(obj, resdiv, golden, repeats, device, path="compact"):
+def bench_part(obj, resdiv, golden, repeats, device, path="compact", parametric=False):
     """Median warm SDF->STL wall ms after two warm-ups (the first builds
     the kernels), failing unless the triangle count equals `golden`
     (None skips the check). Returns (median ms, triangles, all ms)."""
-    _, ntris = render_stl(obj, resdiv, device, path)
-    render_stl(obj, resdiv, device, path)
+    _, ntris = render_stl(obj, resdiv, device, path, parametric)
+    render_stl(obj, resdiv, device, path, parametric)
     if golden is not None and ntris != golden:
         raise RuntimeError(f"triangle count {ntris} != golden {golden}")
     times = []
     for _ in range(repeats):
-        ms, n = render_stl(obj, resdiv, device, path)
+        ms, n = render_stl(obj, resdiv, device, path, parametric)
         if n != ntris:
             raise RuntimeError(f"triangle count changed between renders: {n} != {ntris}")
         times.append(ms)
@@ -86,6 +90,8 @@ def _args(argv):
     ap.add_argument("--repeats", type=int, default=7)
     ap.add_argument("--breadth", action="store_true",
                     help="all four golden parts, one row each")
+    ap.add_argument("--parametric", action="store_true",
+                    help="render through the parametric kernel libraries")
     args = ap.parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -103,7 +109,8 @@ def breadth_main(args, device):
         ("knurled-cylinder", build_knurled(), 350, GOLDEN_KNURLED_TRIS),
     ]
     for name, obj, resdiv, golden in rows:
-        ms, n, _ = bench_part(obj, resdiv, golden, args.repeats, device)
+        ms, n, _ = bench_part(obj, resdiv, golden, args.repeats, device,
+                              parametric=args.parametric)
         print(f"{name} resdiv{resdiv}: {n:,} tris {ms:.2f} ms [{device_name(device)}]",
               flush=True)
 
@@ -113,10 +120,12 @@ def bench_main(argv=None):
     if args.breadth:
         return breadth_main(args, device)
     flange_ms, flange_tris, _ = bench_part(
-        build_flange(), 400, GOLDEN_FLANGE_TRIS, args.repeats, device
+        build_flange(), 400, GOLDEN_FLANGE_TRIS, args.repeats, device,
+        parametric=args.parametric,
     )
     shower_ms, shower_tris, _ = bench_part(
-        build_showerhead(), 350, GOLDEN_SHOWERHEAD_TRIS, args.repeats, device
+        build_showerhead(), 350, GOLDEN_SHOWERHEAD_TRIS, args.repeats, device,
+        parametric=args.parametric,
     )
     print(
         json.dumps(

@@ -20,6 +20,31 @@ node, the counterpart of the reference's GLSL Programmer
 `tree_source(tree)` ends with the root function the kernel templates call,
 `gsdf_tree(px, py, pz)` for a 3D tree and `gsdf_tree(px, py)` for a 2D one,
 and defines GSDF_NDIM (3 or 2) so that a template can tell which it got.
+
+Two modes. Baked (the default): every parameter is a float literal and
+functions are shared by `tree_hash`. Parametric (`tree_source(tree,
+parametric=True)`): each continuous parameter (a node class's
+CONT_PARAMS) is read from a float32 vector, so one source serves every
+tree of the same structure and an edited part needs no new build.
+
+- Every function takes `const float* P` first: the slice of its own
+  subtree, its own continuous parameters (CONT_PARAMS order, flattened)
+  followed by each child's slice in `param_children()` order. A child is
+  called with `P + k`, k known here, so functions are named and shared by
+  `struct_key` and two subtrees of one structure differ only in the slice
+  they read. `eval/parametric.py::kernel_index` lays a tree's vector out
+  the same way.
+- A constant that the baked emitter derives on the host in numpy float32
+  (`dims * 0.5`, `1 / factor`) is computed in the kernel by the same
+  float32 operations in the same order on the value read (`expr`). They
+  are IEEE operations and nothing contracts them, so a parametric kernel
+  equals the baked one bit for bit.
+- Structural parameters, constant tables (polygon edges, displacement
+  tables) and every Python branch of an emitter stay as in the baked mode.
+- The source defines GSDF_PARAMETRIC, GSDF_NPARAMS (the vector's length,
+  fixed by the structure) and GSDF_PARAMS_BY_VALUE (whether the templates
+  take the vector by value as a kernel parameter or as a device pointer),
+  and `gsdf_tree(P, px, py, pz)`.
 """
 from __future__ import annotations
 
@@ -88,20 +113,78 @@ PRELUDE = PRELUDE % {
 
 
 class Codegen:
-    """Collects the functions and constant arrays of one tree."""
+    """Collects the functions and constant arrays of one tree, baked or
+    parametric (see the module note)."""
 
-    def __init__(self):
-        self._names: dict = {}  # tree hash -> function name
+    def __init__(self, parametric: bool = False):
+        self.parametric = parametric
+        self._names: dict = {}  # tree hash / struct key -> function name
         self._chunks: list = []  # emitted arrays and functions, in order
         self._n_arrays: dict = {}  # function name -> arrays emitted
+        self._stack: list = []  # nodes whose bodies are being emitted
+        self._sizes: dict = {}  # id(node) -> floats in its subtree's slice
 
     @staticmethod
     def lit(x) -> str:
         return lit(x)
 
+    def _key(self, node: Shader) -> bytes:
+        return node.struct_key() if self.parametric else node.tree_hash()
+
+    def name(self, node: Shader) -> str:
+        return f"{type(node).__name__.lower()}_{self._key(node).hex()[:12]}"
+
+    # --- the parameter vector's layout (parametric mode) ----------------
     @staticmethod
-    def name(node: Shader) -> str:
-        return f"{type(node).__name__.lower()}_{node.tree_hash().hex()[:12]}"
+    def own_size(node: Shader) -> int:
+        """Floats of `node`'s own continuous parameters."""
+        return sum(int(np.size(getattr(node, n))) for n in node.CONT_PARAMS)
+
+    def slice_size(self, node: Shader) -> int:
+        """Floats of `node`'s subtree: its own, then each child's slice."""
+        size = self._sizes.get(id(node))
+        if size is None:
+            size = self.own_size(node) + sum(self.slice_size(c) for c in node.param_children())
+            self._sizes[id(node)] = size
+        return size
+
+    def child_offset(self, child: Shader) -> int:
+        """Where `child`'s slice starts in the slice of the node being
+        emitted."""
+        node = self._stack[-1]
+        k = self.own_size(node)
+        for c in node.param_children():
+            if c is child:
+                return k
+            k += self.slice_size(c)
+        raise ValueError(f"{type(child).__name__} is no child of {type(node).__name__}")
+
+    # --- what an emitter writes its body with ---------------------------
+    def p(self, node: Shader, name: str):
+        """The C expression(s) of `node`'s parameter `name`: one string
+        for a scalar, a flat list for an array. A literal, except for a
+        continuous parameter in parametric mode, which is `P[k]`."""
+        value = getattr(node, name)
+        flat = np.asarray(value, np.float32).reshape(-1)
+        if self.parametric and name in node.CONT_PARAMS:
+            if node is not self._stack[-1]:
+                raise ValueError("an emitter reads only its own node's parameters")
+            k = 0
+            for n in node.CONT_PARAMS:
+                if n == name:
+                    break
+                k += int(np.size(getattr(node, n)))
+            out = [f"P[{k + i}]" for i in range(len(flat))]
+        else:
+            out = [lit(v) for v in flat]
+        return out if np.ndim(value) else out[0]
+
+    def expr(self, value, text: str) -> str:
+        """A constant derived from continuous parameters: the literal of
+        `value` (numpy float32, computed on the host) in baked mode, in
+        parametric mode `text`, the C expression that does the same float32
+        operations in the same order on the parameters' `p()` strings."""
+        return f"({text})" if self.parametric else lit(value)
 
     def array(self, node: Shader, values) -> str:
         """Emit a float32 constant table for `node`; returns its name."""
@@ -117,17 +200,32 @@ class Codegen:
         return name
 
     def call(self, node: Shader, *args: str) -> str:
-        """A call of `node`'s function on `args`, emitting it on first use."""
+        """A call of child `node`'s function on `args`, emitting it on
+        first use; in parametric mode the child's slice goes first."""
+        if self.parametric:
+            k = self.child_offset(node)
+            return self.call_at(node, f"P + {k}" if k else "P", *args)
         return f"{self.emit(node)}({', '.join(args)})"
 
+    def call_at(self, node: Shader, params: str, *args: str) -> str:
+        """Parametric mode: a call of `node`'s function on the slice that
+        the C expression `params` points to."""
+        return f"{self.emit(node)}({', '.join((params,) + args)})"
+
     def emit(self, node: Shader) -> str:
-        key = node.tree_hash()
+        key = self._key(node)
         name = self._names.get(key)
         if name is not None:
             return name
         name = self.name(node)
-        body = node.emit_cuda(self)  # emits children and arrays first
+        self._stack.append(node)
+        try:
+            body = node.emit_cuda(self)  # emits children and arrays first
+        finally:
+            self._stack.pop()
         params = ("float px", "float py", "float pz")[: node.NDIM]
+        if self.parametric:
+            params = ("const float* P",) + params
         indented = "\n".join("    " + ln for ln in body.splitlines())
         self._chunks.append(f"GSDF_HD float {name}({', '.join(params)}) {{\n{indented}\n}}")
         self._names[key] = name
@@ -137,14 +235,36 @@ class Codegen:
         return PRELUDE + "\n" + "\n\n".join(self._chunks) + "\n"
 
 
-def tree_source(tree: Shader) -> str:
-    """Self-contained C++/CUDA source of `tree` ending in gsdf_tree()."""
-    cg = Codegen()
+#: floats of a parameter vector that the templates still take by value, as
+#: a kernel parameter: with the kernels' other arguments it stays inside
+#: the 4 KB of kernel parameters that every CUDA version allows
+PARAMS_BY_VALUE_MAX = 1000
+
+
+def tree_source(tree: Shader, parametric: bool = False, by_value: bool | None = None) -> str:
+    """Self-contained C++/CUDA source of `tree` ending in gsdf_tree().
+    parametric=True gives the parametric form (see the module note), with
+    the vector by value up to PARAMS_BY_VALUE_MAX floats unless `by_value`
+    says otherwise."""
+    cg = Codegen(parametric)
     root = cg.emit(tree)
     names = ("px", "py", "pz")[: tree.NDIM]
+    args = ", ".join("float " + n for n in names)
+    out = cg.source() + f"\n#undef GSDF_NDIM\n#define GSDF_NDIM {tree.NDIM}\n"
+    if not parametric:
+        return (
+            out
+            + f"GSDF_HD float gsdf_tree({args}) {{\n"
+            + f"    return {root}({', '.join(names)});\n}}\n"
+        )
+    n = max(1, cg.slice_size(tree))
+    if by_value is None:
+        by_value = n <= PARAMS_BY_VALUE_MAX
     return (
-        cg.source()
-        + f"\n#undef GSDF_NDIM\n#define GSDF_NDIM {tree.NDIM}\n"
-        + f"GSDF_HD float gsdf_tree({', '.join('float ' + n for n in names)}) {{\n"
-        + f"    return {root}({', '.join(names)});\n}}\n"
+        out
+        + "#undef GSDF_PARAMETRIC\n#undef GSDF_NPARAMS\n#undef GSDF_PARAMS_BY_VALUE\n"
+        + f"#define GSDF_PARAMETRIC 1\n#define GSDF_NPARAMS {n}\n"
+        + f"#define GSDF_PARAMS_BY_VALUE {int(bool(by_value))}\n"
+        + f"GSDF_HD float gsdf_tree(const float* P, {args}) {{\n"
+        + f"    return {root}({', '.join(('P',) + names)});\n}}\n"
     )

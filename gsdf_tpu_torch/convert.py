@@ -6,7 +6,9 @@ contract (`children()`, `PARAMS`, `type(node).__qualname__`). Class names
 and PARAMS are the same in both packages, and each parameter keeps the
 type the JAX package hashes it by (float32 scalars and arrays, ints,
 bools), so the rebuilt tree has the reference's tree_hash and renders the
-same part.
+same part. A node object that several parents share is converted once, so
+the rebuilt tree shares it the same way and `param_spec`, `pack_params`
+and `structural_hash` (eval/parametric.py) equal the reference's too.
 """
 from __future__ import annotations
 
@@ -39,15 +41,18 @@ def _param(v):
     return a if a.ndim else np.float32(a)
 
 
-def from_reference_tree(node) -> Shader:
+def from_reference_tree(node, _memo: dict | None = None) -> Shader:
     """Port tree equal to the reference tree `node` (same structure, same
-    parameters). Raises NotImplementedError on a node type the port does
-    not have."""
+    parameters, the same node objects shared). Raises NotImplementedError
+    on a node type the port does not have."""
+    memo = {} if _memo is None else _memo
+    if id(node) in memo:
+        return memo[id(node)]
     name = type(node).__qualname__
     cls = NODE_TYPES.get(name)
     if cls is None:
         raise NotImplementedError(f"node type {name} is not ported")
-    children = [from_reference_tree(c) for c in node.children()]
+    children = [from_reference_tree(c, memo) for c in node.children()]
     out = cls.__new__(cls)
     for p in cls.PARAMS:
         setattr(out, p, _param(getattr(node, p)))
@@ -62,4 +67,5 @@ def from_reference_tree(node) -> Shader:
     derive = getattr(out, "_rebind_derived", None)
     if derive is not None:
         derive()
+    memo[id(node)] = out
     return out

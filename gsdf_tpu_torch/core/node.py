@@ -11,7 +11,14 @@ A node is a plain Python object with two ways to evaluate it:
 
 `tree_hash` is the JAX package's scheme byte for byte (type qualname +
 PARAMS + child hashes), so a part built through either Builder hashes the
-same; the codegen names functions by it.
+same; the codegen names baked functions by it.
+
+A node class lists in `CONT_PARAMS` (the JAX package's tuples) the
+parameters that `rebind` may edit in place and that the parametric
+kernels read from a kernel argument instead of a literal
+(eval/parametric.py); every other parameter is structural. `struct_key`
+is the hash of a subtree with its continuous values masked: the
+parametric codegen names and shares functions by it.
 """
 from __future__ import annotations
 
@@ -48,24 +55,59 @@ class Shader:
     PARAMS: Tuple[str, ...] = ()
     #: names of attributes holding child nodes.
     CHILDREN: Tuple[str, ...] = ()
+    #: names of the continuous parameters: float32 values that `rebind`
+    #: may edit and that no emitter or Python branch decides by.
+    CONT_PARAMS: Tuple[str, ...] = ()
 
     _tree_hash_cache: bytes | None = None
+    _struct_key_cache: bytes | None = None
 
     def children(self) -> Tuple["Shader", ...]:
         return tuple(getattr(self, name) for name in self.CHILDREN)
+
+    def _hash_own(self, h, masked: bool = False) -> None:
+        """Feed `h` this node's type and parameters (no children): each
+        value's bytes, or with `masked` the shape alone of a continuous
+        parameter."""
+        h.update(type(self).__qualname__.encode())
+        for name in self.PARAMS:
+            h.update(name.encode())
+            v = getattr(self, name)
+            if masked and name in self.CONT_PARAMS:
+                h.update(str(tuple(np.shape(v))).encode())
+            else:
+                h.update(_param_bytes(v))
 
     def tree_hash(self) -> bytes:
         """Structural hash: node type + params + child hashes."""
         if self._tree_hash_cache is None:
             h = hashlib.blake2b(digest_size=16)
-            h.update(type(self).__qualname__.encode())
-            for name in self.PARAMS:
-                h.update(name.encode())
-                h.update(_param_bytes(getattr(self, name)))
+            self._hash_own(h)
             for c in self.children():
                 h.update(c.tree_hash())
             self._tree_hash_cache = h.digest()
         return self._tree_hash_cache
+
+    def struct_key(self) -> bytes:
+        """Hash of the subtree's structure: tree_hash's scheme with every
+        continuous parameter's value replaced by its shape. `rebind`
+        cannot change it, so it is cached for the node's life."""
+        if self._struct_key_cache is None:
+            h = hashlib.blake2b(digest_size=16)
+            self._hash_own(h, masked=True)
+            children = self.children()
+            h.update(len(children).to_bytes(4, "little"))
+            for c in children:
+                h.update(c.struct_key())
+            self._struct_key_cache = h.digest()
+        return self._struct_key_cache
+
+    def param_children(self) -> Tuple["Shader", ...]:
+        """The children in the order in which the parametric kernel's
+        vector holds their parameter slices (eval/parametric.py); a node
+        that loops one function over several children (OpUnion) puts
+        those side by side."""
+        return self.children()
 
     def visit_bfs(self) -> Iterable["Shader"]:
         """All nodes of the tree in BFS order (root first)."""
@@ -87,10 +129,56 @@ class Shader:
     def node_count(self) -> int:
         return sum(1 for _ in self.visit_bfs())
 
+    def rebind(self, edits: dict) -> "Shader":
+        """In-place edit of continuous parameters, the parametric-editing
+        API (gsdf_tpu/core/node.py:94-144; pairs with FlatRenderer's
+        parametric=True renders: same structure, no new kernel library).
+
+        edits: {node: {param_name: new_value}}; each node is an object in
+        THIS tree and each name is in its CONT_PARAMS. Structural
+        parameters are rejected: rebuild the tree to change those. Values
+        are cast to float32 and array shapes must match. A node with a
+        `_rebind_derived()` hook (a transform's inverse) has it called
+        after its edits. Every cached tree hash of the tree is cleared,
+        so a baked render of the edited tree builds a fresh library and
+        never runs a stale one. Returns self."""
+        in_tree = {id(n) for n in self.visit_bfs()}
+        for node, kv in edits.items():
+            if id(node) not in in_tree:
+                raise ValueError(f"{type(node).__name__} node is not in this tree")
+            cont = set(node.CONT_PARAMS)
+            for name, val in kv.items():
+                if name not in node.PARAMS:
+                    raise AttributeError(
+                        f"{type(node).__name__} has no parameter {name!r}"
+                    )
+                if name not in cont:
+                    raise ValueError(
+                        f"{type(node).__name__}.{name} is structural (baked "
+                        "into the trace); rebuild the tree to change it"
+                    )
+                old = np.asarray(getattr(node, name), np.float32)
+                new = np.asarray(val, np.float32)
+                if new.shape != old.shape:
+                    raise ValueError(
+                        f"{type(node).__name__}.{name}: shape {new.shape} "
+                        f"!= existing {old.shape}"
+                    )
+                object.__setattr__(
+                    node, name, new if new.shape else np.float32(val)
+                )
+            derive = getattr(node, "_rebind_derived", None)
+            if derive is not None:
+                derive()
+        for n in self.visit_bfs():
+            object.__setattr__(n, "_tree_hash_cache", None)
+        return self
+
     def emit_cuda(self, cg) -> str:
         """CUDA C body of this node's distance function. The arguments are
-        `px, py, pz` (3D) or `px, py` (2D); `cg` (codegen.cuda.Codegen)
-        names child functions, float literals and constant arrays."""
+        `px, py, pz` (3D) or `px, py` (2D), after `const float* P` in
+        parametric mode; `cg` (codegen.cuda.Codegen) names child functions,
+        float literals, parameters and constant arrays."""
         raise NotImplementedError(
             f"{type(self).__name__} has no CUDA emitter in this port"
         )

@@ -94,6 +94,7 @@ class Extrusion(Shader3D):
     """2D -> 3D extrusion along z (cpu_evaluators.go:506, operations2d.go:104)."""
 
     PARAMS = ("h",)
+    CONT_PARAMS = ("h",)
     CHILDREN = ("s",)
 
     def __init__(self, s: Shader2D, h):
@@ -110,7 +111,7 @@ class Extrusion(Shader3D):
     def emit_cuda(self, cg) -> str:
         return (
             f"float d = {cg.call(self.s, 'px', 'py')};\n"
-            f"float wy = fabsf(pz) - {cg.lit(self.h / _f32(2))};\n"
+            f"float wy = fabsf(pz) - {cg.expr(self.h / _f32(2), cg.p(self, 'h') + ' / 2.0f')};\n"
             "float qd = fmaxf(d, 0.0f), qw = fmaxf(wy, 0.0f);\n"
             "return fminf(0.0f, fmaxf(d, wy)) + sqrtf(qd * qd + qw * qw);"
         )
@@ -128,6 +129,7 @@ class Revolution(Shader3D):
     """Revolve 2D shape about y axis (cpu_evaluators.go:533, operations2d.go:153)."""
 
     PARAMS = ("off",)
+    CONT_PARAMS = ("off",)
     CHILDREN = ("s",)
 
     def __init__(self, s: Shader2D, off):
@@ -140,7 +142,7 @@ class Revolution(Shader3D):
 
     def emit_cuda(self, cg) -> str:
         return (
-            f"float qx = sqrtf(px * px + pz * pz) - {cg.lit(self.off)};\n"
+            f"float qx = sqrtf(px * px + pz * pz) - {cg.p(self, 'off')};\n"
             f"return {cg.call(self.s, 'qx', 'py')};"
         )
 
@@ -157,6 +159,7 @@ class Array2D(Shader2D):
     """Limited 2D grid repetition (cpu_evaluators.go:914, operations2d.go:332)."""
 
     PARAMS = ("d", "nx", "ny")
+    CONT_PARAMS = ("d",)
     CHILDREN = ("s",)
 
     def __init__(self, s, d, nx, ny):
@@ -168,7 +171,7 @@ class Array2D(Shader2D):
         return _array_distance(self.s, p, self.d, (self.nx, self.ny))
 
     def emit_cuda(self, cg) -> str:
-        return _emit_array(cg, self, self.d, (self.nx, self.ny))
+        return _emit_array(cg, self, (self.nx, self.ny))
 
     def bounds(self) -> Box:
         bb = self.s.bounds()
@@ -178,6 +181,7 @@ class Array2D(Shader2D):
 
 class Offset2D(Shader2D):
     PARAMS = ("f",)
+    CONT_PARAMS = ("f",)
     CHILDREN = ("s",)
 
     def __init__(self, s, f):
@@ -188,7 +192,7 @@ class Offset2D(Shader2D):
         return self.s.distance(p) + mx.lit(self.f)
 
     def emit_cuda(self, cg) -> str:
-        return f"return {cg.call(self.s, 'px', 'py')} + {cg.lit(self.f)};"
+        return f"return {cg.call(self.s, 'px', 'py')} + {cg.p(self, 'f')};"
 
     def bounds(self) -> Box:
         # reference operations2d.go:421-430 (incl. its positive-offset quirk)
@@ -200,6 +204,7 @@ class Offset2D(Shader2D):
 
 class Translate2D(Shader2D):
     PARAMS = ("p_",)
+    CONT_PARAMS = ("p_",)
     CHILDREN = ("s",)
 
     def __init__(self, s, v):
@@ -210,7 +215,7 @@ class Translate2D(Shader2D):
         return self.s.distance(p - mx.const(self.p_, p))
 
     def emit_cuda(self, cg) -> str:
-        x, y = (cg.lit(v) for v in self.p_)
+        x, y = cg.p(self, "p_")
         return f"return {cg.call(self.s, f'px - {x}', f'py - {y}')};"
 
     def bounds(self) -> Box:
@@ -221,6 +226,7 @@ class Rotation2D(Shader2D):
     """(cpu_evaluators.go:1186, operations2d.go:495)."""
 
     PARAMS = ("t",)
+    CONT_PARAMS = ("t", "t_inv")  # t_inv: see ops3.Transform
     CHILDREN = ("s",)
 
     def __init__(self, s, theta):
@@ -241,7 +247,7 @@ class Rotation2D(Shader2D):
         )
 
     def emit_cuda(self, cg) -> str:
-        (r00, r01), (r10, r11) = ([cg.lit(v) for v in row] for row in self.t_inv)
+        r00, r01, r10, r11 = cg.p(self, "t_inv")
         return (
             f"float qx = px * {r00} + py * {r01};\n"
             f"float qy = px * {r10} + py * {r11};\n"
@@ -285,6 +291,7 @@ class Annulus2D(Shader2D):
     """2D shell (cpu_evaluators.go:1026, operations2d.go:606)."""
 
     PARAMS = ("r",)
+    CONT_PARAMS = ("r",)
     CHILDREN = ("s",)
 
     def __init__(self, s, r):
@@ -295,7 +302,7 @@ class Annulus2D(Shader2D):
         return torch.abs(self.s.distance(p)) - mx.lit(self.r)
 
     def emit_cuda(self, cg) -> str:
-        return f"return fabsf({cg.call(self.s, 'px', 'py')}) - {cg.lit(self.r)};"
+        return f"return fabsf({cg.call(self.s, 'px', 'py')}) - {cg.p(self, 'r')};"
 
     def bounds(self) -> Box:
         return self.s.bounds().pad(self.r)
@@ -320,6 +327,7 @@ class CircularArray2D(_Circular, Shader2D):
 
 class Scale2D(Shader2D):
     PARAMS = ("factor",)
+    CONT_PARAMS = ("factor",)
     CHILDREN = ("s",)
 
     def __init__(self, s, factor):
@@ -333,8 +341,9 @@ class Scale2D(Shader2D):
         return self.s.distance(p * mx.lit(self._inv())) * mx.lit(self.factor)
 
     def emit_cuda(self, cg) -> str:
-        inv = cg.lit(self._inv())
-        return f"return {cg.call(self.s, f'px * {inv}', f'py * {inv}')} * {cg.lit(self.factor)};"
+        factor = cg.p(self, "factor")
+        inv = cg.expr(self._inv(), f"1.0f / {factor}")
+        return f"return {cg.call(self.s, f'px * {inv}', f'py * {inv}')} * {factor};"
 
     def bounds(self) -> Box:
         return self.s.bounds().scale((self.factor,) * 2)
@@ -381,6 +390,7 @@ class TranslateMulti2D(Shader2D):
 
 class Elongate2D(Shader2D):
     PARAMS = ("h",)
+    CONT_PARAMS = ("h",)
     CHILDREN = ("s",)
 
     def __init__(self, s, h):

@@ -58,6 +58,31 @@ class OpUnion(Shader3D):
                 ordered.extend(nodes)
         return looped, ordered
 
+    def _param_groups(self):
+        """The parametric kernel's grouping: ([members of one loop],
+        [nodes evaluated one by one]). Translate children are grouped by
+        their child's STRUCTURE, whatever its values, and every member
+        keeps its own offset and its own subtree's parameters
+        (gsdf_tpu/core/ops3.py:65-106): an edit of one member must show."""
+        groups: dict = {}
+        ordered = []
+        for s in self.joined:
+            if isinstance(s, Translate):
+                groups.setdefault(s.s.struct_key(), []).append(s)
+            else:
+                ordered.append(s)
+        looped = []
+        for nodes in groups.values():
+            if len(nodes) >= self.SCAN_THRESHOLD:
+                looped.append(nodes)
+            else:
+                ordered.extend(nodes)
+        return looped, ordered
+
+    def param_children(self):
+        looped, ordered = self._param_groups()
+        return tuple(n for nodes in looped for n in nodes) + tuple(ordered)
+
     def distance(self, p):
         looped, ordered = self._groups()
         d = None
@@ -72,7 +97,35 @@ class OpUnion(Shader3D):
             d = ds if d is None else torch.minimum(d, ds)
         return d
 
+    def _emit_parametric(self, cg) -> str:
+        """One loop per structure group over rows of the parameter vector:
+        a member's row is its Translate's slice, the offset and then its
+        subtree's parameters."""
+        looped, ordered = self._param_groups()
+        lines = []
+        terms = []
+        base = 0
+        for gi, nodes in enumerate(looped):
+            stride = cg.slice_size(nodes[0])
+            call = cg.call_at(nodes[0].s, "o + 3", "px - o[0]", "py - o[1]", "pz - o[2]")
+            lines.append(
+                f"float dg{gi} = {cg.lit(mx.LARGENUM)};\n"
+                f"for (int g = 0; g < {len(nodes)}; ++g) {{\n"
+                f"    const float* o = P + {base} + {stride} * g;\n"
+                f"    dg{gi} = fminf(dg{gi}, {call});\n"
+                "}"
+            )
+            terms.append(f"dg{gi}")
+            base += stride * len(nodes)
+        terms += [cg.call(s, "px", "py", "pz") for s in ordered]
+        lines.append(f"float d = {terms[0]};")
+        lines += [f"d = fminf(d, {t});" for t in terms[1:]]
+        lines.append("return d;")
+        return "\n".join(lines)
+
     def emit_cuda(self, cg) -> str:
+        if cg.parametric:
+            return self._emit_parametric(cg)
         looped, ordered = self._groups()
         lines = []
         terms = []
@@ -161,6 +214,7 @@ class _Smooth(Shader3D):
     """Smooth blend of two children with radius k."""
 
     PARAMS = ("k",)
+    CONT_PARAMS = ("k",)
     CHILDREN = ("s1", "s2")
 
     def __init__(self, k, s1, s2):
@@ -186,7 +240,7 @@ class SmoothUnion(_Smooth):
         return mx.mix(b, a, h) - mx.lit(self.k) * h * (1 - h)
 
     def emit_cuda(self, cg) -> str:
-        k = cg.lit(self.k)
+        k = cg.p(self, "k")
         return self._head(cg) + (
             f"float h = gsdf_clamp(0.5f + 0.5f * (b - a) / {k}, 0.0f, 1.0f);\n"
             f"return (b * (1.0f - h) + a * h) - {k} * h * (1.0f - h);"
@@ -205,7 +259,7 @@ class SmoothDifference(_Smooth):
         return mx.mix(a, -b, h) + mx.lit(self.k) * h * (1 - h)
 
     def emit_cuda(self, cg) -> str:
-        k = cg.lit(self.k)
+        k = cg.p(self, "k")
         return self._head(cg) + (
             f"float h = gsdf_clamp(0.5f - 0.5f * (b + a) / {k}, 0.0f, 1.0f);\n"
             f"return (a * (1.0f - h) + (-b) * h) + {k} * h * (1.0f - h);"
@@ -224,7 +278,7 @@ class SmoothIntersect(_Smooth):
         return mx.mix(b, a, h) + mx.lit(self.k) * h * (1 - h)
 
     def emit_cuda(self, cg) -> str:
-        k = cg.lit(self.k)
+        k = cg.p(self, "k")
         return self._head(cg) + (
             f"float h = gsdf_clamp(0.5f - 0.5f * (b - a) / {k}, 0.0f, 1.0f);\n"
             f"return (b * (1.0f - h) + a * h) + {k} * h * (1.0f - h);"
@@ -238,6 +292,7 @@ class Scale(Shader3D):
     """Uniform scale about origin (cpu_evaluators.go:288, operations.go:248)."""
 
     PARAMS = ("factor",)
+    CONT_PARAMS = ("factor",)
     CHILDREN = ("s",)
 
     def __init__(self, s, factor):
@@ -252,9 +307,10 @@ class Scale(Shader3D):
         return self.s.distance(p * mx.lit(self._inv())) * mx.lit(self.factor)
 
     def emit_cuda(self, cg) -> str:
-        inv = cg.lit(self._inv())
+        factor = cg.p(self, "factor")
+        inv = cg.expr(self._inv(), f"1.0f / {factor}")
         call = cg.call(self.s, f"px * {inv}", f"py * {inv}", f"pz * {inv}")
-        return f"return {call} * {cg.lit(self.factor)};"
+        return f"return {call} * {factor};"
 
     def bounds(self) -> Box:
         return self.s.bounds().scale((self.factor,) * 3)
@@ -297,6 +353,8 @@ class Transform(Shader3D):
     """4x4 matrix transform (cpu_evaluators.go:488, operations.go:340)."""
 
     PARAMS = ("t",)
+    #: t_inv is packed but is no PARAM: never hashed, rebuilt from t
+    CONT_PARAMS = ("t", "t_inv")
     CHILDREN = ("s",)
 
     def __init__(self, s, t: np.ndarray):
@@ -322,8 +380,9 @@ class Transform(Shader3D):
 
     def emit_cuda(self, cg) -> str:
         lines = []
+        t_inv = cg.p(self, "t_inv")
         for i, q in enumerate(("qx", "qy", "qz")):
-            r0, r1, r2, t = (cg.lit(v) for v in self.t_inv[i])
+            r0, r1, r2, t = t_inv[4 * i : 4 * i + 4]
             lines.append(f"float {q} = px * {r0} + py * {r1} + pz * {r2} + {t};")
         lines.append(f"return {cg.call(self.s, 'qx', 'qy', 'qz')};")
         return "\n".join(lines)
@@ -336,6 +395,7 @@ class Translate(Shader3D):
     """(cpu_evaluators.go:470, operations.go:403)."""
 
     PARAMS = ("p_",)
+    CONT_PARAMS = ("p_",)
     CHILDREN = ("s",)
 
     def __init__(self, s, v):
@@ -346,7 +406,7 @@ class Translate(Shader3D):
         return self.s.distance(p - mx.const(self.p_, p))
 
     def emit_cuda(self, cg) -> str:
-        x, y, z = (cg.lit(v) for v in self.p_)
+        x, y, z = cg.p(self, "p_")
         return f"return {cg.call(self.s, f'px - {x}', f'py - {y}', f'pz - {z}')};"
 
     def bounds(self) -> Box:
@@ -357,6 +417,7 @@ class Offset(Shader3D):
     """Add sdfAdd to the SDF (cpu_evaluators.go:454, operations.go:446)."""
 
     PARAMS = ("off",)
+    CONT_PARAMS = ("off",)
     CHILDREN = ("s",)
 
     def __init__(self, s, off):
@@ -367,7 +428,7 @@ class Offset(Shader3D):
         return self.s.distance(p) + mx.lit(self.off)
 
     def emit_cuda(self, cg) -> str:
-        return f"return {cg.call(self.s, 'px', 'py', 'pz')} + {cg.lit(self.off)};"
+        return f"return {cg.call(self.s, 'px', 'py', 'pz')} + {cg.p(self, 'off')};"
 
     def bounds(self) -> Box:
         bb = self.s.bounds()
@@ -392,11 +453,11 @@ def _array_distance(s, p, spacing, counts):
     return d
 
 
-def _emit_array(cg, node, spacing, counts) -> str:
-    axes = ("x", "y", "z")[: len(spacing)]
+def _emit_array(cg, node, counts) -> str:
+    axes = ("x", "y", "z")[: len(counts)]
     lines = []
-    for a, sp, n in zip(axes, spacing, counts):
-        lines.append(f"const float s{a} = {cg.lit(sp)}, n{a} = {cg.lit(n - 1)};")
+    for a, sp, n in zip(axes, cg.p(node, "d"), counts):
+        lines.append(f"const float s{a} = {sp}, n{a} = {cg.lit(n - 1)};")
         lines.append(f"const float pid{a} = gsdf_round_half_away(p{a} / s{a});")
         lines.append(f"const float o{a} = gsdf_sign(p{a} - s{a} * pid{a});")
     lines.append(f"float d = {cg.lit(mx.LARGENUM)};")
@@ -420,6 +481,7 @@ class Array(Shader3D):
     min-reduces; the generated C loops over one child function."""
 
     PARAMS = ("d", "nx", "ny", "nz")
+    CONT_PARAMS = ("d",)
     CHILDREN = ("s",)
 
     def __init__(self, s, d, nx, ny, nz):
@@ -434,7 +496,7 @@ class Array(Shader3D):
         return _array_distance(self.s, p, self.d, self._counts())
 
     def emit_cuda(self, cg) -> str:
-        return _emit_array(cg, self, self.d, self._counts())
+        return _emit_array(cg, self, self._counts())
 
     def bounds(self) -> Box:
         bb = self.s.bounds()
@@ -453,8 +515,8 @@ def _elongate_distance(s, p, h):
 def _emit_elongate(cg, node) -> str:
     axes = ("x", "y", "z")[: len(node.h)]
     lines = [
-        f"const float q{a} = fabsf(p{a}) - {cg.lit(v)};"
-        for a, v in zip(axes, node.h * _f32(0.5))
+        f"const float q{a} = fabsf(p{a}) - {cg.expr(v, f'{h} * 0.5f')};"
+        for a, v, h in zip(axes, node.h * _f32(0.5), cg.p(node, "h"))
     ]
     w = f"q{axes[-1]}"
     for a in reversed(axes[:-1]):
@@ -468,6 +530,7 @@ class Elongate(Shader3D):
     """(cpu_evaluators.go:399, operations.go:679)."""
 
     PARAMS = ("h",)
+    CONT_PARAMS = ("h",)
     CHILDREN = ("s",)
 
     def __init__(self, s, h):
@@ -490,6 +553,7 @@ class Shell(Shader3D):
     """Exterior shell (cpu_evaluators.go:428, operations.go:723)."""
 
     PARAMS = ("thick",)
+    CONT_PARAMS = ("thick",)
     CHILDREN = ("s",)
 
     def __init__(self, s, thickness):
@@ -502,7 +566,8 @@ class Shell(Shader3D):
         return t * (torch.abs(d) - t)
 
     def emit_cuda(self, cg) -> str:
-        t, inv = cg.lit(self.thick), cg.lit(_f32(1.0) / self.thick)
+        t = cg.p(self, "thick")
+        inv = cg.expr(_f32(1.0) / self.thick, f"1.0f / {t}")
         call = cg.call(self.s, f"px * {inv}", f"py * {inv}", f"pz * {inv}")
         return f"return {t} * (fabsf({call}) - {t});"
 
@@ -600,6 +665,7 @@ class Twist(Shader3D):
     (cpu_evaluators.go:1257, operations.go:835)."""
 
     PARAMS = ("k",)
+    CONT_PARAMS = ("k",)
     CHILDREN = ("s",)
 
     def __init__(self, s, k):
@@ -615,7 +681,7 @@ class Twist(Shader3D):
     def emit_cuda(self, cg) -> str:
         call = cg.call(self.s, "c * px - s * py", "s * px + c * py", "pz")
         return (
-            f"const float a = {cg.lit(self.k)} * pz;\n"
+            f"const float a = {cg.p(self, 'k')} * pz;\n"
             "const float c = cosf(a), s = sinf(a);\n"
             f"return {call};"
         )

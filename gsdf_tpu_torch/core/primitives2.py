@@ -25,6 +25,7 @@ class Circle(Shader2D):
     """(cpu_evaluators.go:661, primitives2d.go:228)."""
 
     PARAMS = ("r",)
+    CONT_PARAMS = ("r",)
 
     def __init__(self, r):
         self.r = _f32(r)
@@ -33,7 +34,7 @@ class Circle(Shader2D):
         return mx.length(p) - mx.lit(self.r)
 
     def emit_cuda(self, cg) -> str:
-        return f"return sqrtf(px * px + py * py) - {cg.lit(self.r)};"
+        return f"return sqrtf(px * px + py * py) - {cg.p(self, 'r')};"
 
     def bounds(self) -> Box:
         r = self.r
@@ -175,6 +176,7 @@ class EquilateralTriangle(Shader2D):
     """(cpu_evaluators.go:669, primitives2d.go:266)."""
 
     PARAMS = ("h_tri",)
+    CONT_PARAMS = ("h_tri",)
 
     def __init__(self, h_tri):
         self.h_tri = _f32(h_tri)
@@ -197,8 +199,11 @@ class EquilateralTriangle(Shader2D):
         return -mx.hypot(px, py) * mx.sign(py)
 
     def emit_cuda(self, cg) -> str:
-        k, r, rk, m2r = (cg.lit(v) for v in self._consts())
-        nk = cg.lit(-self._consts()[0])
+        kv, rv, rkv, m2rv = self._consts()
+        k, nk = cg.lit(kv), cg.lit(-kv)
+        r = cg.expr(rv, f"{cg.p(self, 'h_tri')} / {k}")
+        rk = cg.expr(rkv, f"{r} / {k}")
+        m2r = cg.expr(m2rv, f"-2.0f * {r}")
         return (
             f"float qx = fabsf(px) - {r};\n"
             f"float qy = py + {rk};\n"
@@ -227,6 +232,7 @@ class Rectangle(Shader2D):
     """(cpu_evaluators.go:685, primitives2d.go:308)."""
 
     PARAMS = ("d",)
+    CONT_PARAMS = ("d",)
 
     def __init__(self, d):
         self.d = np.asarray(d, dtype=_f32)
@@ -238,7 +244,9 @@ class Rectangle(Shader2D):
         )
 
     def emit_cuda(self, cg) -> str:
-        bx, by = (cg.lit(v) for v in self.d * _f32(0.5))
+        bx, by = (
+            cg.expr(v, f"{d} * 0.5f") for v, d in zip(self.d * _f32(0.5), cg.p(self, "d"))
+        )
         return (
             f"float dx = fabsf(px) - {bx}, dy = fabsf(py) - {by};\n"
             "float ox = fmaxf(dx, 0.0f), oy = fmaxf(dy, 0.0f);\n"
@@ -271,6 +279,18 @@ class _Fold(Shader2D):
         py = py - r
         return mx.sign(py) * mx.hypot(px, py)
 
+    def _tail_args(self, cg, name: str):
+        """_emit_tail's (clampv, nclampv, r) for the size parameter `name`:
+        KZ * r and its negation, the literals of the host's float32
+        products in baked mode."""
+        r = cg.p(self, name)
+        kz, rv = self.KZ, getattr(self, name)
+        return (
+            cg.expr(kz * rv, f"{cg.lit(kz)} * {r}"),
+            cg.expr(-kz * rv, f"{cg.lit(-kz)} * {r}"),
+            r,
+        )
+
     @staticmethod
     def _emit_tail(clampv: str, nclampv: str, r: str) -> str:
         return (
@@ -284,6 +304,7 @@ class Hexagon2D(_Fold):
     """(cpu_evaluators.go:718, primitives2d.go:349)."""
 
     PARAMS = ("side",)
+    CONT_PARAMS = ("side",)
     KX, KY, KZ = _f32(-mx.TRIBISECT), _f32(0.5), _f32(0.577350269)
 
     def __init__(self, side):
@@ -299,9 +320,7 @@ class Hexagon2D(_Fold):
         return (
             "float ax = fabsf(px), ay = fabsf(py);\n"
             + self._emit_fold(cg.lit(self.KX), cg.lit(self.KY), 1)
-            + self._emit_tail(
-                cg.lit(self.KZ * self.side), cg.lit(-self.KZ * self.side), cg.lit(self.side)
-            )
+            + self._emit_tail(*self._tail_args(cg, "side"))
         )
 
     def bounds(self) -> Box:
@@ -314,6 +333,7 @@ class Octagon2D(_Fold):
     """(cpu_evaluators.go:731, primitives2d.go:386)."""
 
     PARAMS = ("c",)
+    CONT_PARAMS = ("c",)
     KX, KY, KZ = _f32(-0.9238795325), _f32(0.3826834323), _f32(0.4142135623)
 
     def __init__(self, constrain):
@@ -327,12 +347,11 @@ class Octagon2D(_Fold):
 
     def emit_cuda(self, cg) -> str:
         kx, nkx, ky = cg.lit(self.KX), cg.lit(-self.KX), cg.lit(self.KY)
-        kzr = self.KZ * self.c
         return (
             "float ax = fabsf(px), ay = fabsf(py);\n"
             + self._emit_fold(kx, ky, 1)
             + self._emit_fold(nkx, ky, 2)
-            + self._emit_tail(cg.lit(kzr), cg.lit(-kzr), cg.lit(self.c))
+            + self._emit_tail(*self._tail_args(cg, "c"))
         )
 
     def bounds(self) -> Box:
@@ -346,6 +365,7 @@ class Ellipse2D(Shader2D):
     https://iquilezles.org/articles/ellipsedist)."""
 
     PARAMS = ("a", "b")
+    CONT_PARAMS = ("a", "b")
 
     def __init__(self, a, b):
         self.a = _f32(a)
@@ -410,7 +430,7 @@ class Ellipse2D(Shader2D):
         return mx.hypot(rx - sx, ry - sy) * mx.sign(sy - ry)
 
     def emit_cuda(self, cg) -> str:
-        A, B = cg.lit(self.a), cg.lit(self.b)
+        A, B = cg.p(self, "a"), cg.p(self, "b")
         sqrt3 = cg.lit(mx.SQRT3)
         return (
             "float ax = fabsf(px), ay = fabsf(py);\n"
@@ -532,6 +552,7 @@ class Diamond2D(Shader2D):
     """(cpu_evaluators.go:694, primitives2d.go:561)."""
 
     PARAMS = ("d",)
+    CONT_PARAMS = ("d",)
 
     def __init__(self, d):
         self.d = np.asarray(d, dtype=_f32)
@@ -550,7 +571,14 @@ class Diamond2D(Shader2D):
         return mx.hypot(qx, qy) * mx.sign(ax * b1 + ay * b0 - b01)
 
     def emit_cuda(self, cg) -> str:
-        b0, b1, bb, hb0, hb1, b01 = (cg.lit(v) for v in self._consts())
+        v = self._consts()
+        dx, dy = cg.p(self, "d")
+        b0 = cg.expr(v[0], f"{dx} * 0.5f")
+        b1 = cg.expr(v[1], f"{dy} * 0.5f")
+        bb = cg.expr(v[2], f"{b0} * {b0} + {b1} * {b1}")
+        hb0 = cg.expr(v[3], f"0.5f * {b0}")
+        hb1 = cg.expr(v[4], f"0.5f * {b1}")
+        b01 = cg.expr(v[5], f"{b0} * {b1}")
         return (
             "float ax = fabsf(px), ay = fabsf(py);\n"
             f"float h = gsdf_clamp(((({b0} - 2.0f * ax) * {b0}) - (({b1} - 2.0f * ay) * {b1}))"
@@ -569,6 +597,7 @@ class RoundedX2D(Shader2D):
     """(cpu_evaluators.go:705, primitives2d.go:603)."""
 
     PARAMS = ("dim", "thick")
+    CONT_PARAMS = ("dim", "thick")
 
     def __init__(self, width, thick):
         self.dim = _f32(width)
@@ -583,9 +612,9 @@ class RoundedX2D(Shader2D):
     def emit_cuda(self, cg) -> str:
         return (
             "float ax = fabsf(px), ay = fabsf(py);\n"
-            f"float sub = 0.5f * fminf(ax + ay, {cg.lit(self.dim)});\n"
+            f"float sub = 0.5f * fminf(ax + ay, {cg.p(self, 'dim')});\n"
             "float ex = ax - sub, ey = ay - sub;\n"
-            f"return sqrtf(ex * ex + ey * ey) - {cg.lit(self.thick)};"
+            f"return sqrtf(ex * ex + ey * ey) - {cg.p(self, 'thick')};"
         )
 
     def bounds(self) -> Box:

@@ -24,6 +24,7 @@ class Sphere(Shader3D):
     """Sphere centered at origin (cpu_evaluators.go:20, primitives.go:28)."""
 
     PARAMS = ("r",)
+    CONT_PARAMS = ("r",)
 
     def __init__(self, r: float):
         self.r = _f32(r)
@@ -32,7 +33,7 @@ class Sphere(Shader3D):
         return mx.length(p) - mx.lit(self.r)
 
     def emit_cuda(self, cg) -> str:
-        return f"return sqrtf(px * px + py * py + pz * pz) - {cg.lit(self.r)};"
+        return f"return sqrtf(px * px + py * py + pz * pz) - {cg.p(self, 'r')};"
 
     def bounds(self) -> Box:
         r = self.r
@@ -43,6 +44,7 @@ class BoxShape(Shader3D):
     """Round-edged box (cpu_evaluators.go:28, primitives.go:65)."""
 
     PARAMS = ("dims", "round")
+    CONT_PARAMS = ("dims", "round")
 
     def __init__(self, dims, round: float):
         self.dims = np.asarray(dims, dtype=_f32)
@@ -57,8 +59,10 @@ class BoxShape(Shader3D):
         return outside + inside - mx.lit(self.round)
 
     def emit_cuda(self, cg) -> str:
-        dx, dy, dz = (cg.lit(v) for v in self.dims * 0.5)
-        r = cg.lit(self.round)
+        dx, dy, dz = (
+            cg.expr(v, f"{d} * 0.5f") for v, d in zip(self.dims * 0.5, cg.p(self, "dims"))
+        )
+        r = cg.p(self, "round")
         return (
             f"float qx = fabsf(px) - {dx} + {r};\n"
             f"float qy = fabsf(py) - {dy} + {r};\n"
@@ -77,6 +81,7 @@ class BoxFrame(Shader3D):
     """Framed box of beam half-thickness e (cpu_evaluators.go:38, primitives.go:254)."""
 
     PARAMS = ("dims", "e")
+    CONT_PARAMS = ("dims", "e")
 
     def __init__(self, dims, e: float):
         self.dims = np.asarray(dims, dtype=_f32)
@@ -106,9 +111,11 @@ class BoxFrame(Shader3D):
         return torch.minimum(n1, torch.minimum(n2, n3))
 
     def emit_cuda(self, cg) -> str:
-        e, b = self._args()
-        e = cg.lit(e)
-        bx, by, bz = (cg.lit(v) for v in b)
+        e = cg.p(self, "e")
+        bx, by, bz = (
+            cg.expr(v, f"{d} * 0.5f - 2.0f * {e}")
+            for v, d in zip(self._args()[1], cg.p(self, "dims"))
+        )
         seg = (
             "float s{n} = fminf(0.0f, fmaxf({a}, fmaxf({b}, {c})));\n"
             "float a{n} = fmaxf({a}, 0.0f), b{n} = fmaxf({b}, 0.0f), c{n} = fmaxf({c}, 0.0f);\n"
@@ -133,6 +140,7 @@ class Torus(Shader3D):
     """Torus with axis in z (cpu_evaluators.go:59, primitives.go:216)."""
 
     PARAMS = ("r_lesser", "r_greater")
+    CONT_PARAMS = ("r_lesser", "r_greater")
 
     def __init__(self, r_greater: float, r_lesser: float):
         self.r_greater = _f32(r_greater)
@@ -144,8 +152,8 @@ class Torus(Shader3D):
 
     def emit_cuda(self, cg) -> str:
         return (
-            f"float qx = sqrtf(px * px + py * py) - {cg.lit(self.r_greater)};\n"
-            f"return sqrtf(qx * qx + pz * pz) - {cg.lit(self.r_lesser)};"
+            f"float qx = sqrtf(px * px + py * py) - {cg.p(self, 'r_greater')};\n"
+            f"return sqrtf(qx * qx + pz * pz) - {cg.p(self, 'r_lesser')};"
         )
 
     def bounds(self) -> Box:
@@ -159,6 +167,7 @@ class Cylinder(Shader3D):
     (cpu_evaluators.go:70, primitives.go:107)."""
 
     PARAMS = ("r", "h", "round")
+    CONT_PARAMS = ("r", "h")  # round decides the emitter's branch
 
     def __init__(self, r: float, h: float, round: float):
         self.r = _f32(r)
@@ -186,7 +195,8 @@ class Cylinder(Shader3D):
         )
 
     def emit_cuda(self, cg) -> str:
-        r, h, rnd = (cg.lit(v) for v in self._args())
+        r, rnd = cg.p(self, "r"), cg.p(self, "round")
+        h = cg.expr(self._args()[1], f"({cg.p(self, 'h')} - 2.0f * {rnd}) / 2.0f")
         head = (
             "float d_axis = sqrtf(px * px + py * py);\n"
             f"float dy = fabsf(pz) - {h};\n"
@@ -221,6 +231,7 @@ class HexagonalPrism(Shader3D):
     Height spans [-h, h]."""
 
     PARAMS = ("side", "h")
+    CONT_PARAMS = ("side", "h")
 
     # reference constants; Python floats meet tensors as float32
     K1, K2, K3 = -mx.TRIBISECT, 0.5, 0.57735
@@ -249,7 +260,8 @@ class HexagonalPrism(Shader3D):
     def emit_cuda(self, cg) -> str:
         k1, k2 = cg.lit(self.K1), cg.lit(self.K2)
         k1x2, k2x2 = cg.lit(2 * self.K1), cg.lit(2 * self.K2)
-        h1, h2, clm = cg.lit(self.side), cg.lit(self.h), cg.lit(self._clm())
+        h1, h2 = cg.p(self, "side"), cg.p(self, "h")
+        clm = cg.expr(self._clm(), f"{cg.lit(self.K3)} * {h1}")
         return (
             "float ax = fabsf(px), ay = fabsf(py), az = fabsf(pz);\n"
             f"float pm = fminf({k1} * ax + {k2} * ay, 0.0f);\n"

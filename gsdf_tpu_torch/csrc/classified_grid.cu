@@ -38,11 +38,22 @@
 // res, so a slab's corners equal the whole grid's bit for bit (the rule of
 // gsdf_tpu/render/flat.py:87-92). Built with -fmad=false (see grid_eval.cu).
 //
+// The parametric form, K1p (gsdf_params.cuh): the same two launches
+// around a parametric gsdf_tree(), which reads the tree's continuous
+// parameters from the eval kernel's last argument; the classify pass never
+// sees the tree. Counterpart of the operand-bound executables that the JAX
+// package caches by structure (gsdf_tpu/eval/parametric.py:147-175 behind
+// ops/compact_field.py and ops/fused_welded.py). The operations and their
+// order are the baked form's, so its distances equal the baked form's bit
+// for bit.
+//
 // gsdf_tree.cuh is generated per tree by gsdf_tpu_torch/codegen/cuda.py.
 #include <cstdint>
+#include <cstring>
 #include <cuda_runtime.h>
 
 #include "gsdf_tree.cuh"
+#include "gsdf_params.cuh"
 
 namespace {
 
@@ -51,14 +62,14 @@ constexpr int kCubes = 4;  // cube cases per classify thread: one 4-byte store
 
 __global__ void __launch_bounds__(kThreads)
 eval_kernel(float* __restrict__ dist, float ox, float oy, float oz, float res,
-            int k0, int nj, int ni) {
+            int k0, int nj, int ni GSDF_PARAMS_DECL) {
     const unsigned plane = (unsigned)nj * (unsigned)ni;
     const unsigned c = blockIdx.x * kThreads + threadIdx.x;
     if (c >= plane) return;
     const int j = (int)(c / (unsigned)ni);
     const int i = (int)(c - (unsigned)j * (unsigned)ni);
     const int k = (int)blockIdx.y;
-    dist[(int64_t)k * plane + c] = gsdf_tree(ox + (float)i * res, oy + (float)j * res,
+    dist[(int64_t)k * plane + c] = GSDF_TREE(ox + (float)i * res, oy + (float)j * res,
                                              oz + (float)(k0 + k) * res);
 }
 
@@ -134,9 +145,28 @@ classify_kernel(const float* __restrict__ dist, uint8_t* __restrict__ cases,
 
 // Launches (a) then (b) on `stream`; returns cudaGetLastError() (0 =
 // launched). `cases` must be 4-byte aligned (a fresh torch allocation).
+// The parametric entry point also takes the parameter vector and its
+// length, which must be the structure's: `params` is a host pointer where
+// the vector goes by value (copied here, so the caller may free it when
+// the call returns), else a device pointer that stays valid on `stream`.
+#ifdef GSDF_PARAMETRIC
+extern "C" int gsdf_classified_grid_param(float* dist, uint8_t* cases, float ox,
+                                          float oy, float oz, float res, float thr,
+                                          int k0, int nk, int nj, int ni,
+                                          const float* params, int n_params,
+                                          void* stream) {
+    if (params == nullptr || n_params != GSDF_NPARAMS) return (int)cudaErrorInvalidValue;
+#if GSDF_PARAMS_BY_VALUE
+    GsdfParams gsdf_params;
+    memcpy(gsdf_params.v, params, sizeof gsdf_params.v);
+#else
+    const float* gsdf_params = params;
+#endif
+#else
 extern "C" int gsdf_classified_grid(float* dist, uint8_t* cases, float ox,
                                     float oy, float oz, float res, float thr,
                                     int k0, int nk, int nj, int ni, void* stream) {
+#endif
     if (nk < 2 || nj < 2 || ni < 2) return (int)cudaErrorInvalidValue;
     const int64_t plane = (int64_t)nj * ni;
     const int64_t n_cubes = (int64_t)(nk - 1) * (nj - 1) * (ni - 1);
@@ -146,7 +176,8 @@ extern "C" int gsdf_classified_grid(float* dist, uint8_t* cases, float ox,
     if (nk > 65535) return (int)cudaErrorInvalidConfiguration;
     const cudaStream_t s = (cudaStream_t)stream;
     const dim3 eval_grid((unsigned)((plane + kThreads - 1) / kThreads), (unsigned)nk);
-    eval_kernel<<<eval_grid, kThreads, 0, s>>>(dist, ox, oy, oz, res, k0, nj, ni);
+    eval_kernel<<<eval_grid, kThreads, 0, s>>>(dist, ox, oy, oz, res, k0, nj,
+                                               ni GSDF_PARAMS_ARG);
     int rc = (int)cudaGetLastError();
     if (rc != 0) return rc;
     const int64_t per_block = (int64_t)kThreads * kCubes;

@@ -15,6 +15,17 @@ build/gsdf_tpu_torch/. `build` also serves the two per-tree kernels of
 eval/point_kernels.py (KP, K2-2D), each a library of its own. On a CPU tensor device each wrapper runs its plain
 torch version; on a CUDA device it launches the kernel or raises.
 
+K1 and KP also have a parametric form (`parametric=True`): the same
+templates around the tree's parametric source (codegen/cuda.py), one
+library per tree STRUCTURE, cached by `structural_hash`. The tree's
+continuous parameters (eval/parametric.py::kernel_params) go with every
+launch: by value, as a kernel parameter that the card reads from its
+constant bank (no upload, no synchronising call), up to
+codegen.cuda.PARAMS_BY_VALUE_MAX floats; a longer vector is uploaded and
+read through a pointer. Which of the two a library takes is fixed by the
+vector's length when it is built. A parametric call never builds or
+launches a baked library.
+
 Grid layout is [k, j, i], x contiguous; the corner at integer index
 (i, j, k) sits at origin + index * res in float32, from the global index.
 """
@@ -28,6 +39,7 @@ import torch
 
 from .. import _build
 from ..codegen.cuda import tree_source
+from .parametric import kernel_params, structural_hash
 from ..kernels import (
     CSRC,
     LAUNCHES,
@@ -43,6 +55,11 @@ from ..ops import mc_emit
 _f32 = np.float32
 
 TEMPLATES = ("grid_eval.cu", "classified_grid.cu")
+#: the parametric K1 is a library of its own (K2 has no parametric form:
+#: no caller of it takes `parametric` in the JAX package)
+PARAM_TEMPLATES = ("classified_grid.cu",)
+#: included by the templates that have a parametric form
+PARAMS_HEADER = "gsdf_params.cuh"
 
 _V, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: each per-tree template's C entry points (the last argument is the stream)
@@ -52,47 +69,71 @@ _SIGNATURES = {
     "point_eval.cu": {"gsdf_point_eval": (_I, [_V, ctypes.c_int64, _V, _V])},
     "grid_eval_2d.cu": {"gsdf_grid_eval_2d": (_I, [_V] + [_F] * 4 + [_I] * 2 + [_V])},
 }
+#: the parametric forms' entry points: the parameter vector (a host
+#: pointer where the library takes it by value, else a device pointer)
+#: goes before the stream; gsdf_params_by_value says which
+_PARAM_SIGNATURES = {
+    "classified_grid.cu": {
+        "gsdf_classified_grid_param": (_I, [_V] * 2 + [_F] * 5 + [_I] * 4 + [_V, _I, _V])
+    },
+    "point_eval.cu": {"gsdf_point_eval_param": (_I, [_V, ctypes.c_int64, _V, _V, _I, _V])},
+}
+_PARAM_INFO = {"gsdf_params_by_value": (_I, [])}
 
-_libs: dict = {}  # (tree hash, templates) -> loaded kernel library
+#: how a parametric library built from now on takes its vector: None by
+#: the vector's length (codegen.cuda.PARAMS_BY_VALUE_MAX), True by value,
+#: False through a pointer. Only tests and measurements set it.
+PARAMS_BY_VALUE = None
+
+#: (tree hash, templates) -> baked kernel library;
+#: (structural hash, templates, "param", PARAMS_BY_VALUE) -> parametric one
+_libs: dict = {}
 
 
-def _sources(tree, templates):
+def _sources(tree, templates, parametric=False):
     """(generated header, template paths, cache key) of one build: the
     tree's source (which states its NDIM) and the named templates."""
-    src = tree_source(tree)
+    src = tree_source(tree, parametric, PARAMS_BY_VALUE)
     paths = [os.path.join(CSRC, t) for t in templates]
     texts = []
-    for p in paths:
+    for p in paths + [os.path.join(CSRC, PARAMS_HEADER)]:
         with open(p) as f:
             texts.append(f.read())
     return src, paths, _build.source_key(src, *templates, *texts, *NVCC_FLAGS)
 
 
-def build(tree, templates=TEMPLATES) -> ctypes.CDLL:
+def build(tree, templates=TEMPLATES, parametric=False) -> ctypes.CDLL:
     """The library of `templates` around the tree's generated source (K1 +
     K2 unless named otherwise), built by nvcc at first use. Each set of
     templates is a library of its own, so a render never pays for the
-    point kernel's compile, nor a 2D tree for a 3D template."""
-    key = (tree.tree_hash(), templates)
+    point kernel's compile, nor a 2D tree for a 3D template. With
+    parametric=True the source is the parametric one and the library
+    serves every tree of this structure."""
+    if parametric:
+        key = (structural_hash(tree), templates, "param", PARAMS_BY_VALUE)
+    else:
+        key = (tree.tree_hash(), templates)
     lib = _libs.get(key)
     if lib is not None:
         return lib
-    src, paths, source_key = _sources(tree, templates)
+    src, paths, source_key = _sources(tree, templates, parametric)
 
     def command(out, d):
         _build.write_atomic(os.path.join(d, "gsdf_tree.cuh"), src)
-        return [nvcc(), *NVCC_FLAGS, "-I", d, "-o", out, *paths]
+        return [nvcc(), *NVCC_FLAGS, "-I", d, "-I", CSRC, "-o", out, *paths]
 
     so = _build.build_shared("gsdf_tree", source_key, command)
-    lib = _build.load(so, {fn: sig for t in templates for fn, sig in _SIGNATURES[t].items()})
+    table = _PARAM_SIGNATURES if parametric else _SIGNATURES
+    signatures = {fn: sig for t in templates for fn, sig in table[t].items()}
+    lib = _build.load(so, {**signatures, **(_PARAM_INFO if parametric else {})})
     _libs[key] = lib
     return lib
 
 
-def build_log(tree, templates=TEMPLATES) -> str:
+def build_log(tree, templates=TEMPLATES, parametric=False) -> str:
     """nvcc's output (the ptxas register/spill report) for the tree."""
-    build(tree, templates)
-    key = _sources(tree, templates)[2]
+    build(tree, templates, parametric)
+    key = _sources(tree, templates, parametric)[2]
     with open(os.path.join(_build.BUILD_DIR, f"gsdf_tree-{key}", "build.log")) as f:
         return f.read()
 
@@ -134,6 +175,20 @@ def classified_grid_plain(tree, origin, res, shape, device, k0: int = 0):
 
 
 # --- kernel wrappers -------------------------------------------------------
+def param_args(tree, lib, device):
+    """A parametric launch's parameter arguments, (pointer, length,
+    keep-alive): the tree's current vector in the kernels' layout, as the
+    host array itself where the library takes it by value (the launch
+    copies it into the kernel's parameter space), else uploaded from
+    pinned memory with a copy that does not synchronise. The kernel checks
+    the length against the structure's."""
+    p = kernel_params(tree)
+    if lib.gsdf_params_by_value():
+        return p.ctypes.data, len(p), p
+    t = torch.from_numpy(p).pin_memory().to(device, non_blocking=True)
+    return t.data_ptr(), len(p), t
+
+
 def evaluate_grid(tree, origin, res, shape, device, k0: int = 0):
     """Distances (nk, nj, ni) f32 at every grid corner (K2)."""
     nk, nj, ni = _shape(shape)
@@ -148,22 +203,28 @@ def evaluate_grid(tree, origin, res, shape, device, k0: int = 0):
     return out
 
 
-def classified_grid(tree, origin, res, shape, device, k0: int = 0):
+def classified_grid(tree, origin, res, shape, device, k0: int = 0, parametric: bool = False):
     """Eval + classify (K1): (dist (nk,nj,ni) f32, cases
     (nk-1,nj-1,ni-1) u8), the case 0 where the cube is inactive. k0 is the
-    slab's first plane in the whole grid."""
+    slab's first plane in the whole grid. parametric=True runs the
+    parametric form (K1p): the library of the tree's structure, with the
+    tree's current continuous parameters as a launch argument."""
     nk, nj, ni = _shape(shape)
     if min(nk, nj, ni) < 2:
         raise ValueError(f"a classified grid needs >= 2 corners per axis, got {shape}")
     if torch.device(device).type == "cpu":
         return classified_grid_plain(tree, origin, res, shape, device, k0)
     device = cuda_device(device)
-    lib = build(tree)
+    lib = build(tree, PARAM_TEMPLATES, True) if parametric else build(tree)
     dist = torch.empty((nk, nj, ni), dtype=torch.float32, device=device)
     cases = torch.empty((nk - 1, nj - 1, ni - 1), dtype=torch.uint8, device=device)
     check_out(dist, (nk, nj, ni), torch.float32, device)
     check_out(cases, (nk - 1, nj - 1, ni - 1), torch.uint8, device)
-    launch("classified_grid", device, lib.gsdf_classified_grid, dist.data_ptr(),
-           cases.data_ptr(), *float_args(origin, res, mc_emit.quick_reject_threshold(res)),
-           int(k0), nk, nj, ni)
+    args = (dist.data_ptr(), cases.data_ptr(),
+            *float_args(origin, res, mc_emit.quick_reject_threshold(res)), int(k0), nk, nj, ni)
+    if parametric:
+        ptr, n, _keep = param_args(tree, lib, device)
+        launch("classified_grid_param", device, lib.gsdf_classified_grid_param, *args, ptr, n)
+    else:
+        launch("classified_grid", device, lib.gsdf_classified_grid, *args)
     return dist, cases

@@ -14,6 +14,12 @@ csrc/grid_eval_2d.cu) around the tree's generated `gsdf_tree`, each
 built into a library of its own at its wrapper's first CUDA call
 (grid_kernels.build). On the CPU a wrapper runs its plain torch version;
 on a CUDA device it launches its kernel or raises.
+
+KP has a parametric form, KPp (`evaluate_points(..., parametric=True)`):
+the same template around the tree's parametric source, one library per
+tree structure, the tree's continuous parameters a launch argument
+(grid_kernels.param_args). Counterpart of the jit behind the JAX
+package's ParametricSDF3/2 (gsdf_tpu/eval/parametric.py:147-175).
 """
 from __future__ import annotations
 
@@ -22,7 +28,7 @@ import torch
 
 from ..core.node import Shader2D
 from ..kernels import check_out, entry_device, launch
-from .grid_kernels import build
+from .grid_kernels import build, param_args
 
 _f32 = np.float32
 
@@ -67,9 +73,10 @@ def distance_field_plain(tree, width: int, height: int, device) -> torch.Tensor:
 
 
 # --- kernel wrappers -------------------------------------------------------
-def evaluate_points(tree, pos: torch.Tensor, device) -> torch.Tensor:
+def evaluate_points(tree, pos: torch.Tensor, device, parametric: bool = False) -> torch.Tensor:
     """Distances (N,) f32 of `tree` at pos (N, tree.NDIM) f32, contiguous
-    and on `device` (KP). An empty batch launches nothing."""
+    and on `device` (KP; KPp with parametric=True, through the library of
+    the tree's structure). An empty batch launches nothing."""
     device = entry_device(device)
     if pos.ndim != 2:
         raise ValueError(f"expected (N,{tree.NDIM}) positions, got {tuple(pos.shape)}")
@@ -78,7 +85,12 @@ def evaluate_points(tree, pos: torch.Tensor, device) -> torch.Tensor:
     if device.type == "cpu":
         return point_eval_plain(tree, pos)
     out = torch.empty((n,), dtype=torch.float32, device=device)
-    if n:
+    if n and parametric:
+        lib = build(tree, POINT_TEMPLATES, True)
+        ptr, n_params, _keep = param_args(tree, lib, device)
+        launch("point_eval_param", device, lib.gsdf_point_eval_param, pos.data_ptr(), n,
+               out.data_ptr(), ptr, n_params)
+    elif n:
         lib = build(tree, POINT_TEMPLATES)
         launch("point_eval", device, lib.gsdf_point_eval, pos.data_ptr(), n, out.data_ptr())
     return out

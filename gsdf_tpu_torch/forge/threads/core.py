@@ -61,6 +61,7 @@ class ScrewNode(Shader3D):
     """3D helical sweep of a 2D thread profile (threads.go:62-196)."""
 
     PARAMS = ("pitch", "lead", "length_div2", "taper")
+    CONT_PARAMS = ("pitch", "lead", "length_div2")  # the taper's tangent is the host's
     CHILDREN = ("thread",)
 
     def __init__(self, thread: Shader2D, pitch, lead, length_div2, taper):
@@ -95,17 +96,23 @@ class ScrewNode(Shader3D):
         return torch.maximum(d2, d3)
 
     def emit_cuda(self, cg) -> str:
-        c = {k: cg.lit(v) for k, v in self._consts().items()}
-        pitch = cg.lit(self.pitch)
+        v = self._consts()
+        pitch = cg.p(self, "pitch")
+        c = {
+            "tan_taper": cg.lit(v["tan_taper"]),
+            "two_pi": cg.lit(v["two_pi"]),
+            "half_pitch": cg.expr(v["half_pitch"], f"{pitch} / 2.0f"),
+            "half_pitch_mul": cg.expr(v["half_pitch_mul"], f"0.5f * {pitch}"),
+        }
         return (
             f"float y = sqrtf(px * px + py * py) + pz * {c['tan_taper']};\n"
             "float theta = atan2f(py, px);\n"
-            f"float z = pz + {cg.lit(self.lead)} * theta / {c['two_pi']};\n"
+            f"float z = pz + {cg.p(self, 'lead')} * theta / {c['two_pi']};\n"
             f"float zz = z + {c['half_pitch']};\n"
             f"float t = zz / {pitch};\n"
             f"float x = {pitch} * (t - floorf(t)) - {c['half_pitch_mul']};\n"
             f"return fmaxf({cg.call(self.thread, 'x', 'y')}, "
-            f"fabsf(pz) - {cg.lit(self.length_div2)});"
+            f"fabsf(pz) - {cg.p(self, 'length_div2')});"
         )
 
     def bounds(self) -> Box:

@@ -7,6 +7,10 @@ Kernels (all hand-written CUDA C++ in gsdf_tpu_torch/csrc/, nvcc sm_90a):
 - K1 `classified_grid`, K2 `grid_eval`: per tree (eval/grid_kernels.py);
 - KP `point_eval`, K2-2D `grid_eval_2d`: per tree, distances at given
   points and on a 2D tree's pixel grid (eval/point_kernels.py);
+- K1p `classified_grid_param`, KPp `point_eval_param`: the parametric
+  forms of K1 and KP, per tree STRUCTURE: the tree's continuous
+  parameters are a kernel argument (eval/parametric.py), the templates
+  are K1's and KP's;
 - K3 `compact_active`: order-preserving compaction of the active cubes,
   with the crossing-edge and triangle counts and block offsets that K4,
   K7s and K7w need (ops/mc_emit.py::compact_active);
@@ -40,6 +44,8 @@ LAUNCHES = {
     "grid_eval": 0,
     "point_eval": 0,
     "grid_eval_2d": 0,
+    "classified_grid_param": 0,
+    "point_eval_param": 0,
     "compact_active": 0,
     "compact_emit": 0,
     "emit_soup": 0,

@@ -82,22 +82,25 @@ def compact_emit(grid, cases, ids, n_t=None, offsets=None):
     return idx8, tvals
 
 
-def compact_field_render(tree, origin, res, shape, device, k0: int = 0):
+def compact_field_render(tree, origin, res, shape, device, k0: int = 0,
+                         parametric: bool = False):
     """Classify on the device (K1), compact (K3), emit (K4), fetch.
     Returns (ids (A,) u32, cases (A,) u8, tvals (V,) f32) as numpy arrays
     for native.mc_decode. k0 offsets the grid's z index (slab dispatch):
-    the ids are local to the slab."""
+    the ids are local to the slab. parametric=True classifies through the
+    library of the tree's structure (K1p): an edited tree needs no build."""
     nk, nj, ni = (int(x) for x in shape)
     if (nk - 1) * (nj - 1) * (ni - 1) >= MAX_CUBES:
         raise ValueError("grid too large for int32 cube ids")
-    dist, cases = classified_grid(tree, origin, res, (nk, nj, ni), device, k0)
+    dist, cases = classified_grid(tree, origin, res, (nk, nj, ni), device, k0, parametric)
     comp = compact_active(cases)  # the one count read before the fetch
     ids = comp.ids
     idx8, tvals = compact_emit(dist, cases, ids, comp.n_t, comp.offsets)
     return ids.cpu().numpy().view(np.uint32), idx8.cpu().numpy(), tvals.cpu().numpy()
 
 
-def compact_field_render_slabbed(tree, origin, res, shape, device, max_points):
+def compact_field_render_slabbed(tree, origin, res, shape, device, max_points,
+                                 parametric: bool = False):
     """Compact-field render past the single-dispatch memory gate: one
     dispatch per z-slab of at most `max_points` corners (k0 offsets, one
     plane shared with the next slab); the slab payloads concatenate into
@@ -119,7 +122,9 @@ def compact_field_render_slabbed(tree, origin, res, shape, device, max_points):
             continue  # more slabs than cube layers (tiny test gates)
         slab_shape = (k1 - k0 + 1, nj, ni)
         n_points += slab_shape[0] * plane
-        ids, cases, tvals = compact_field_render(tree, origin, res, slab_shape, device, k0)
+        ids, cases, tvals = compact_field_render(
+            tree, origin, res, slab_shape, device, k0, parametric
+        )
         ids_parts.append(ids + np.uint32(k0 * nx * ny))
         case_parts.append(cases)
         t_parts.append(tvals)

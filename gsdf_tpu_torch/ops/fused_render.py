@@ -14,10 +14,11 @@ from ..eval.grid_kernels import classified_grid
 from .mc_emit import dense_grid_mc
 
 
-def fused_render(tree, origin, res, shape, device, k0: int = 0):
+def fused_render(tree, origin, res, shape, device, k0: int = 0, parametric: bool = False):
     """Render one grid (or z-slab) of `shape` corner planes. k0 is the
     slab's first plane in the whole grid: positions and the soup's z
     coordinates then equal a whole-grid render bit for bit. Returns tris
-    np (T,3,3) float32."""
-    dist, cases = classified_grid(tree, origin, res, shape, device, k0)
+    np (T,3,3) float32. parametric=True classifies with K1p (the indexed
+    render's soup routes; the public render() has no such argument)."""
+    dist, cases = classified_grid(tree, origin, res, shape, device, k0, parametric)
     return dense_grid_mc(dist, cases, origin, res, k0).cpu().numpy()

@@ -153,12 +153,13 @@ def emit_welded(grid, cases, ids, origin, res, k0=0, comp=None):
     return split_welded(*welded_buffer(grid, cases, ids, origin, res, k0, comp))
 
 
-def welded_render(tree, origin, res, shape, device):
+def welded_render(tree, origin, res, shape, device, parametric: bool = False):
     """Indexed-mesh render: K1, K3 (the one count read), K7w, one fetch.
     Returns (verts (V,3) f32, tri_idx (T,3) i32, unresolved corners) as
     numpy arrays and an int; the mesh is valid only where unresolved is
-    0."""
-    dist, cases = classified_grid(tree, origin, res, shape, device)
+    0. parametric=True classifies through the library of the tree's
+    structure (K1p)."""
+    dist, cases = classified_grid(tree, origin, res, shape, device, 0, parametric)
     comp = compact_active(cases, edge_ranks=True)
     if comp.n_t > MAX_WELDED_VERTS:
         raise ValueError(

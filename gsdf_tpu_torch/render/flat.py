@@ -20,6 +20,14 @@ bounds scaled 1.01 centered, n = ceil(size/res) per axis in float32. The
 memory gates keep the JAX package's values (sized for a 16 GB TPU v5e).
 The JAX package's `eval_backend` argument is left out: the staged path
 always evaluates with K2.
+
+`render_indexed(parametric=True)` and `render_compact(parametric=True)`
+run K1's parametric form on every route: the library is built once per
+tree STRUCTURE and reads the tree's continuous parameters from a launch
+argument, so `tree.rebind({...})` and a second render need no build
+(eval/parametric.py). Such a render never builds or launches a baked
+library. The region and the resolution stay pinned at construction: pin
+generous bounds (`core.wrappers.with_bounds`) before editing.
 """
 from __future__ import annotations
 
@@ -130,42 +138,56 @@ class FlatRenderer:
         bounds_k = [self.nz * s // n_slabs for s in range(n_slabs + 1)]
         return [(k0, (k1 - k0 + 1, nj, ni)) for k0, k1 in zip(bounds_k[:-1], bounds_k[1:])]
 
-    def _render_fused_slabbed(self) -> np.ndarray:
+    def _render_fused_slabbed(self, parametric: bool = False) -> np.ndarray:
         """The one-pass soup, in z-slabs of cube layers past slab_cubes;
         concatenated in z order they are the whole grid's soup."""
         nk, nj, ni = self.shape()
         self._evaluations += nk * nj * ni
         parts = [
-            fused_render(self.s, self.origin, self.res, shape, self.device, k0)
+            fused_render(self.s, self.origin, self.res, shape, self.device, k0, parametric)
             for k0, shape in self.soup_slabs()
         ]
         return parts[0] if len(parts) == 1 else np.concatenate(parts, axis=0)
 
-    def render_indexed(self):
+    def _soup(self, parametric: bool) -> np.ndarray:
+        """The soup that render_indexed welds on the host. A parametric
+        render takes the one-pass path with K1p whatever the grid's size
+        (its slabs bound the memory; the staged path's K2 has no
+        parametric form), so it never builds a baked library."""
+        return self._render_fused_slabbed(True) if parametric else self.render()
+
+    def render_indexed(self, parametric: bool = False):
         """Render to an indexed mesh (verts (V,3) f32, tri_idx (T,3) i32)
         through the welded emit. Triangle count matches render(); vertex
         coordinates may differ in the last ulp.
 
+        parametric=True builds per tree STRUCTURE: `rebind` the tree's
+        continuous parameters (or bind a structurally identical tree via
+        self.s) and render again without a build. The region and the
+        resolution stay this renderer's.
+
         Past slab_cubes, or where a triangle edge's owner cube is outside
         the grid or inactive (a surface crossing the grid's far faces), it
-        welds render()'s soup instead (weld with tol=0): the JAX package
-        takes the first route too but returns wrong indices on the second."""
+        welds the soup instead (weld with tol=0): the JAX package takes
+        the first route too but returns wrong indices on the second."""
         nk, nj, ni = self.shape()
         if nk * nj * ni > self.slab_cubes:
-            return weld(self.render(), tol=0.0)
+            return weld(self._soup(parametric), tol=0.0)
         self._evaluations += nk * nj * ni
         verts, tri_idx, unresolved = welded_render(
-            self.s, self.origin, self.res, (nk, nj, ni), self.device
+            self.s, self.origin, self.res, (nk, nj, ni), self.device, parametric
         )
         if unresolved:
-            return weld(self.render(), tol=0.0)
+            return weld(self._soup(parametric), tol=0.0)
         return verts, tri_idx
 
-    def render_compact(self):
+    def render_compact(self, parametric: bool = False):
         """Indexed mesh (verts (V,3) f32, tri_idx (T,3) i32) through the
         compact-field path: K1, K3 and K4 on the device, one fetch of
         ids, case bytes and t, the native host decode. Same counts and
         connectivity as render_indexed(); vertices equal to the last ulp.
+
+        parametric=True as in render_indexed, on every route below.
 
         Past compact_cubes corners the same kernels run per z-slab and
         the payloads concatenate; past the int32 id space, or where the
@@ -173,21 +195,22 @@ class FlatRenderer:
         render_indexed()."""
         nk, nj, ni = self.shape()
         if self.nx * self.ny * self.nz >= MAX_CUBES:
-            return self.render_indexed()
+            return self.render_indexed(parametric)
         if nk * nj * ni > self.compact_cubes:
             ids, cases, tvals, n_pts = compact_field_render_slabbed(
-                self.s, self.origin, self.res, (nk, nj, ni), self.device, self.compact_cubes
+                self.s, self.origin, self.res, (nk, nj, ni), self.device, self.compact_cubes,
+                parametric,
             )
             self._evaluations += n_pts
         else:
             self._evaluations += nk * nj * ni
             ids, cases, tvals = compact_field_render(
-                self.s, self.origin, self.res, (nk, nj, ni), self.device
+                self.s, self.origin, self.res, (nk, nj, ni), self.device, 0, parametric
             )
         try:
             return mc_decode(ids, cases, tvals, self.nx, self.ny, self.nz, self.origin, self.res)
         except ValueError:
-            return self.render_indexed()
+            return self.render_indexed(parametric)
 
 
 def render_flat(s: Shader3D, cube_resolution: float, device=None) -> np.ndarray:

@@ -11,6 +11,11 @@ stage over the runs after the first two, and the device time that
 torch.profiler sums over one more render, with the idle share 1 - device
 time / wall time. Triangle counts must equal the golden counts.
 
+    python -m gsdf_tpu_torch.stages --parametric
+
+runs the compact and indexed rows through K1's parametric form (the
+kernel library of the part's structure, eval/parametric.py).
+
     python -m gsdf_tpu_torch.stages --wrappers
 
 instead splits one call of each marching-cubes wrapper (K3, K3 with the
@@ -71,8 +76,8 @@ def _encode(c, verts=None, tri=None, soup=None):
     c.lap("STL encode")
 
 
-def compact(fr, c):
-    dist, cases = classified_grid(fr.s, fr.origin, fr.res, fr.shape(), fr.device)
+def compact(fr, c, parametric=False):
+    dist, cases = classified_grid(fr.s, fr.origin, fr.res, fr.shape(), fr.device, 0, parametric)
     c.lap("K1")
     comp = mc_emit.compact_active(cases)
     ids = comp.ids
@@ -106,13 +111,13 @@ def _soup(fr, c):
     return soup
 
 
-def soup(fr, c):
+def soup(fr, c, parametric=False):
     tris = _soup(fr, c)
     _encode(c, soup=tris)
     return len(tris), tris.nbytes
 
 
-def indexed(fr, c):
+def indexed(fr, c, parametric=False):
     nk, nj, ni = fr.shape()
     if nk * nj * ni > fr.slab_cubes:  # FlatRenderer.render_indexed's gate
         tris = _soup(fr, c)
@@ -120,7 +125,8 @@ def indexed(fr, c):
         c.lap("host weld")
         nbytes = tris.nbytes
     else:
-        dist, cases = classified_grid(fr.s, fr.origin, fr.res, fr.shape(), fr.device)
+        dist, cases = classified_grid(fr.s, fr.origin, fr.res, fr.shape(), fr.device, 0,
+                                      parametric)
         c.lap("K1")
         comp = mc_emit.compact_active(cases, edge_ranks=True)
         c.lap("K3")
@@ -209,6 +215,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--runs", type=int, default=7, help="renders per row; the first two warm up")
     ap.add_argument("--out", help="also write the rows to this JSON file")
+    ap.add_argument("--parametric", action="store_true",
+                    help="the compact and indexed rows through K1's parametric form")
     ap.add_argument("--wrappers", action="store_true",
                     help="split each marching-cubes wrapper's call into host and device time")
     args = ap.parse_args(argv)
@@ -230,13 +238,15 @@ def main(argv=None):
     rows = [("compact", compact, part) for part in PARTS]
     rows += [(p, f, part) for p, f in (("soup", soup), ("indexed", indexed))
              for part in list(PARTS)[:3]]
+    if args.parametric:  # K1p's rows: the soup, and flange 800's weld of it, have none
+        rows = [r for r in rows if r[0] != "soup" and not (r[0] == "indexed" and r[2][1] == 800)]
     out = {"card": card}
     for path, fn, (name, resdiv) in rows:
         tree = trees[name]
 
         def render(c):
             fr = FlatRenderer(tree, tree.bounds().diagonal() / resdiv, dev)
-            return fn(fr, c)
+            return fn(fr, c, args.parametric)
 
         runs = []
         for _ in range(args.runs):

@@ -12,7 +12,11 @@ Also K1 on ragged shapes and a slab at k0 = 83, K3 at tile edges, past
 grids (ragged shapes, a block count that is no multiple of 256, k0 = 83,
 cube 0 active, far faces crossed), on a grid whose every cube emits five
 triangles (the shared-memory stage at its limit) and back to back, and
-every path's one count read before its fetch.
+every path's one count read before its fetch. Last, the parametric forms
+K1p and KPp: against plain and against the baked kernels (bit for bit), the
+same library with another tree's values, by value and through a pointer,
+the edit loop with no compiler run and no library loaded, and a failed
+build raising instead of falling back.
 
 Tolerances: case grids, ids, counts, K3's block offsets and edge ranks and tri_idx exact; t, soup and welded
 vertices bit-identical (the kernels are built -fmad=false and fed the
@@ -23,7 +27,7 @@ import numpy as np
 import pytest
 import torch
 
-from gsdf_tpu_torch import Builder, flagships, kernels, with_bounds
+from gsdf_tpu_torch import Builder, _build, flagships, kernels, with_bounds
 from gsdf_tpu_torch.eval import grid_kernels as gk
 from gsdf_tpu_torch.eval import point_kernels as pk
 from gsdf_tpu_torch.forge import threads
@@ -640,3 +644,144 @@ def test_png_path_on_card(cuda_device, tmp_path):
     np.testing.assert_array_equal(img, render.bw_conversion(plain))
     with Image.open(path) as f:
         np.testing.assert_array_equal(np.asarray(f), img)
+
+
+# --- the parametric forms K1p and KPp ------------------------------------
+def _perturbed(tree):
+    import chip_smoke
+
+    return chip_smoke.perturbed(tree)
+
+
+@pytest.mark.parametrize("name", list(TREES))
+def test_parametric_kernels_match_plain_and_baked(name, cuda_device):
+    """K1p and KPp against their plain versions (cases exact, distances
+    within 1e-5 * max(1, |d|)) and against the baked K1 and KP bit for bit
+    (the same float32 operations in the same order); then the same two
+    libraries with a structurally equal tree's values."""
+    tree = TREES[name]()
+    fr = FlatRenderer(tree, tree.bounds().diagonal() / 90, cuda_device)
+    grid = (fr.origin, fr.res, fr.shape(), cuda_device)
+    before = dict(kernels.LAUNCHES)
+    dist, cases = gk.classified_grid(tree, *grid, parametric=True)
+    assert kernels.LAUNCHES["classified_grid_param"] == before["classified_grid_param"] + 1
+    assert kernels.LAUNCHES["classified_grid"] == before["classified_grid"]
+    baked_dist, baked_cases = gk.classified_grid(tree, *grid)
+    ref_dist, ref_cases = gk.classified_grid_plain(tree, *grid)
+    tol = 1e-5 * ref_dist.abs().clamp(min=1.0)
+    assert bool(((dist - ref_dist).abs() <= tol).all())
+    assert torch.equal(cases, ref_cases)
+    assert torch.equal(dist, baked_dist) and torch.equal(cases, baked_cases)
+    pos = gk.grid_positions(*grid).reshape(-1, 3).contiguous()
+    at_corners = pk.evaluate_points(tree, pos, cuda_device, parametric=True)
+    assert torch.equal(at_corners.reshape(dist.shape), dist)
+    assert kernels.LAUNCHES["point_eval_param"] == before["point_eval_param"] + 1
+    other = _perturbed(tree)
+    libs, counts = len(gk._libs), dict(_build.COUNTS)
+    odist, ocases = gk.classified_grid(other, *grid, parametric=True)
+    opoints = pk.evaluate_points(other, pos, cuda_device, parametric=True)
+    assert len(gk._libs) == libs and dict(_build.COUNTS) == counts  # the same two libraries
+    oref_dist, oref_cases = gk.classified_grid_plain(other, *grid)
+    tol = 1e-5 * oref_dist.abs().clamp(min=1.0)
+    assert bool(((odist - oref_dist).abs() <= tol).all())
+    assert torch.equal(ocases, oref_cases)
+    assert torch.equal(opoints.reshape(odist.shape), odist)
+    assert not torch.equal(odist, dist)
+
+
+def test_parametric_pointer_form_equals_by_value(cuda_device, monkeypatch):
+    """A vector past the by-value limit is uploaded and read through a
+    pointer: the same distances and cases, a library of its own."""
+    tree = flagships.build_showerhead()
+    fr = FlatRenderer(tree, tree.bounds().diagonal() / 90, cuda_device)
+    args = (tree, fr.origin, fr.res, fr.shape(), cuda_device, 0, True)
+    dist, cases = gk.classified_grid(*args)
+    by_value = gk.build(tree, gk.PARAM_TEMPLATES, True)
+    assert by_value.gsdf_params_by_value() == 1
+    monkeypatch.setattr(gk, "PARAMS_BY_VALUE", False)
+    by_pointer = gk.build(tree, gk.PARAM_TEMPLATES, True)
+    assert by_pointer is not by_value and by_pointer.gsdf_params_by_value() == 0
+    pdist, pcases = gk.classified_grid(*args)
+    assert torch.equal(pdist, dist) and torch.equal(pcases, cases)
+    pos = gk.grid_positions(*args[1:5]).reshape(-1, 3).contiguous()
+    assert torch.equal(pk.evaluate_points(tree, pos, cuda_device, True).reshape(dist.shape), dist)
+
+
+def test_parametric_2d_tree_on_card(cuda_device):
+    from gsdf_tpu_torch.eval.parametric import ParametricSDF2
+
+    b = Builder()
+    t1 = b.annulus(b.union2d(b.new_circle(0.5), b.new_rectangle(0.8, 0.3)), 0.1)
+    t2 = b.annulus(b.union2d(b.new_circle(0.4), b.new_rectangle(0.5, 0.6)), 0.15)
+    psdf = ParametricSDF2(t1)  # the card, unasked
+    assert psdf.device == cuda_device
+    pts = np.random.default_rng(2).uniform(-1, 1, (4096, 2)).astype(np.float32)
+    before = kernels.LAUNCHES["point_eval_param"]
+    d1, d2 = psdf.evaluate(pts), psdf.evaluate(pts, t2)
+    assert kernels.LAUNCHES["point_eval_param"] == before + 2
+    pos = torch.from_numpy(pts).to(cuda_device)
+    for got, tree in ((d1, t1), (d2, t2)):
+        np.testing.assert_allclose(got, pk.point_eval_plain(tree, pos).cpu().numpy(),
+                                   rtol=0, atol=1e-5)
+
+
+def _boss_part():
+    b = Builder()
+    hole = b.new_cylinder(0.25, 4.0, 0.0)
+    body = b.smooth_union(0.1, b.new_box(1.6, 1.0, 0.5, 0.05), b.new_cylinder(0.45, 1.2, 0.05))
+    part = with_bounds(b.difference(body, hole), Box([-1.2, -0.8, -0.9], [1.2, 0.8, 0.9]))
+    return part, body.s2
+
+
+@pytest.mark.parametrize("path", ["render_compact", "render_indexed"])
+def test_edit_loop_builds_nothing(path, cuda_device):
+    """Three rebinds through one renderer: both counters (compiler runs,
+    libraries loaded) stay where the first parametric render left them, no
+    baked K1 is launched, and each mesh equals the baked render of the
+    edited tree."""
+    part, cyl = _boss_part()
+    fr = FlatRenderer(part, 0.02, cuda_device)
+    _, first = getattr(fr, path)(parametric=True)
+    counts, libs = dict(_build.COUNTS), len(gk._libs)
+    sizes = [len(first)]
+    for r in (0.35, 0.5, 0.4):
+        part.rebind({cyl: {"r": r}})
+        baked_before = kernels.LAUNCHES["classified_grid"]
+        verts, tri = getattr(fr, path)(parametric=True)
+        assert dict(_build.COUNTS) == counts and len(gk._libs) == libs
+        assert kernels.LAUNCHES["classified_grid"] == baked_before
+        sizes.append(len(tri))
+        bverts, btri = getattr(FlatRenderer(part, 0.02, cuda_device), path)()
+        assert np.array_equal(tri, btri) and np.array_equal(verts, bverts)
+        counts, libs = dict(_build.COUNTS), len(gk._libs)  # the baked render built one
+    assert len(set(sizes)) == len(sizes)
+
+
+def test_parametric_does_not_fall_back_when_the_build_fails(cuda_device, monkeypatch):
+    """parametric=True with a failing compiler raises: no baked library is
+    built or launched instead, and nothing runs on the CPU."""
+    b = Builder()
+    tree = b.smooth_union(0.13, b.new_sphere(0.61), b.translate(b.new_box(0.7, 0.5, 0.3, 0.02),
+                                                               0.2, 0.1, 0.0))
+    monkeypatch.setattr(gk, "nvcc", lambda: "/bin/false")
+    before = dict(kernels.LAUNCHES)
+    fr = FlatRenderer(tree, 0.05, cuda_device)
+    for render in (fr.render_compact, fr.render_indexed):
+        with pytest.raises(RuntimeError, match="building gsdf_tree failed"):
+            render(parametric=True)
+    from gsdf_tpu_torch.eval.parametric import ParametricSDF3
+
+    with pytest.raises(RuntimeError, match="building gsdf_tree failed"):
+        ParametricSDF3(tree).evaluate(np.zeros((4, 3), np.float32))
+    assert dict(kernels.LAUNCHES) == before
+
+
+def test_parametric_launch_checks_the_vector_length(cuda_device):
+    tree = Builder().new_sphere(1.0)
+    lib = gk.build(tree, pk.POINT_TEMPLATES, True)
+    pos = torch.zeros((4, 3), device=cuda_device)
+    out = torch.empty(4, device=cuda_device)
+    p = np.ones(2, np.float32)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        kernels.launch("point_eval_param", cuda_device, lib.gsdf_point_eval_param,
+                       pos.data_ptr(), 4, out.data_ptr(), p.ctypes.data, 2)
