@@ -46,6 +46,20 @@
    plain version. Both are timed in turns against their baked forms at
    the five main grids and at 2^20 points, and the by-value form of the
    parameter argument against the pointer form.
+   K5 and K5p (dual contouring, csrc/dc_mesh.cu; one library each per
+   tree and per structure, built beside the others): held against their
+   plain torch version (ops/dc_emit.py::dc_mesh_plain) on every 3D tree
+   above and three more seeded random trees (ten random trees in all) at
+   diag/64, on the bolt at resdiv 256, both QEF modes, and on a slab of the
+   bolt at k0 != 0 with a halo layer: edge ids, flips and the live-voxel
+   count exactly equal, vertices within 1e-4 * res (the max |d| over res
+   is printed), K5's grid pass equal to K2's in every float (the count of
+   differing floats is printed); both through the wrapper dc_mesh. On
+   every whole grid also K5's edge form, the wrapper dc_edges that the
+   host_qef=True render reads, against dc_edges_plain: edge ids, flips, t
+   and the raw normals exactly equal. Timed at the bolt's resdiv 256 and 384
+   against the plain version, K5p in turns against K5 and by value against
+   the pointer form.
 3. Drives each FlatRenderer path, every launch count set to 0 just before
    it and read just after (golden triangle counts exact; SDF->STL wall ms,
    median of warm renders after two warm-ups):
@@ -90,6 +104,17 @@
    ParametricSDF3.evaluate at 2^20 points on each golden part and on a
    structurally equal tree through one library; the host's time to pack a
    part's parameters and hash its structure.
+   Then the dual contouring slice, on the default device:
+   DualContourRenderer(bolt, diag/resdiv).render() at resdiv 256 (99,844
+   triangles; again through host_qef=True), 384 (226,340) and 512
+   (403,104, on the chunk route: one K5 launch a chunk; and as one whole
+   grid with mono_voxels raised, bit-identical), each with its K5
+   launches, its one synchronising call before a fetch and its warm ms by
+   stage (K5, fetch, host quad emission, STL encode: stages.dc); the
+   parametric edit loop on the pinned part of the JAX package's
+   test_dc_parametric_edit_zero_recompile: three rebinds through K5p with
+   no compiler run and no library loaded, each mesh equal to the baked
+   render of the edited tree within 1e-6.
 4. Fails unless each kernel launched on every path that runs it, once per
    render and slab (the wrapper calls counted per render of each path are
    printed and held to what the path should make); prints the device
@@ -118,6 +143,13 @@ TOL = 1e-5  # relative to max(1, |d|): a CUDA library ulp vs torch's
 #: random_tree seeds whose trees have a surface at resdiv 64 (others are
 #: empty intersections, which test nothing)
 FUZZ_SEEDS = (0, 3, 4, 5, 7, 9, 14)
+#: three more random_tree seeds with a surface: K5's ten random trees
+DC_EXTRA_SEEDS = (16, 17, 18)
+#: the bolt's dual contouring goldens (tests/test_dual_contour.py:191,
+#: tests/test_golden_scale.py:30-31); resdiv 512 is past mono_voxels
+DC_GOLDENS = ((256, 99_844), (384, 226_340), (512, 403_104))
+#: K5 against its plain version: max |vertex difference| / res
+DC_TOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -533,6 +565,10 @@ KERNELS = (
      "gsdf_tpu/ops/compact_field.py:438"),
     ("point_eval_param", "gsdf_tpu_torch/csrc/point_eval.cu",
      "gsdf_tpu/eval/parametric.py:162"),
+    # dual contouring's device stage, baked and parametric
+    ("dc_mesh", "gsdf_tpu_torch/csrc/dc_mesh.cu", "gsdf_tpu/render/dual_contour.py:179"),
+    ("dc_mesh_param", "gsdf_tpu_torch/csrc/dc_mesh.cu",
+     "gsdf_tpu/render/dual_contour.py:588"),
 )
 
 
@@ -627,6 +663,68 @@ def mc_compare(name, tree, resdiv, dev, gk, slab=None):
     return {k: err for k, (_, err) in checks.items()}, (dist, cases, comp, fr, sizes)
 
 
+def dc_compare(label, tree, res, dev, slab=None, chiseled=False):
+    """K5 and K5p through their wrapper (dc_emit.dc_mesh) against
+    dc_mesh_plain on the card: edge ids, flips and the live-voxel count
+    exact, vertices within DC_TOL * res; K5's grid (from a call of its own)
+    equal to K2's. On a whole grid, also K5's edge form (dc_emit.dc_edges,
+    what the host_qef=True render reads) against dc_edges_plain: edge ids,
+    flips, t and the raw normals all exact. slab = (k0, owned layers) runs
+    a slab of the grid with its halo. Returns ({kernel: (max |d|, max |d|
+    / res, grid floats differing from K2)}, edges, voxels, dc_edges
+    floats differing from plain or None on a slab)."""
+    import torch
+    from gsdf_tpu_torch.eval import grid_kernels as gk
+    from gsdf_tpu_torch.ops import dc_emit
+    from gsdf_tpu_torch.render.dual_contour import DualContourLeastSquares, DualContourRenderer
+
+    c = DualContourLeastSquares(chiseled)
+    dcr = DualContourRenderer(tree, res, c, device=dev)
+    shape, (k0, n_own) = dcr.shape(), slab or (0, None)
+    if slab is not None:
+        shape = (n_own + 2,) + shape[1:]
+    ref = dc_emit.dc_mesh_plain(tree, dcr.origin, dcr.res, shape, dev, c.norm_step,
+                                c.sqrt_lambda, k0, n_own)
+    k2 = gk.evaluate_grid(tree, dcr.origin, dcr.res, shape, dev, k0)
+    out = {}
+    for name, parametric in (("dc_mesh", False), ("dc_mesh_param", True)):
+        mesh = dc_emit.dc_mesh(tree, dcr.origin, dcr.res, shape, dev, c.norm_step,
+                               c.sqrt_lambda, k0, n_own, parametric)
+        grid = dc_emit._launch_k5(tree, dcr.origin, dcr.res, shape, dev, n_own, k0, parametric,
+                                  *dc_emit.qef_constants(c.norm_step, c.sqrt_lambda), False,
+                                  True)[-1]
+        torch.cuda.synchronize()
+        if not (torch.equal(mesh.eids, ref.eids) and torch.equal(mesh.flips, ref.flips)
+                and mesh.verts.shape == ref.verts.shape):
+            raise RuntimeError(f"{name} {label}: edge ids, flips or the live-voxel count differ "
+                               f"from plain ({len(mesh.eids)} / {len(ref.eids)} edges, "
+                               f"{len(mesh.verts)} / {len(ref.verts)} voxels)")
+        err = _max_abs(mesh.verts, ref.verts)
+        differing = int((grid != k2).sum())
+        if err > DC_TOL * float(dcr.res) or differing:
+            raise RuntimeError(f"{name} {label}: vertices {err / float(dcr.res):.3g} * res from "
+                               f"plain, {differing} grid floats differ from K2's")
+        out[name] = (err, err / float(dcr.res), differing)
+    edges_differing = None
+    if slab is None:
+        e = dc_emit.dc_edges(tree, dcr.origin, dcr.res, shape, dev, c.norm_step)
+        e_ref = dc_emit.dc_edges_plain(tree, dcr.origin, dcr.res, shape, dev, c.norm_step)
+        torch.cuda.synchronize()
+        if not (torch.equal(e.eids, e_ref.eids) and torch.equal(e.flips, e_ref.flips)):
+            raise RuntimeError(f"dc_edges {label}: edge ids or flips differ from plain "
+                               f"({len(e.eids)} / {len(e_ref.eids)} edges)")
+        edges_differing = int((e.t != e_ref.t).sum()) + int((e.normals != e_ref.normals).sum())
+        if edges_differing:
+            raise RuntimeError(f"dc_edges {label}: {edges_differing} floats of t and the normals "
+                               "differ from plain")
+    log(f"  K5, K5p {label:22s} {'chiseled' if chiseled else 'default '}: {len(ref.eids)} "
+        f"edges, {len(ref.verts)} voxels exact; max |d| / res {out['dc_mesh'][1]:.3g}, "
+        f"{out['dc_mesh_param'][1]:.3g}; grid floats differing from K2 {out['dc_mesh'][2]}, "
+        f"{out['dc_mesh_param'][2]}; dc_edges: ids, flips exact, t and normal floats "
+        f"differing {'(a slab: not run)' if edges_differing is None else edges_differing}")
+    return out, len(ref.eids), len(ref.verts), edges_differing
+
+
 def device_launches(fn) -> dict:
     """What torch.profiler sees on the card inside one call of fn: kernels,
     memsets and copies by count, and their device time summed (ms): the
@@ -634,14 +732,14 @@ def device_launches(fn) -> dict:
     launches a kernel, and the profiler now and then returns a trace that
     holds the host's launch calls and no device event (about 1 in 500 on
     an idle host, several in a row on a busy one), so a trace without a
-    kernel is taken again, after a growing pause, at most six times before
-    it counts as a fault."""
+    kernel is taken again, after a growing pause, at most twelve times
+    before it counts as a fault."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for attempt in range(6):
-        time.sleep(0.05 * attempt)
+    for attempt in range(12):
+        time.sleep(0.1 * attempt)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
@@ -655,16 +753,33 @@ def device_launches(fn) -> dict:
                 out["device_ms"] += e.time_range.elapsed_us() / 1e3
         if out["kernels"]:
             return out
-    raise RuntimeError("torch.profiler saw no kernel inside a wrapper call in six traces")
+    raise RuntimeError("torch.profiler saw no kernel inside a wrapper call in twelve traces")
+
+
+def device_reading(fn):
+    """device_launches(fn) where it is a measurement and not a check: None,
+    logged, where every trace missed the call's kernels, and the run goes
+    on."""
+    try:
+        return device_launches(fn)
+    except RuntimeError as e:
+        log(f"  device reading: {e}")
+        return None
 
 
 def on_card_ms(a, b, turns: int = 3):
-    """The least device ms that torch.profiler sums inside one call of a
-    and of b, taken in turns (a, b, a, b, ...): the two with the host's
-    share taken out."""
-    pairs = [(device_launches(a)["device_ms"], device_launches(b)["device_ms"])
-             for _ in range(turns)]
-    return min(x for x, _ in pairs), min(y for _, y in pairs)
+    """The device ms that torch.profiler sums inside one call of a and of
+    b, taken in turns (a, b, a, b, ...): the two with the host's share
+    taken out. A trace can miss some of a call's device events (seen on
+    launches that take their parameters by value), never add any, so each
+    is the most of its traces; None where every trace missed them all."""
+    def traced(fn):
+        reading = device_reading(fn)
+        return None if reading is None else reading["device_ms"]
+
+    pairs = [(traced(a), traced(b)) for _ in range(turns)]
+    return tuple(max((p[k] for p in pairs if p[k] is not None), default=None)
+                 for k in (0, 1))
 
 
 def synchronising(fn):
@@ -722,9 +837,11 @@ def main() -> int:
         from gsdf_tpu_torch.eval import point_kernels as pk
         from gsdf_tpu_torch.forge import threads
         from gsdf_tpu_torch.geometry.boxes import Box
-        from gsdf_tpu_torch.ops import fused_welded, mc_emit
+        from gsdf_tpu_torch.ops import dc_emit, fused_welded, mc_emit
         from gsdf_tpu_torch.ops.compact_field import compact_field_render
+        from gsdf_tpu_torch.render.dual_contour import DualContourRenderer
         from gsdf_tpu_torch.render.flat import FlatRenderer
+        from gsdf_tpu_torch import stages
     except ImportError as e:
         print(f"chip_smoke: gsdf_tpu_torch not importable ({e}); run it in the "
               "repository root", file=sys.stderr)
@@ -752,6 +869,11 @@ def main() -> int:
         tree = random_tree(Builder(Flags.NO_DIMENSION_PANIC), np.random.default_rng(seed))
         if tree is not None:
             trees[f"fuzz{seed}"] = tree
+    # K5's trees: every 3D tree above and three more random ones
+    dc_trees = dict(trees)
+    for seed in DC_EXTRA_SEEDS:
+        dc_trees[f"fuzz{seed}"] = random_tree(Builder(Flags.NO_DIMENSION_PANIC),
+                                              np.random.default_rng(seed))
     # the 2D trees: one recipe per 2D node type, the example programs' three
     # PNG scenes at their sizes, and the special evaluators' trees
     trees2d = {f"2d:{k}": (t, 256, 192)
@@ -775,13 +897,16 @@ def main() -> int:
         futs += [pool.submit(gk.build, tree, gk.PARAM_TEMPLATES, True) for tree in trees.values()]
         futs += [pool.submit(gk.build, tree, pk.POINT_TEMPLATES, True)
                  for tree in point_trees.values()]
+        futs += [pool.submit(gk.build, tree, dc_emit.TEMPLATES, parametric)
+                 for tree in dc_trees.values() for parametric in (False, True)]
         for fut in futs:
             fut.result()
     build_s = time.perf_counter() - t0
     log(f"phase 2: built {len(futs)} kernel libraries ({len(trees) + 1} trees' K1 + K2, "
         f"{len(kernels.STATIC_KERNELS)} MC kernels, {len(point_trees)} trees' KP, "
         f"{len(trees2d)} 2D trees' K2-2D, {len(trees)} structures' K1p, {len(point_trees)} "
-        f"structures' KPp; one nvcc each, in parallel) in {build_s:.1f} s; "
+        f"structures' KPp, {len(dc_trees)} trees' K5 and K5p; one nvcc each, in parallel) in "
+        f"{build_s:.1f} s; "
         f"compiler runs {_build.COUNTS['compiles']}, libraries loaded {_build.COUNTS['loads']}")
     n_params = {name: int(par.kernel_params(trees[name]).size) for name in golden_parts}
     log("  parameters per part (packed as the JAX package packs them / in the kernels' "
@@ -797,6 +922,8 @@ def main() -> int:
              for name in golden_parts]
     logs += [(f"K2-2D {name}", gk.build_log(trees2d[name][0], pk.FIELD_TEMPLATES))
              for name, _, _, _ in flagships.PNG_SCENES]
+    logs += [(f"K5{'p' if p else ''} bolt", gk.build_log(trees["bolt"], dc_emit.TEMPLATES, p))
+             for p in (False, True)]
     for name, text in logs:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -823,6 +950,36 @@ def main() -> int:
         if slab is None and (name, resdiv) in MAIN_GRIDS:
             mc_inputs[(name, resdiv)] = inputs
         del inputs
+
+    # K5 and K5p: every 3D tree and ten random ones at diag/64, both modes;
+    # the bolt at resdiv 256 (the main path's grid) and a slab of it
+    bolt_res = trees["bolt"].bounds().diagonal() / 256
+    dc_cases = [(name, tree, tree.bounds().diagonal() / 64, None)
+                for name, tree in dc_trees.items()]
+    dc_cases.append(("bolt@256", trees["bolt"], bolt_res, None))
+    nz256 = DualContourRenderer(trees["bolt"], bolt_res, device=dev).nz
+    dc_cases.append((f"bolt@256 slab k0={nz256 // 2}", trees["bolt"], bolt_res, (nz256 // 2, 24)))
+    n_random = sum(1 for name, *_ in dc_cases if name.startswith("fuzz"))
+    if n_random < 10:
+        raise RuntimeError(f"K5 needs ten random trees, has {n_random}")
+    dc_err = {"dc_mesh": 0.0, "dc_mesh_param": 0.0}  # max |d| / res
+    dc_grid_differing = 0
+    dc_edges_grids = 0
+    for name, tree, res, slab in dc_cases:
+        for chiseled in (False, True):
+            out, n_e, _, edges_differing = dc_compare(name, tree, res, dev, slab, chiseled)
+            if n_e == 0:
+                raise RuntimeError(f"K5 {name}: no active edge, nothing compared")
+            for k, (err, rel, n_grid) in out.items():
+                max_err[k] = max(max_err[k], err)
+                dc_err[k] = max(dc_err[k], rel)
+                dc_grid_differing += n_grid
+            dc_edges_grids += edges_differing is not None
+    log(f"phase 2: K5 and K5p equal to plain on {len(dc_cases)} grids ({n_random} random "
+        f"trees), both modes: max |d| / res {dc_err}, max |d| "
+        f"{ {k: max_err[k] for k in dc_err} }; K5's grid against K2's: {dc_grid_differing} "
+        f"floats differ; dc_edges (the host_qef=True render's input) equal to plain in ids, "
+        f"flips, t and normals on {dc_edges_grids} grids")
 
     # KP at seeded points on every tree, 3D and 2D; K2-2D on every 2D tree
     for name, tree in point_trees.items():
@@ -1005,8 +1162,8 @@ def main() -> int:
         times[f"{name}@{resdiv}"]["classified_grid_param"].update(
             by_pointer_ms=ptr_ms, by_pointer_on_card_ms=ptr_card, by_value_on_card_ms=val_card)
         log(f"  device ms K1p {name}@{resdiv}, {n_params[name]} parameters: by value "
-            f"{val_ms:.3f} (on the card {val_card:.4f}), through a pointer {ptr_ms:.3f} (on the "
-            f"card {ptr_card:.4f}, its upload included; {len(syncs)} synchronising calls in "
+            f"{val_ms:.3f} (on the card {val_card}), through a pointer {ptr_ms:.3f} (on the "
+            f"card {ptr_card}, its upload included; {len(syncs)} synchronising calls in "
             f"it)  [{card}]")
     for name in golden_parts:
         tree, pos = trees[name], seeded_points(trees[name], n_points, 2, dev)
@@ -1019,8 +1176,77 @@ def main() -> int:
         times[f"KPp {name} N={n_points}"]["point_eval_param"].update(
             by_pointer_ms=ptr_ms, by_pointer_on_card_ms=ptr_card, by_value_on_card_ms=val_card)
         log(f"  device ms KPp {name} N={n_points}: by value {val_ms:.4f} (on the card "
-            f"{val_card:.4f}), through a pointer {ptr_ms:.4f} (on the card {ptr_card:.4f}, its "
+            f"{val_card}), through a pointer {ptr_ms:.4f} (on the card {ptr_card}, its "
             f"upload included)  [{card}]")
+    if gk.PARAMS_BY_VALUE is not None:
+        raise RuntimeError("the parameter form override was left set")
+    torch.cuda.empty_cache()
+
+    # K5 at the bolt's resdiv 256 and 384 (one grid each, the main path's),
+    # against its plain version; K5p in turns against K5. The bound's
+    # operations are the plain version's on these inputs (bounds.py)
+    for resdiv in (256, 384):
+        dcr = DualContourRenderer(trees["bolt"], trees["bolt"].bounds().diagonal() / resdiv,
+                                  device=dev)
+        cont = dcr.contourer
+        dargs = (trees["bolt"], dcr.origin, dcr.res, dcr.shape(), dev, cont.norm_step,
+                 cont.sqrt_lambda)
+
+        def k5(dargs=dargs):
+            return dc_emit.dc_mesh(*dargs)
+
+        def k5p(dargs=dargs):
+            return dc_emit.dc_mesh(*dargs, parametric=True)
+
+        def k5_plain(dargs=dargs):
+            return dc_emit.dc_mesh_plain(*dargs)
+
+        mesh, ops = bounds.count_ops(k5_plain)
+        sizes = {"edges": len(mesh.eids), "voxels": len(mesh.verts)}
+        del mesh
+        row = {}
+        ms, plain_ms = in_turns(k5, k5_plain)
+        ms_p, baked_ms = in_turns(k5p, k5)
+        for kname, kms, extra in (("dc_mesh", ms, {}),
+                                  ("dc_mesh_param", ms_p, {"baked_ms": baked_ms})):
+            b = bounds.bound(ops, bounds.kernel_bytes(kname, **sizes, n_params=n_params["bolt"]))
+            on_device = device_reading(k5p if kname == "dc_mesh_param" else k5)
+            device_ms = None if on_device is None else on_device["device_ms"]
+            row[kname] = {"ms": kms, "plain_ms": plain_ms, "library_ms": None, **b,
+                          "share": b["bound_ms"] / kms,
+                          "device_share": device_ms and b["bound_ms"] / device_ms,
+                          "published_fp32_share": b["published_fp32_ms"] / kms,
+                          "on_device": on_device, **sizes, **extra}
+            row[kname]["kernels_us"] = stages.device_us(k5p if extra else k5)
+            log(f"  device ms K5{'p' if extra else ''} bolt@{resdiv} grid {dcr.shape()}: "
+                f"{kms:.3f} (on the card {device_ms}: {on_device}; bound "
+                f"{b['bound_ms']:.4f} by {b['bound_by']}, share {b['bound_ms'] / kms:.2f}, "
+                f"{sizes['edges']} edges, {sizes['voxels']} voxels, plain {plain_ms:.3f}"
+                + (f", baked K5 in turns {baked_ms:.3f}" if extra else "")
+                + f", no library call; device us by kernel {row[kname]['kernels_us']})  "
+                f"[{card}]")
+        times[f"DC bolt@{resdiv}"] = row
+    torch.cuda.empty_cache()
+
+    # K5p's parameter argument by value against the pointer form, bolt@256
+    gk.PARAMS_BY_VALUE = False
+    try:
+        gk.build(trees["bolt"], dc_emit.TEMPLATES, True)
+    finally:
+        gk.PARAMS_BY_VALUE = None
+    dcr = DualContourRenderer(trees["bolt"], bolt_res, device=dev)
+    dargs = (trees["bolt"], dcr.origin, dcr.res, dcr.shape(), dev, dcr.contourer.norm_step,
+             dcr.contourer.sqrt_lambda)
+    by_value = form(None, lambda: dc_emit.dc_mesh(*dargs, parametric=True))
+    by_pointer = form(False, lambda: dc_emit.dc_mesh(*dargs, parametric=True))
+    if not all(torch.equal(a, b) for a, b in zip(by_value(), by_pointer())):
+        raise RuntimeError("K5p bolt@256: the pointer form differs from by value")
+    ptr_ms, val_ms = in_turns(by_pointer, by_value)
+    ptr_card, val_card = on_card_ms(by_pointer, by_value)
+    times["DC bolt@256"]["dc_mesh_param"].update(
+        by_pointer_ms=ptr_ms, by_pointer_on_card_ms=ptr_card, by_value_on_card_ms=val_card)
+    log(f"  device ms K5p bolt@256: by value {val_ms:.3f} (on the card {val_card}), through "
+        f"a pointer {ptr_ms:.3f} (on the card {ptr_card}, its upload included)  [{card}]")
     if gk.PARAMS_BY_VALUE is not None:
         raise RuntimeError("the parameter form override was left set")
     torch.cuda.empty_cache()
@@ -1503,6 +1729,111 @@ def main() -> int:
                 lambda: (par.structural_hash(tree), par.kernel_params(tree)))}
     log(f"phase 3: host ms of pack_params + structural_hash per part: {host_walk}")
     param_ms["host_walk"] = host_walk
+
+    # --- the dual contouring slice, on the default device ------------------
+    import io
+
+    bolt = trees["bolt"]
+    dc_slice = {}
+    dc_tris = {}
+    for resdiv, golden in DC_GOLDENS:
+        res = bolt.bounds().diagonal() / resdiv
+        dcr = DualContourRenderer(bolt, res)  # no device named: the card
+        if dcr.device != dev:
+            raise RuntimeError(f"DualContourRenderer defaulted to {dcr.device}, not the card")
+        cont = dcr.contourer
+        calls = dcr.chunks()[0]
+        tris, counts = run(f"DC bolt@{resdiv}", ("dc_mesh",), dcr.render)
+        exactly(f"DC bolt@{resdiv}", counts, {"dc_mesh": len(calls)})
+        if len(tris) != golden:
+            raise RuntimeError(f"DC bolt@{resdiv}: {len(tris)} triangles, golden {golden}")
+        dc_tris[resdiv] = tris
+        origin, shape, k0, n_own = calls[-1]
+        _, before_fetch = synchronising(lambda: dc_emit.dc_mesh(
+            bolt, origin, dcr.res, shape, dev, cont.norm_step, cont.sqrt_lambda, k0, n_own))
+        if len(before_fetch) != 1:
+            raise RuntimeError(f"DC bolt@{resdiv}: a K5 call should synchronise once, at its "
+                               f"count read: {before_fetch}")
+
+        def sdf_to_stl(res=res):
+            buf = io.BytesIO()
+            render.write_binary_stl(buf, DualContourRenderer(bolt, res).render())
+            return buf.getbuffer().nbytes
+
+        (nbytes, ms), counts = run(f"DC bolt@{resdiv} SDF->STL, median of seven",
+                                   ("dc_mesh",), lambda: host_ms(sdf_to_stl, 7))
+        row = stages.measure(lambda c, res=res: stages.dc(DualContourRenderer(bolt, res), c),
+                             golden, 7)
+        e2e[f"dc bolt@{resdiv}"] = ms
+        per_render[f"dc bolt@{resdiv}"] = {"dc_mesh": len(calls)}
+        dc_slice[f"bolt@{resdiv}"] = {"sdf_to_stl_ms": ms, "stl_bytes": nbytes,
+                                      "k5_launches": len(calls),
+                                      "synchronising_before_fetch": len(before_fetch), **row}
+        log(f"phase 3: DC bolt resdiv {resdiv}: {len(tris)} triangles (golden {golden}), "
+            f"{len(calls)} K5 launch{'es' if len(calls) > 1 else ''} (one a chunk), one "
+            f"synchronising call in a K5 call; SDF->STL warm median {ms:.2f} ms; by stage "
+            + ", ".join(f"{k} {v:.3f}" for k, v in row["stages_ms"].items())
+            + f" (total {row['total_ms']:.3f}), device {row['device_ms']:.3f} ms of "
+            f"{row['profiled_wall_ms']:.3f}, idle {row['idle_share']:.3f}, fetch "
+            f"{row['fetch_mb']:.2f} MB  [{card}]")
+    res256 = bolt.bounds().diagonal() / 256
+    host, counts = run("DC bolt@256 host_qef=True", ("dc_mesh",),
+                       lambda: DualContourRenderer(bolt, res256, host_qef=True).render())
+    if len(host) != DC_GOLDENS[0][1] or np.abs(host - dc_tris[256]).max() >= 1e-3 * res256:
+        raise RuntimeError(f"DC bolt@256 host_qef: {len(host)} triangles, or farther than "
+                           "1e-3 * res from the device QEF")
+    log(f"phase 3: DC bolt resdiv 256 through host_qef=True: {len(host)} triangles, max "
+        f"|d| from the device QEF {np.abs(host - dc_tris[256]).max() / res256:.3g} * res")
+    del host
+    res512 = bolt.bounds().diagonal() / 512
+    saved = DualContourRenderer.mono_voxels
+    DualContourRenderer.mono_voxels = 1 << 40
+    try:
+        whole, counts = run("DC bolt@512 as one whole grid", ("dc_mesh",),
+                            lambda: DualContourRenderer(bolt, res512).render())
+    finally:
+        DualContourRenderer.mono_voxels = saved
+    exactly("DC bolt@512 whole grid", counts, {"dc_mesh": 1})
+    if not np.array_equal(whole, dc_tris[512]):
+        raise RuntimeError("DC bolt@512: the chunk route differs from the whole-grid render")
+    log(f"phase 3: DC bolt resdiv 512: the chunk route's {len(whole)} triangles equal the "
+        "whole-grid render's bit for bit")
+    del whole, dc_tris
+
+    # the DC edit loop: the pinned part of the JAX package's
+    # test_dc_parametric_edit_zero_recompile, the boss's radius an edit
+    b = Builder()
+    boss = b.new_cylinder(0.45, 1.2, 0.05)
+    body = b.smooth_union(0.1, b.new_box(1.6, 1.0, 0.5, 0.05), boss)
+    pinned = with_bounds(body, Box([-1.2, -0.8, -0.9], [1.2, 0.8, 0.9]))
+    first, _ = run("DC edit loop: the first parametric render", ("dc_mesh_param",),
+                   lambda: DualContourRenderer(pinned, 0.06).render(parametric=True))
+    built = (dict(_build.COUNTS), len(gk._libs))
+    sizes, edit_ms = [len(first)], []
+    for r in (0.3, 0.35, 0.4):
+        t0 = time.perf_counter()
+        pinned.rebind({boss: {"r": r}})
+        tris, counts = run(f"DC edit loop: r = {r}", ("dc_mesh_param",),
+                           lambda: DualContourRenderer(pinned, 0.06).render(parametric=True))
+        edit_ms.append((time.perf_counter() - t0) * 1e3)
+        exactly("DC edit loop", counts, {"dc_mesh_param": 1})
+        if (dict(_build.COUNTS), len(gk._libs)) != built:
+            raise RuntimeError(f"DC edit loop: an edit built or loaded a library: "
+                               f"{_build.COUNTS}, {len(gk._libs)} libraries, were {built}")
+        baked = DualContourRenderer(pinned, 0.06).render()
+        built = (dict(_build.COUNTS), len(gk._libs))  # the baked render built one
+        if tris.shape != baked.shape or np.abs(tris - baked).max(initial=0) > 1e-6:
+            raise RuntimeError(f"DC edit loop, r = {r}: the parametric mesh differs from the "
+                               "baked render of the edited tree")
+        sizes.append(len(tris))
+    if len(set(sizes)) != len(sizes):
+        raise RuntimeError(f"DC edit loop: an edit did not change the mesh: {sizes}")
+    per_render["dc parametric edit"] = {"dc_mesh_param": 1}
+    dc_slice["edit loop"] = {"edit_to_mesh_ms": edit_ms, "triangles": sizes}
+    log(f"phase 3: DC edit loop: 3 rebinds, 0 compiler runs and 0 libraries loaded by the "
+        f"parametric renders, triangles {sizes}, each mesh equal to the baked render of the "
+        f"edited tree within 1e-6; edit to mesh {', '.join(f'{t:.2f}' for t in edit_ms)} ms  "
+        f"[{card}]")
     log(f"phase 4: kernel launches over the paths: {launches}")
 
     fr = FlatRenderer(f800, res800, dev)
@@ -1527,6 +1858,7 @@ def main() -> int:
     rows["point_eval"] = times[f"KP flange N={n_points}"]["point_eval"]
     rows["grid_eval_2d"] = times["K2-2D plantpot 1080x1080"]["grid_eval_2d"]
     rows["point_eval_param"] = times[f"KPp flange N={n_points}"]["point_eval_param"]
+    rows.update(times["DC bolt@256"])
     line = [
         {
             "name": name,
@@ -1542,8 +1874,10 @@ def main() -> int:
             "library_ms": rows[name]["library_ms"],
             "share": rows[name]["share"],
             "launches_per_render": {
-                path: per_render[f"{path} flange@400"].get(name, 0)
-                for path in ("compact", "soup", "indexed", "compact parametric")
+                **{path: per_render[f"{path} flange@400"].get(name, 0)
+                   for path in ("compact", "soup", "indexed", "compact parametric")},
+                **{path: per_render[path].get(name, 0)
+                   for path in ("dc bolt@256", "dc bolt@512", "dc parametric edit")},
             },
             **({"baked_ms": rows[name]["baked_ms"], "by_pointer_ms": rows[name]["by_pointer_ms"]}
                if name.endswith("_param") else {}),
@@ -1553,7 +1887,7 @@ def main() -> int:
     ]
     log(json.dumps({"build_s": build_s, "device_ms": times, "sdf_to_stl_ms": e2e,
                     "launches_per_render": per_render, "point_and_2d_slice": slice_ms,
-                    "parametric_slice": param_ms,
+                    "parametric_slice": param_ms, "dc_slice": dc_slice,
                     "parametric_floats_differing_from_baked": differing}))
     log(json.dumps({"kernels": line}))
     log(card)

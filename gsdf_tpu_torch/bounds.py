@@ -6,7 +6,11 @@
   once (`kernel_bytes`), from this run's shapes and counts: a kernel that
   reads a byte twice or keeps scratch of its own pays that above its bound.
 - **Ops** are the elementwise floating-point operations of the kernel's
-  plain torch version, counted by `OpCounter` (a TorchDispatchMode): each
+  plain torch version, counted by `OpCounter` (a TorchDispatchMode; for
+  K5, its plain version on the run's grid, which does K5's work and no
+  more: the tree at every corner and 6 times at every active edge, t, flip
+  and the normal at every active edge, a QEF row where an edge is active,
+  a solve at every live voxel): each
   arithmetic aten op whose inputs or output are floating point adds its
   output's numel (a reduction: the elements it folds away). Casts, views,
   indexing and fills count nothing, so `core.mathx._rounded`'s float64
@@ -95,7 +99,7 @@ def tree_ops_per_point(tree, n: int = 256, seed: int = 0) -> int:
 
 
 def kernel_bytes(name: str, *, corners=0, cubes=0, active=0, n_t=0, tris=0, verts=0,
-                 points=0, ndim=3, pixels=0, n_params=0) -> int:
+                 points=0, ndim=3, pixels=0, n_params=0, edges=0, voxels=0) -> int:
     """Bytes a kernel must move: each input read once, each output written
     once, from this run's shapes and counts.
 
@@ -119,7 +123,11 @@ def kernel_bytes(name: str, *, corners=0, cubes=0, active=0, n_t=0, tris=0, vert
       4 owner-edge distances, K3's two offsets; writes 12 B per vertex and
       per triangle and the 4 B count. Its owner lookups (neighbours' case
       bytes, directory entries) are not counted: a kernel pays for them
-      above its bound, as for any scratch.
+      above its bound, as for any scratch;
+    - dc_mesh (K5): writes 4 B (id) and 1 B (flip) per active edge and
+      12 B per live voxel; its corner grid, ballot words, ranks, crossing
+      points and normals are its own scratch. dc_mesh_param (K5p): also the
+      4 B per parameter that each of its two calls carries.
     """
     offsets = 8 * -(-active // 256)
     per = {
@@ -133,6 +141,8 @@ def kernel_bytes(name: str, *, corners=0, cubes=0, active=0, n_t=0, tris=0, vert
         "compact_emit": (4 + 1 + 16 + 1) * active + offsets + 4 * n_t,
         "emit_soup": (4 + 1 + 32) * active + offsets + 36 * tris,
         "emit_welded": (4 + 1 + 16) * active + 2 * offsets + 12 * verts + 12 * tris + 4,
+        "dc_mesh": 5 * edges + 12 * voxels,
+        "dc_mesh_param": 5 * edges + 12 * voxels + 8 * n_params,
     }
     return int(per[name])
 

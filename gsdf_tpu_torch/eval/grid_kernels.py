@@ -50,7 +50,7 @@ from ..kernels import (
     launch,
     nvcc,
 )
-from ..ops import mc_emit
+from ..ops import dc_tables, mc_emit
 
 _f32 = np.float32
 
@@ -60,6 +60,10 @@ TEMPLATES = ("grid_eval.cu", "classified_grid.cu")
 PARAM_TEMPLATES = ("classified_grid.cu",)
 #: included by the templates that have a parametric form
 PARAMS_HEADER = "gsdf_params.cuh"
+#: further headers a template includes: from csrc/, and generated beside
+#: gsdf_tree.cuh (name -> the function that writes its text)
+INCLUDES = {"dc_mesh.cu": ("gsdf_scan.cuh", "gsdf_qef.cuh")}
+GENERATED = {"dc_mesh.cu": {"gsdf_dc_tables.cuh": dc_tables.header}}
 
 _V, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: each per-tree template's C entry points (the last argument is the stream)
@@ -68,6 +72,12 @@ _SIGNATURES = {
     "classified_grid.cu": {"gsdf_classified_grid": (_I, [_V] * 2 + [_F] * 5 + [_I] * 4 + [_V])},
     "point_eval.cu": {"gsdf_point_eval": (_I, [_V, ctypes.c_int64, _V, _V])},
     "grid_eval_2d.cu": {"gsdf_grid_eval_2d": (_I, [_V] + [_F] * 4 + [_I] * 2 + [_V])},
+    "dc_mesh.cu": {
+        "gsdf_dc_work": (ctypes.c_int64, [_I] * 4),
+        "gsdf_dc_count": (_I, [_V] + [_F] * 4 + [_I] * 5 + [_V] * 4 + [_V]),
+        "gsdf_dc_emit": (_I, [_V] + [_F] * 4 + [_I] * 5 + [_V] * 4 + [_I] * 2 + [_F] * 3
+                         + [_V] * 6 + [_V]),
+    },
 }
 #: the parametric forms' entry points: the parameter vector (a host
 #: pointer where the library takes it by value, else a device pointer)
@@ -77,6 +87,12 @@ _PARAM_SIGNATURES = {
         "gsdf_classified_grid_param": (_I, [_V] * 2 + [_F] * 5 + [_I] * 4 + [_V, _I, _V])
     },
     "point_eval.cu": {"gsdf_point_eval_param": (_I, [_V, ctypes.c_int64, _V, _V, _I, _V])},
+    "dc_mesh.cu": {
+        "gsdf_dc_work": (ctypes.c_int64, [_I] * 4),
+        "gsdf_dc_count_param": (_I, [_V] + [_F] * 4 + [_I] * 5 + [_V] * 4 + [_V, _I, _V]),
+        "gsdf_dc_emit_param": (_I, [_V] + [_F] * 4 + [_I] * 5 + [_V] * 4 + [_I] * 2 + [_F] * 3
+                               + [_V] * 6 + [_V, _I, _V]),
+    },
 }
 _PARAM_INFO = {"gsdf_params_by_value": (_I, [])}
 
@@ -91,15 +107,21 @@ _libs: dict = {}
 
 
 def _sources(tree, templates, parametric=False):
-    """(generated header, template paths, cache key) of one build: the
-    tree's source (which states its NDIM) and the named templates."""
-    src = tree_source(tree, parametric, PARAMS_BY_VALUE)
+    """(generated headers {name: text}, template paths, cache key) of one
+    build: the tree's source (which states its NDIM), the headers the
+    templates generate, and the named templates with what they include."""
+    gen = {"gsdf_tree.cuh": tree_source(tree, parametric, PARAMS_BY_VALUE)}
+    for t in templates:
+        gen.update({name: text() for name, text in GENERATED.get(t, {}).items()})
     paths = [os.path.join(CSRC, t) for t in templates]
+    headers = {PARAMS_HEADER, *(h for t in templates for h in INCLUDES.get(t, ()))}
     texts = []
-    for p in paths + [os.path.join(CSRC, PARAMS_HEADER)]:
+    for p in paths + [os.path.join(CSRC, h) for h in sorted(headers)]:
         with open(p) as f:
             texts.append(f.read())
-    return src, paths, _build.source_key(src, *templates, *texts, *NVCC_FLAGS)
+    key = _build.source_key(*(v for k in sorted(gen) for v in (k, gen[k])), *templates,
+                            *texts, *NVCC_FLAGS)
+    return gen, paths, key
 
 
 def build(tree, templates=TEMPLATES, parametric=False) -> ctypes.CDLL:
@@ -116,10 +138,11 @@ def build(tree, templates=TEMPLATES, parametric=False) -> ctypes.CDLL:
     lib = _libs.get(key)
     if lib is not None:
         return lib
-    src, paths, source_key = _sources(tree, templates, parametric)
+    gen, paths, source_key = _sources(tree, templates, parametric)
 
     def command(out, d):
-        _build.write_atomic(os.path.join(d, "gsdf_tree.cuh"), src)
+        for name, text in gen.items():
+            _build.write_atomic(os.path.join(d, name), text)
         return [nvcc(), *NVCC_FLAGS, "-I", d, "-I", CSRC, "-o", out, *paths]
 
     so = _build.build_shared("gsdf_tree", source_key, command)

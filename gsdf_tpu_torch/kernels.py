@@ -17,7 +17,10 @@ Kernels (all hand-written CUDA C++ in gsdf_tpu_torch/csrc/, nvcc sm_90a):
 - K4 `compact_emit`: the compact payload's case bytes and owner-edge t
   (ops/compact_field.py::compact_emit);
 - K7s `emit_soup`: triangle soup (ops/mc_emit.py::emit_triangles);
-- K7w `emit_welded`: indexed mesh (ops/fused_welded.py::emit_welded).
+- K7w `emit_welded`: indexed mesh (ops/fused_welded.py::emit_welded);
+- K5 `dc_mesh`, K5p `dc_mesh_param`: dual contouring's device stage, per
+  tree (K5p per tree STRUCTURE), from the tree to the live voxels'
+  vertices (ops/dc_emit.py).
 
 K3, K4, K7s and K7w do not depend on the tree: each source builds once
 into its own library, cached by a hash of its sources and flags under
@@ -50,6 +53,8 @@ LAUNCHES = {
     "compact_emit": 0,
     "emit_soup": 0,
     "emit_welded": 0,
+    "dc_mesh": 0,
+    "dc_mesh_param": 0,
 }
 
 CSRC = os.path.join(_build.PKG_DIR, "csrc")
@@ -147,10 +152,12 @@ def check_out(t: torch.Tensor, shape, dtype, device) -> None:
         )
 
 
-def launch(name: str, device: torch.device, entry, *args) -> None:
+def launch(name: str, device: torch.device, entry, *args, count: bool = True) -> None:
     """Call the C entry point of kernel `name` with `args` and, last, the
     current stream of `device` (an indexed CUDA device, made current for
-    the call); raise unless the kernel launched, and count the launch. A
+    the call); raise unless the kernel launched, and count the launch
+    (count=False for the second call of a wrapper that launches its
+    kernel's passes in two calls, around a read of its counts). A
     wrapper's own Python is most of what a small grid pays per call, so
     the stream comes from torch's raw getter and the device is switched
     only where it is not current already."""
@@ -162,7 +169,8 @@ def launch(name: str, device: torch.device, entry, *args) -> None:
             rc = entry(*args, raw)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
+    if count:
+        LAUNCHES[name] += 1
 
 
 def float_args(origin, res, *more) -> list:

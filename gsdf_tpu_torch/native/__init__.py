@@ -1,6 +1,7 @@
 """Host-side native runtime of the port, loaded with ctypes: the
-compact-payload decoder (`gsdf_mc_decode`), the STL encoders (soup and
-indexed), the STL decoder and the soup welder.
+compact-payload decoder (`gsdf_mc_decode`), the dual-contour quad
+emission (`gsdf_dc_finish`), the STL encoders (soup and indexed), the STL
+decoder and the soup welder.
 
 The C++ source is the port's own: native.cpp beside this file, a copy
 of the JAX package's gsdf_tpu/native/native.cpp (a test holds the two
@@ -61,6 +62,24 @@ _SIGNATURES = {
         ctypes.c_int64,
         [_P(ctypes.c_float), ctypes.c_int64, ctypes.c_float, _P(ctypes.c_float),
          _P(ctypes.c_int32)],
+    ),
+    "gsdf_dc_finish": (
+        ctypes.c_int64,
+        [
+            _P(ctypes.c_float),  # verts (n_vox, 3)
+            _P(ctypes.c_int64),  # eax
+            _P(ctypes.c_int64),  # lin
+            _P(ctypes.c_uint8),  # flips
+            ctypes.c_int64,  # n edges
+            ctypes.c_int32,  # nx
+            ctypes.c_int32,  # ny
+            ctypes.c_int32,  # nz
+            ctypes.c_int64,  # n_vox
+            _P(ctypes.c_int32),  # offs (3,4,3)
+            _P(ctypes.c_float),  # tris_out (2n,3,3)
+            _P(ctypes.c_int64),  # blocks_out[6]
+            ctypes.c_int32,  # force_sort
+        ],
     ),
 }
 
@@ -297,6 +316,41 @@ def weld(tris: np.ndarray, tol: float = 0.0):
         _ptr(verts, ctypes.c_float), _ptr(idx, ctypes.c_int32),
     )
     return verts[:nv].copy(), idx.reshape(-1, 3)
+
+
+def dc_finish(verts, eax, lin, flips, nx, ny, nz, n_vox, offs, force_sort=False):
+    """Dual-contour quad emission (gsdf_dc_finish): the triangles of every
+    active edge whose four quad-corner voxels lie in the (nx, ny, nz)
+    voxel space, gathered from `verts`, the vertices of the ascending
+    unique voxel ids that the edges touch. `eax`/`lin` are each edge's axis
+    and origin-voxel id, `offs` the (3,4,3) quad-corner offsets
+    (render/dual_contour.py::_OFFS). Returns (tris (T,3,3) f32, block
+    sizes). force_sort=True takes the sorted-table rank backend that voxel
+    spaces past 2^28 take (the tests' lever for it). Raises RuntimeError
+    when the voxels the edges touch are not n_vox, or an edge lies outside
+    the grid."""
+    lib = get_lib()
+    verts = np.ascontiguousarray(verts, _f32)
+    eax = np.ascontiguousarray(eax, np.int64)
+    lin = np.ascontiguousarray(lin, np.int64)
+    flips = np.ascontiguousarray(flips, np.uint8)
+    offs = np.ascontiguousarray(offs, np.int32)
+    n = len(eax)
+    tris = np.empty((2 * n, 3, 3), _f32)
+    blocks6 = np.zeros(6, np.int64)
+    got = lib.gsdf_dc_finish(
+        _ptr(verts, ctypes.c_float), _ptr(eax, ctypes.c_int64), _ptr(lin, ctypes.c_int64),
+        _ptr(flips, ctypes.c_uint8), n, nx, ny, nz, n_vox, _ptr(offs, ctypes.c_int32),
+        _ptr(tris, ctypes.c_float), _ptr(blocks6, ctypes.c_int64), 1 if force_sort else 0,
+    )
+    if got == -(2**63):  # INT64_MIN: an edge's axis or voxel outside the grid
+        raise RuntimeError("corrupt DC payload: edge id out of range")
+    if got < 0:
+        raise RuntimeError(
+            f"DC payload voxel-count mismatch: derived {-int(got) - 1} != kernel {n_vox}"
+        )
+    blocks = [int(b) for a in range(3) if blocks6[2 * a] for b in blocks6[2 * a : 2 * a + 2]]
+    return tris[:got].copy(), blocks
 
 
 def _llround(x: np.ndarray) -> np.ndarray:

@@ -1,4 +1,5 @@
 """Renderers and mesh output."""
+from .dual_contour import DualContourLeastSquares, DualContourRenderer, minecraft_render
 from .flat import FlatRenderer, render_flat
 from .image import (
     bw_conversion,
@@ -20,9 +21,12 @@ from .mesh_export import (
 from .stl import read_binary_stl, write_binary_stl, write_binary_stl_indexed, write_stl_file
 
 __all__ = [
+    "DualContourLeastSquares",
+    "DualContourRenderer",
     "FlatRenderer",
     "bw_conversion",
     "iq_debug_conversion",
+    "minecraft_render",
     "read_binary_stl",
     "render_distance_field",
     "render_flat",

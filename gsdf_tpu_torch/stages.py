@@ -16,6 +16,13 @@ time / wall time. Triangle counts must equal the golden counts.
 runs the compact and indexed rows through K1's parametric form (the
 kernel library of the part's structure, eval/parametric.py).
 
+    python -m gsdf_tpu_torch.stages --dc
+
+runs dual contouring instead: the bolt at resdiv 256, 384 and 512 (the
+last on the chunk route) through DualContourRenderer's stages by hand,
+K5 (with its one count read), fetch, host quad emission, STL encode; past
+mono_voxels a K5 and a fetch per chunk.
+
     python -m gsdf_tpu_torch.stages --wrappers
 
 instead splits one call of each marching-cubes wrapper (K3, K3 with the
@@ -39,6 +46,7 @@ import torch
 from . import flagships, native
 from .eval.grid_kernels import classified_grid
 from .ops import compact_field, fused_welded, mc_emit
+from .render import dual_contour
 from .render.flat import FlatRenderer
 from .render.stl import stl_header
 
@@ -49,6 +57,11 @@ PARTS = {
     ("bolt", 300): flagships.GOLDEN_BOLT_TRIS,
     ("knurled", 350): flagships.GOLDEN_KNURLED_TRIS,
 }
+
+
+#: the dual contouring rows: the bolt's goldens (tests/test_dual_contour.py:191,
+#: tests/test_golden_scale.py:30-31); resdiv 512 is past mono_voxels
+DC_PARTS = {("bolt", 256): 99_844, ("bolt", 384): 226_340, ("bolt", 512): 403_104}
 
 
 class Clock:
@@ -143,6 +156,17 @@ def indexed(fr, c, parametric=False):
     return len(tri), nbytes
 
 
+def dc(dcr, c, parametric=False):
+    """One DualContourRenderer render by hand: K5 (its count read
+    included) and the fetch, per chunk past mono_voxels, then the host
+    quad emission and the STL encode."""
+    chunks, space = dcr.chunks()
+    tris, _, _, nbytes = dual_contour.mesh_chunks(dcr.s, dcr.res, dcr.contourer, dcr.device,
+                                                  parametric, chunks, space, c.lap)
+    _encode(c, soup=tris)
+    return len(tris), nbytes
+
+
 def device_busy_ms(fn):
     """(device ms summed by torch.profiler, wall ms) of one call of fn."""
     from torch.autograd import DeviceType
@@ -211,12 +235,37 @@ def wrappers(trees, dev, card):
     return out
 
 
+def measure(render, golden, runs):
+    """One row: render(Clock()) `runs` times, each holding the golden
+    count; the median of each stage over the runs after the first two, and
+    the device ms torch.profiler sums over one more render (the most of
+    three such renders)."""
+    laps = []
+    for _ in range(runs):
+        c = Clock()
+        ntris, nbytes = render(c)
+        if ntris != golden:
+            raise RuntimeError(f"{ntris} triangles, golden {golden}")
+        laps.append(c.ms)
+    keep = laps[2:] or laps
+    stages = {k: statistics.median(r[k] for r in keep) for k in keep[0]}
+    total = statistics.median(sum(r.values()) for r in keep)
+    # a trace can miss device events, never add any: the most of three
+    busy, wall = max(device_busy_ms(lambda: render(Clock())) for _ in range(3))
+    kernel_ms = sum(v for k, v in stages.items() if k.startswith("K"))
+    return {"stages_ms": stages, "total_ms": total, "tris": ntris, "fetch_mb": nbytes / 1e6,
+            "kernel_stage_share": kernel_ms / total, "device_ms": busy,
+            "profiled_wall_ms": wall, "idle_share": 1 - busy / wall}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--runs", type=int, default=7, help="renders per row; the first two warm up")
     ap.add_argument("--out", help="also write the rows to this JSON file")
     ap.add_argument("--parametric", action="store_true",
                     help="the compact and indexed rows through K1's parametric form")
+    ap.add_argument("--dc", action="store_true",
+                    help="dual contouring rows (the bolt at resdiv 256, 384, 512) instead")
     ap.add_argument("--wrappers", action="store_true",
                     help="split each marching-cubes wrapper's call into host and device time")
     args = ap.parse_args(argv)
@@ -240,36 +289,28 @@ def main(argv=None):
              for part in list(PARTS)[:3]]
     if args.parametric:  # K1p's rows: the soup, and flange 800's weld of it, have none
         rows = [r for r in rows if r[0] != "soup" and not (r[0] == "indexed" and r[2][1] == 800)]
+    if args.dc:
+        rows = [("dc", None, part) for part in DC_PARTS]
     out = {"card": card}
     for path, fn, (name, resdiv) in rows:
         tree = trees[name]
-
-        def render(c):
-            fr = FlatRenderer(tree, tree.bounds().diagonal() / resdiv, dev)
-            return fn(fr, c, args.parametric)
-
-        runs = []
-        for _ in range(args.runs):
-            c = Clock()
-            ntris, nbytes = render(c)
-            if ntris != PARTS[(name, resdiv)]:
-                raise RuntimeError(f"{path} {name}@{resdiv}: {ntris} triangles, "
-                                   f"golden {PARTS[(name, resdiv)]}")
-            runs.append(c.ms)
-        keep = runs[2:] or runs
-        stages = {k: statistics.median(r[k] for r in keep) for k in keep[0]}
-        total = statistics.median(sum(r.values()) for r in keep)
-        busy, wall = device_busy_ms(lambda: render(Clock()))
-        kernel_ms = sum(v for k, v in stages.items() if k.startswith("K"))
-        out[f"{path} {name}@{resdiv}"] = {
-            "stages_ms": stages, "total_ms": total, "tris": ntris, "fetch_mb": nbytes / 1e6,
-            "kernel_stage_share": kernel_ms / total, "device_ms": busy,
-            "profiled_wall_ms": wall, "idle_share": 1 - busy / wall,
-        }
-        print(f"{path} {name}@{resdiv}: " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
-              + f"; total {total:.3f} ms, kernel stages {kernel_ms / total:.3f} of it, "
-              f"{ntris} tris, fetch {nbytes / 1e6:.2f} MB, device {busy:.3f} ms, "
-              f"idle {1 - busy / wall:.3f} [{card}]", flush=True)
+        res = tree.bounds().diagonal() / resdiv
+        if path == "dc":
+            def render(c):
+                return dc(dual_contour.DualContourRenderer(tree, res, device=dev), c,
+                          args.parametric)
+            golden = DC_PARTS[(name, resdiv)]
+        else:
+            def render(c, fn=fn):
+                return fn(FlatRenderer(tree, res, dev), c, args.parametric)
+            golden = PARTS[(name, resdiv)]
+        out[f"{path} {name}@{resdiv}"] = row = measure(render, golden, args.runs)
+        print(f"{path} {name}@{resdiv}: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in row["stages_ms"].items())
+              + f"; total {row['total_ms']:.3f} ms, kernel stages "
+              f"{row['kernel_stage_share']:.3f} of it, {row['tris']} tris, fetch "
+              f"{row['fetch_mb']:.2f} MB, device {row['device_ms']:.3f} ms, idle "
+              f"{row['idle_share']:.3f} [{card}]", flush=True)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(out, f, indent=1)

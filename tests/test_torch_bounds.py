@@ -75,3 +75,67 @@ def test_k1_plain_counts_tree_and_classification():
     origin, res = np.float32([-1.2, -1.2, -1.2]), np.float32(0.4)
     _, ops = bounds.count_ops(gk.classified_grid_plain, tree, origin, res, shape, "cpu")
     assert ops == SPHERE_OPS * 4 * 5 * 6 + 10 * 3 * 4 * 5 + 2 * (4 + 5 + 6)
+
+
+#: K5's floating-point work per active edge: t (eq, sub, where, div, neg)
+#: and flip (sub, lt); the crossing point (3 mul, 3 add, then t * res added
+#: on its axis); the six offset points (18 add/sub), the three differences
+#: and their scaling (6)
+DC_EDGE_OPS = 7 + 8 + 24
+#: per row a voxel adds: q = (p - origin) / res - index (9), n (n . q) and
+#: the upper triangle of n n^T (14), and the 13 sums
+DC_ROW_OPS = 9 + 14 + 13
+#: per live voxel: the bias point and shifted right-hand side (27), 15
+#: Jacobi rotations of 50 operations each, the floored solve and clamp (53),
+#: the vertex (12)
+DC_VOXEL_OPS = 27 + 15 * 50 + 53 + 12
+
+
+def test_dc_mesh_bytes_and_ops():
+    """K5's bytes are its outputs; its plain version's operations are
+    exactly K5's work: the tree at every corner and 6 times at every active
+    edge, t, flip and the normal at every active edge, a row for each
+    contribution that an active edge makes to an owned voxel, the solve
+    at every live voxel. Nothing on inactive edges or absent rows."""
+    from gsdf_tpu_torch.ops import dc_emit
+    from gsdf_tpu_torch.ops.dc_tables import OFF5
+
+    assert bounds.kernel_bytes("dc_mesh", edges=100, voxels=90) == 500 + 1080
+    assert bounds.kernel_bytes("dc_mesh_param", edges=100, voxels=90, n_params=7) == 1636
+    tree = Builder().new_sphere(1.0)
+    origin, res = np.full(3, -1.3, np.float32), 0.25
+    for shape, n_own in (((12, 12, 12), None), ((7, 12, 12), 5)):
+        mesh, ops = bounds.count_ops(dc_emit.dc_mesh_plain, tree, origin, res, shape, "cpu",
+                                     2e-8, 1e-3, 3, n_own)
+        nk, nj, ni = shape
+        nx, ny, own = ni - 1, nj - 1, n_own or nk - 1
+        eid = mesh.eids.numpy().astype(np.int64)
+        nvox = (nk - 1) * ny * nx
+        ax, lin = eid // nvox, eid % nvox
+        i, j, k = lin % nx, lin // nx % ny, lin // (nx * ny)
+        rows = sum(int(((0 <= i + di) & (i + di < nx) & (0 <= j + dj) & (j + dj < ny)
+                        & (0 <= k + dk) & (k + dk < own))[ax == a].sum())
+                   for a in range(3) for di, dj, dk in OFF5[a])
+        assert len(eid) > 50 and rows > 4 * len(eid) // 2
+        assert ops == (SPHERE_OPS * (nk * nj * ni + 6 * len(eid)) + 2 * (nk + nj + ni)
+                       + DC_EDGE_OPS * len(eid) + DC_ROW_OPS * rows
+                       + DC_VOXEL_OPS * len(mesh.verts))
+
+
+def test_on_card_ms_takes_the_fullest_trace(monkeypatch):
+    """A profiler trace can miss a call's device events, never add any: the
+    smoke's on-card ms is the most of its traces, and a call whose every
+    trace missed them all is None instead of failing the run."""
+    import chip_smoke
+
+    traces = {"a": iter([0.0198, 0.1805, 0.1790]), "b": iter([])}
+
+    def fake(fn):
+        try:
+            return {"device_ms": next(traces[fn])}
+        except StopIteration:
+            raise RuntimeError("torch.profiler saw no kernel") from None
+
+    monkeypatch.setattr(chip_smoke, "device_launches", fake)
+    monkeypatch.setattr(chip_smoke, "log", lambda msg: None)
+    assert chip_smoke.on_card_ms("a", "b") == (0.1805, None)

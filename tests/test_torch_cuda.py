@@ -16,12 +16,18 @@ every path's one count read before its fetch. Last, the parametric forms
 K1p and KPp: against plain and against the baked kernels (bit for bit), the
 same library with another tree's values, by value and through a pointer,
 the edit loop with no compiler run and no library loaded, and a failed
-build raising instead of falling back.
+build raising instead of falling back. Then K5 and K5p (dual contouring)
+against their plain version on every tree in both modes and on a slab at
+k0 != 0 with a halo layer, K5's grid pass equal to K2's in every float,
+one count read before the fetch, the bolt's three goldens and the DC edit
+loop.
 
 Tolerances: case grids, ids, counts, K3's block offsets and edge ranks and tri_idx exact; t, soup and welded
 vertices bit-identical (the kernels are built -fmad=false and fed the
 same grid); distances within 1e-5 * max(1, |d|), the last-ulp difference
-of CUDA's atan2f and torch.atan2.
+of CUDA's atan2f and torch.atan2. K5: edge ids, flips and live-voxel
+counts exact, vertices within 1e-4 * res of the plain version (measured
+0).
 """
 import numpy as np
 import pytest
@@ -785,3 +791,131 @@ def test_parametric_launch_checks_the_vector_length(cuda_device):
     with pytest.raises(RuntimeError, match="launch failed"):
         kernels.launch("point_eval_param", cuda_device, lib.gsdf_point_eval_param,
                        pos.data_ptr(), 4, out.data_ptr(), p.ctypes.data, 2)
+
+
+# --- K5 / K5p: dual contouring -------------------------------------------
+def _dc_case(name, cuda_device, resdiv=64, chiseled=False):
+    from gsdf_tpu_torch.render.dual_contour import DualContourLeastSquares, DualContourRenderer
+
+    tree = TREES[name]()
+    c = DualContourLeastSquares(chiseled)
+    dc = DualContourRenderer(tree, tree.bounds().diagonal() / resdiv, c, device=cuda_device)
+    return tree, dc, c
+
+
+def _dc_against_plain(tree, dc, c, cuda_device, shape, k0=0, n_own=None, parametric=False):
+    """K5 (K5p) through its wrapper against dc_mesh_plain: edge ids, flips
+    and the live-voxel count exact, vertices within 1e-4 * res (measured
+    0); the grid pass (from a call of its own) equal to K2's in every
+    float. Returns the kernel's edge ids and vertices."""
+    from gsdf_tpu_torch.ops import dc_emit
+
+    name = "dc_mesh_param" if parametric else "dc_mesh"
+    before = kernels.LAUNCHES[name]
+    mesh = dc_emit.dc_mesh(tree, dc.origin, dc.res, shape, cuda_device, c.norm_step,
+                           c.sqrt_lambda, k0, n_own, parametric)
+    assert kernels.LAUNCHES[name] == before + 1
+    grid = dc_emit._launch_k5(tree, dc.origin, dc.res, shape, cuda_device, n_own, k0,
+                              parametric, *dc_emit.qef_constants(c.norm_step, c.sqrt_lambda),
+                              False, True)[-1]
+    ref = dc_emit.dc_mesh_plain(tree, dc.origin, dc.res, shape, cuda_device, c.norm_step,
+                                c.sqrt_lambda, k0, n_own)
+    k2 = gk.evaluate_grid(tree, dc.origin, dc.res, shape, cuda_device, k0)
+    torch.cuda.synchronize()
+    assert torch.equal(mesh.eids, ref.eids) and torch.equal(mesh.flips, ref.flips)
+    assert mesh.verts.shape == ref.verts.shape
+    if len(mesh.verts):
+        assert float((mesh.verts - ref.verts).abs().max()) <= 1e-4 * float(dc.res)
+    assert torch.equal(grid, k2)
+    return mesh.eids, mesh.verts
+
+
+@pytest.mark.parametrize("chiseled", [False, True])
+@pytest.mark.parametrize("name", list(TREES))
+def test_dc_kernels_match_plain(name, chiseled, cuda_device):
+    """K5 and K5p on every tree, both modes, against the plain version."""
+    tree, dc, c = _dc_case(name, cuda_device, chiseled=chiseled)
+    e, v = _dc_against_plain(tree, dc, c, cuda_device, dc.shape())
+    ep, vp = _dc_against_plain(tree, dc, c, cuda_device, dc.shape(), parametric=True)
+    assert len(e) > 100 and torch.equal(e, ep) and torch.equal(v, vp)
+
+
+@pytest.mark.parametrize("chiseled", [False, True])
+@pytest.mark.parametrize("name,resdiv", [(n, 64) for n in TREES] + [("bolt", 256)])
+def test_dc_edges_match_plain(name, resdiv, chiseled, cuda_device):
+    """K5's edge form (dc_edges: what the host_qef=True render reads, t
+    and the raw normals) against dc_edges_plain, every value exact."""
+    from gsdf_tpu_torch.ops import dc_emit
+
+    tree, dc, c = _dc_case(name, cuda_device, resdiv, chiseled)
+    before = kernels.LAUNCHES["dc_mesh"]
+    e = dc_emit.dc_edges(tree, dc.origin, dc.res, dc.shape(), cuda_device, c.norm_step)
+    assert kernels.LAUNCHES["dc_mesh"] == before + 1
+    ref = dc_emit.dc_edges_plain(tree, dc.origin, dc.res, dc.shape(), cuda_device, c.norm_step)
+    assert len(e.eids) > 100
+    for got, want in zip(e, ref):
+        assert torch.equal(got, want)
+
+
+def test_dc_kernel_on_a_slab(cuda_device):
+    """A slab at k0 != 0 whose top edge layer is a halo (n_own < layers)."""
+    tree, dc, c = _dc_case("solid", cuda_device, resdiv=80)
+    nk, nj, ni = dc.shape()
+    k0, own = nk // 2 - 3, 5
+    for parametric in (False, True):
+        e, v = _dc_against_plain(tree, dc, c, cuda_device, (own + 2, nj, ni), k0, own,
+                                 parametric)
+        assert len(e) > 100 and len(v) > 100
+
+
+def test_dc_reads_counts_once(cuda_device):
+    """Up to its fetch a DC render synchronises once: K5's count read."""
+    from gsdf_tpu_torch.ops import dc_emit
+
+    tree, dc, c = _dc_case("bolt", cuda_device, resdiv=128)
+    dc.render()  # builds the kernel
+    torch.cuda.synchronize()
+    _, syncs = _synchronising(lambda: dc_emit.dc_mesh(
+        tree, dc.origin, dc.res, dc.shape(), cuda_device, c.norm_step, c.sqrt_lambda))
+    assert len(syncs) == 1, syncs
+
+
+@pytest.mark.parametrize("resdiv,golden", [(256, 99_844), (384, 226_340), (512, 403_104)])
+def test_dc_bolt_goldens_on_card(resdiv, golden, cuda_device):
+    """The bolt through K5: the JAX package's goldens, resdiv 512 on the
+    chunk route, the host oracle at 256."""
+    from gsdf_tpu_torch.render.dual_contour import DualContourRenderer
+
+    bolt = flagships.build_bolt()
+    res = bolt.bounds().diagonal() / resdiv
+    dc = DualContourRenderer(bolt, res, device=cuda_device)
+    chunked = dc.nx * dc.ny * dc.nz > dc.mono_voxels
+    assert chunked == (resdiv == 512)
+    before = kernels.LAUNCHES["dc_mesh"]
+    tris = dc.render()
+    assert len(tris) == golden
+    assert kernels.LAUNCHES["dc_mesh"] > before
+    if resdiv == 256:
+        assert len(DualContourRenderer(bolt, res, device=cuda_device, host_qef=True).render()) \
+            == golden
+
+
+def test_dc_edit_loop_builds_nothing(cuda_device):
+    """Three rebinds through K5p: no compiler run, no library loaded, each
+    mesh equal to the baked render of the edited tree within 1e-6."""
+    from gsdf_tpu_torch.render.dual_contour import DualContourRenderer
+
+    part, cyl = _boss_part()
+    first = DualContourRenderer(part, 0.03, device=cuda_device).render(parametric=True)
+    counts, libs = dict(_build.COUNTS), len(gk._libs)
+    sizes = [len(first)]
+    for r in (0.35, 0.5, 0.4):
+        part.rebind({cyl: {"r": r}})
+        tris = DualContourRenderer(part, 0.03, device=cuda_device).render(parametric=True)
+        assert dict(_build.COUNTS) == counts and len(gk._libs) == libs
+        baked = DualContourRenderer(part, 0.03, device=cuda_device).render()
+        assert tris.shape == baked.shape
+        np.testing.assert_allclose(tris, baked, rtol=0, atol=1e-6)
+        sizes.append(len(tris))
+        counts, libs = dict(_build.COUNTS), len(gk._libs)  # the baked render built one
+    assert len(set(sizes)) == len(sizes)
