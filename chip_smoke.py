@@ -115,6 +115,32 @@
    test_dc_parametric_edit_zero_recompile: three rebinds through K5p with
    no compiler run and no library loaded, each mesh equal to the baked
    render of the edited tree within 1e-6.
+   Then the pruned slice (render/pruned.py), on the default device:
+   K6c (csrc/tile_prune.cu), K6a (csrc/tile_atlas.cu), their parametric
+   forms K6cp and K6ap (built for every 3D tree beside its K1), the id map
+   (csrc/tile_global_ids.cu) and K7s's tile mode were held in phase 2
+   against their plain versions on every 3D tree at diag/64 with tiles of
+   8 and of a size that leaves edge tiles overhanging (keep masks, counts,
+   case bytes, ids and the soup exact, the number of differing floats and
+   bytes printed; the atlas equal to K1's grid at the same corners bit for
+   bit), and again at the main path's shapes: the coarse grid and the
+   first batch of 2,048 kept tiles of every full-width render below.
+   PrunedRenderer(part, diag/resdiv).render_compact() on flange 400,
+   showerhead 350, bolt 300, knurled 350, flange 800 and flange 1000
+   (102M cubes, golden 2,660,772): the triangle count beside the golden,
+   the payload (ids, cases, t) equal to the dense compact_field_render
+   payload, or where the prune drops cubes (a field that is not
+   1-Lipschitz) to the plain pruned version, with the dropped ids; tiles
+   kept, evaluations(), total_pruned() and batches equal to what the
+   plain coarse pass's keep count gives, the synchronising calls of one
+   compact_payload, launches per render exact (one K6c, then one K6a, K3,
+   id map and K4 a batch), no fallback; warm SDF->STL in turns with the dense compact render, median
+   of 5; device ms of one render by torch.profiler. render() on flange 400
+   and showerhead 350 equal to FlatRenderer.render() as sorted rows,
+   read_triangles' batch count; the edit loop (3 rebinds through
+   render_compact(parametric=True) on the pinned flange: 0 compiler runs,
+   0 libraries loaded, each mesh equal to the dense parametric render);
+   each pruned kernel timed at flange 400 against its plain version.
 4. Fails unless each kernel launched on every path that runs it, once per
    render and slab (the wrapper calls counted per render of each path are
    printed and held to what the path should make); prints the device
@@ -569,6 +595,14 @@ KERNELS = (
     ("dc_mesh", "gsdf_tpu_torch/csrc/dc_mesh.cu", "gsdf_tpu/render/dual_contour.py:179"),
     ("dc_mesh_param", "gsdf_tpu_torch/csrc/dc_mesh.cu",
      "gsdf_tpu/render/dual_contour.py:588"),
+    # the pruned renderer: coarse pass and tile atlas, baked and parametric,
+    # and the atlas's id map
+    ("tile_prune", "gsdf_tpu_torch/csrc/tile_prune.cu", "gsdf_tpu/render/pruned.py:41"),
+    ("tile_atlas", "gsdf_tpu_torch/csrc/tile_atlas.cu", "gsdf_tpu/render/pruned.py:101"),
+    ("tile_prune_param", "gsdf_tpu_torch/csrc/tile_prune.cu", "gsdf_tpu/render/pruned.py:75"),
+    ("tile_atlas_param", "gsdf_tpu_torch/csrc/tile_atlas.cu", "gsdf_tpu/render/pruned.py:236"),
+    ("tile_global_ids", "gsdf_tpu_torch/csrc/tile_global_ids.cu",
+     "gsdf_tpu/ops/compact_field.py:311"),
 )
 
 
@@ -661,6 +695,266 @@ def mc_compare(name, tree, resdiv, dev, gk, slab=None):
     sizes = {"corners": dist.numel(), "cubes": cases.numel(), "active": len(ids),
              "n_t": len(t), "tris": len(tris), "verts": len(verts)}
     return {k: err for k, (_, err) in checks.items()}, (dist, cases, comp, fr, sizes)
+
+
+#: the pruned renderer's full-width renders (PrunedRenderer.render_compact):
+#: the compact goldens, and flange 1000, the size the JAX package's
+#: examples/prune_scale.py was written for
+PRUNED_GRIDS = (("flange", 400), ("showerhead", 350), ("bolt", 300), ("knurled", 350),
+                ("flange", 800), ("flange", 1000))
+#: the kernels of one pruned compact render: K6c once, then per batch K6a,
+#: K3, the id map and K4 (and the parametric forms of K6c, K6a)
+PRUNED_PATH = ("tile_prune", "tile_atlas", "compact_active", "tile_global_ids", "compact_emit")
+PRUNED_PARAM_PATH = ("tile_prune_param", "tile_atlas_param") + PRUNED_PATH[2:]
+
+
+def tiles_of(keep, dev):
+    """The kept tiles of a keep mask as the renderer lists them: (T, 3)
+    int32 [i, j, k] rows in np.argwhere order, on `dev`."""
+    import numpy as np
+    import torch
+
+    rows = np.argwhere(keep.cpu().numpy())[:, ::-1]
+    return torch.from_numpy(np.ascontiguousarray(rows, dtype=np.int32)).to(dev)
+
+
+def atlas_against_grid(dist, cases, tiles, S, d1, c1):
+    """(floats, case bytes) in which a tile atlas differs from the whole
+    grid (d1 corners, c1 cases, as K1 made them) at the same global
+    corners and cubes inside the grid."""
+    import torch
+
+    nk, nj, ni = d1.shape
+    T, P, dev = tiles.shape[0], S + 1, dist.device
+    t = tiles.to(torch.int64)
+    loc = torch.arange(P, device=dev)
+    gi, gj, gk = (t[:, c, None] * S + loc for c in range(3))  # (T, P) each
+    inside = ((gk < nk)[:, :, None, None] & (gj < nj)[:, None, :, None]
+              & (gi < ni)[:, None, None, :])
+    lin = (gk.clamp(max=nk - 1)[:, :, None, None] * nj + gj.clamp(max=nj - 1)[:, None, :, None]) \
+        * ni + gi.clamp(max=ni - 1)[:, None, None, :]
+    floats = int(((dist.view(T, P, P, P) != d1.reshape(-1)[lin]) & inside).sum())
+    ka = torch.arange(T * P - 1, device=dev)
+    lk, cloc = ka % P, torch.arange(S, device=dev)
+    ck = t[ka // P, 2] * S + lk
+    cj, ci = t[ka // P, 1, None] * S + cloc, t[ka // P, 0, None] * S + cloc
+    cube_in = (((lk < S) & (ck < nk - 1))[:, None, None] & (cj < nj - 1)[:, :, None]
+               & (ci < ni - 1)[:, None, :])
+    clin = (ck.clamp(max=nk - 2)[:, None, None] * (nj - 1) + cj.clamp(max=nj - 2)[:, :, None]) \
+        * (ni - 1) + ci.clamp(max=ni - 2)[:, None, :]
+    bytes_ = int(((cases != c1.reshape(-1)[clin]) & cube_in).sum())
+    return floats, bytes_
+
+
+def pruned_compare(name, tree, other, resdiv, S, dev, gk, first_batch=False):
+    """K6c and K6a (baked, parametric, and the parametric library with
+    `other`'s values: a structurally equal tree), the id map and K7s's tile
+    mode against their plain versions on the card at tile size S; K6a's
+    atlas and case grid against K1's whole grid at the same corners and
+    cubes. Keep masks, counts, case bytes, ids and the soup must be equal,
+    the atlas's distances within TOL of plain (an ulp of CUDA's atan2f, as
+    for K1) and equal to K1's bit for bit. The atlas holds every kept tile,
+    or with first_batch the renderer's first batch of them (the main
+    path's shapes). Returns ({kernel: max abs error}, {what: floats or
+    bytes differing})."""
+    import torch
+    from gsdf_tpu_torch.ops import compact_field, mc_emit
+    from gsdf_tpu_torch.render.flat import FlatRenderer
+    from gsdf_tpu_torch.render.pruned import PrunedRenderer
+
+    pr = PrunedRenderer(tree, tree.bounds().diagonal() / resdiv, tile_size=S, device=dev)
+    shape, dims, grid = (pr.tz, pr.ty, pr.tx), pr.dims(), (pr.origin, pr.res, S)
+    fr = FlatRenderer(tree, pr.res, dev)
+    d1, c1 = gk.classified_grid(tree, fr.origin, fr.res, fr.shape(), dev)
+    err = {}
+    diff = {"keep bytes": 0, "atlas floats from plain": 0, "atlas floats from K1": 0,
+            "case bytes": 0, "ids": 0, "tile soup floats": 0}
+    tiles = None
+    for label, t, par in (("", tree, False), ("_param", tree, True), ("_param", other, True)):
+        keep, count = gk.coarse_keep(t, *grid, shape, dev, par)
+        pkeep, pcount = gk.coarse_keep_plain(t, *grid, shape, dev)
+        torch.cuda.synchronize()
+        n = int((keep != pkeep).sum()) + int(int(count) != int(pcount))
+        diff["keep bytes"] += n
+        err["tile_prune" + label] = max(err.get("tile_prune" + label, 0.0), float(n))
+        if n:
+            raise RuntimeError(f"tile_prune{label} {name} S={S}: {n} keep bytes or the count "
+                               "differ from plain")
+        if tiles is None:
+            n_kept = int(count)
+            tiles = tiles_of(keep, dev)[: pr.tiles_per_batch if first_batch else None]
+        if not len(tiles):
+            raise RuntimeError(f"{name} S={S}: no tile kept, nothing compared")
+        dist, cases = gk.tile_grid(t, tiles, *grid, dims, dev, par)
+        pdist, pcases = gk.tile_grid_plain(t, tiles, *grid, dims, dev)
+        torch.cuda.synchronize()
+        err["tile_atlas" + label] = max(err.get("tile_atlas" + label, 0.0), held_to_plain(
+            f"tile_atlas{label:6s} {name:14s} S={S} T={len(tiles)}"
+            + (" other values" if t is other else ""), dist, pdist))
+        diff["atlas floats from plain"] += int((dist != pdist).sum())
+        n_case = int((cases != pcases).sum())
+        diff["case bytes"] += n_case
+        if t is tree:  # the atlas is K1's grid at the same corners, bit for bit
+            if not par:
+                atlas = dist, cases  # the id map and K7s's tile mode run on this one
+            floats, bytes_ = atlas_against_grid(dist, cases, tiles, S, d1, c1)
+            diff["atlas floats from K1"] += floats
+            n_case += bytes_
+        if n_case or diff["atlas floats from K1"]:
+            raise RuntimeError(f"tile_atlas{label} {name} S={S}: {n_case} case bytes differ "
+                               f"from plain or K1, {diff['atlas floats from K1']} floats from K1")
+    dist, cases = atlas
+    comp = mc_emit.compact_active(cases)
+    ids = compact_field.tile_global_ids(comp.ids, tiles, S, dims)
+    pids = compact_field.tile_global_ids_plain(comp.ids, tiles, S, dims)
+    tris = mc_emit.emit_triangles(dist, cases, comp.ids, pr.origin, pr.res, 0, comp.n_tris,
+                                  comp.tri_offsets, tiles=tiles)
+    ptris = mc_emit.emit_triangles_plain(dist, cases, comp.ids, pr.origin, pr.res, 0, tiles)
+    torch.cuda.synchronize()
+    diff["ids"] += int((ids != pids).sum())
+    same_soup = tris.shape == ptris.shape
+    diff["tile soup floats"] += int((tris != ptris).sum()) if same_soup else tris.numel() + 1
+    err["tile_global_ids"] = _max_abs(ids, pids)
+    err["emit_soup"] = _max_abs(tris, ptris) if same_soup else float("inf")
+    if diff["ids"] or diff["tile soup floats"]:
+        raise RuntimeError(f"{name} S={S}: the id map or K7s's tile mode differs from plain: "
+                           f"{diff}")
+    log(f"  pruned kernels {name:14s} resdiv {resdiv} S={S:2d}: {pr.tx * pr.ty * pr.tz} tiles, "
+        f"{n_kept} kept, {len(tiles)} in the atlas, {len(comp.ids)} active, {len(tris)} "
+        f"triangles; differing from plain or K1: {diff}")
+    return err, diff
+
+
+def pruned_payload_plain(tree, res, dev):
+    """The pruned compact payload through the plain versions alone (K6c,
+    K6a, K3, the id map, K4) on `dev`, batch by batch as the renderer runs:
+    (ids, cases, t)."""
+    import numpy as np
+    from gsdf_tpu_torch.eval import grid_kernels as gk
+    from gsdf_tpu_torch.ops import compact_field
+    from gsdf_tpu_torch.render.pruned import PrunedRenderer
+
+    pr = PrunedRenderer(tree, res, device=dev)
+    keep, _ = gk.coarse_keep_plain(tree, pr.origin, pr.res, pr.S, (pr.tz, pr.ty, pr.tx), dev)
+    tiles = tiles_of(keep, dev)
+    parts = []
+    for start in range(0, len(tiles), pr.tiles_per_batch):
+        batch = tiles[start : start + pr.tiles_per_batch]
+        dist, cases = gk.tile_grid_plain(tree, batch, pr.origin, pr.res, pr.S, pr.dims(), dev)
+        ids, idx8, t = compact_field.tile_compact_emit_plain(dist, cases, batch, pr.dims())
+        parts.append((ids.cpu().numpy().view(np.uint32), idx8.cpu().numpy(), t.cpu().numpy()))
+    return compact_field.merge_compact_payloads(parts)
+
+
+def graph_ms(fn, reps: int = 20) -> float | None:
+    """Device ms of one call of fn from a CUDA graph of `reps` calls,
+    replayed three times between CUDA events: the kernels' time with the
+    host's launch work taken out (fn must not synchronise). None, logged,
+    where the capture fails: a time fails nothing."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    try:
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        log(f"  graph timing: {e}")
+        return None
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (3 * reps)
+
+
+def pruned_kernel_times(tree, resdiv, dev, gk, n_params, card):
+    """Each pruned kernel on the part at diag/resdiv against its plain
+    version, in turns (plain, kernel, kernel, plain): K6c on the coarse
+    grid, K6a, the id map and K7s's tile mode on the first batch of kept
+    tiles; the parametric forms also in turns against the baked ones.
+    "ms" is the wrapper's by CUDA events (host-bound on these sizes),
+    "graph_ms" the device time of one call from a CUDA graph (graph_ms),
+    beside the bound (ops of the plain version on these inputs, bytes by
+    bounds.kernel_bytes). Phase 2 holds every kernel's output on these
+    same inputs to its plain version (pruned_compare, first_batch=True).
+    Returns {kernel: row}."""
+    import torch
+    from gsdf_tpu_torch import bounds
+    from gsdf_tpu_torch.ops import compact_field, mc_emit
+    from gsdf_tpu_torch.render.pruned import PrunedRenderer
+
+    pr = PrunedRenderer(tree, tree.bounds().diagonal() / resdiv, device=dev)
+    shape, dims, S = (pr.tz, pr.ty, pr.tx), pr.dims(), pr.S
+    batch = tiles_of(gk.coarse_keep(tree, pr.origin, pr.res, S, shape, dev)[0],
+                     dev)[: pr.tiles_per_batch]
+    coarse = (tree, pr.origin, pr.res, S, shape, dev)
+    atlas = (tree, batch, pr.origin, pr.res, S, dims, dev)
+    dist, cases = gk.tile_grid(*atlas)
+    comp = mc_emit.compact_active(cases)
+    o, r = pr.origin, pr.res
+    versions = {
+        "tile_prune": (lambda: gk.coarse_keep(*coarse), lambda: gk.coarse_keep_plain(*coarse)),
+        "tile_prune_param": (lambda: gk.coarse_keep(*coarse, True),
+                             lambda: gk.coarse_keep_plain(*coarse)),
+        "tile_atlas": (lambda: gk.tile_grid(*atlas), lambda: gk.tile_grid_plain(*atlas)),
+        "tile_atlas_param": (lambda: gk.tile_grid(*atlas, True),
+                             lambda: gk.tile_grid_plain(*atlas)),
+        "tile_global_ids": (lambda: compact_field.tile_global_ids(comp.ids, batch, S, dims),
+                            lambda: compact_field.tile_global_ids_plain(comp.ids, batch, S,
+                                                                        dims)),
+        "emit_soup_tiles": (lambda: mc_emit.emit_triangles(dist, cases, comp.ids, o, r, 0,
+                                                           comp.n_tris, comp.tri_offsets,
+                                                           tiles=batch),
+                            lambda: mc_emit.emit_triangles_plain(dist, cases, comp.ids, o, r,
+                                                                 0, batch)),
+    }
+    T, P = len(batch), S + 1
+    ksizes = {"tile_prune": {"tiles": math.prod(shape)},
+              "tile_atlas": {"corners": T * P**3, "cubes": (T * P - 1) * S * S, "tiles": T},
+              "tile_global_ids": {"active": len(comp.ids), "tiles": T},
+              "emit_soup_tiles": {"active": len(comp.ids), "tris": comp.n_tris, "tiles": T}}
+    row = {}
+    for k, (kernel, plain) in versions.items():
+        base = k.replace("_param", "")
+        _, ops = bounds.count_ops(plain)  # the plain version on these inputs
+        nbytes = bounds.kernel_bytes(k.replace("_tiles", ""), **ksizes[base],
+                                     n_params=n_params if k != base else 0)
+        ms, plain_ms = in_turns(kernel, plain)
+        b = bounds.bound(ops, nbytes)
+        dev_ms = graph_ms(kernel)
+        row[k] = {"ms": ms, "plain_ms": plain_ms, "library_ms": None, **b,
+                  "share": b["bound_ms"] / ms, "graph_ms": dev_ms,
+                  "device_share": dev_ms and b["bound_ms"] / dev_ms,
+                  "on_device": device_reading(kernel), **ksizes[base]}
+        if k != base:  # baked, parametric, parametric, baked
+            row[k]["ms"], row[k]["baked_ms"] = in_turns(kernel, versions[base][0])
+            row[k]["share"] = b["bound_ms"] / row[k]["ms"]
+            row[k]["baked_graph_ms"] = graph_ms(versions[base][0])
+    log(f"  device ms pruned {resdiv} (coarse grid {shape}, first batch {T} tiles, "
+        f"{len(comp.ids)} active): "
+        + ", ".join(f"{k} {v['ms']:.4f} (graph {v['graph_ms'] and round(v['graph_ms'], 4)}"
+                    + (f", baked graph {v['baked_graph_ms'] and round(v['baked_graph_ms'], 4)}"
+                       f", baked in turns {v['baked_ms']:.4f}" if "baked_ms" in v else "")
+                    + f", on the card "
+                    f"{None if v['on_device'] is None else round(v['on_device']['device_ms'], 4)}"
+                    f", bound {v['bound_ms']:.4f} by {v['bound_by']}, share {v['share']:.3f} "
+                    f"/ device {v['device_share'] and round(v['device_share'], 3)}, plain "
+                    f"{v['plain_ms']:.3f})" for k, v in row.items())
+        + f"  [{card}]")
+    return row
 
 
 def dc_compare(label, tree, res, dev, slab=None, chiseled=False):
@@ -837,10 +1131,11 @@ def main() -> int:
         from gsdf_tpu_torch.eval import point_kernels as pk
         from gsdf_tpu_torch.forge import threads
         from gsdf_tpu_torch.geometry.boxes import Box
-        from gsdf_tpu_torch.ops import dc_emit, fused_welded, mc_emit
+        from gsdf_tpu_torch.ops import compact_field, dc_emit, fused_welded, mc_emit
         from gsdf_tpu_torch.ops.compact_field import compact_field_render
         from gsdf_tpu_torch.render.dual_contour import DualContourRenderer
         from gsdf_tpu_torch.render.flat import FlatRenderer
+        from gsdf_tpu_torch.render.pruned import PrunedRenderer
         from gsdf_tpu_torch import stages
     except ImportError as e:
         print(f"chip_smoke: gsdf_tpu_torch not importable ({e}); run it in the "
@@ -899,13 +1194,16 @@ def main() -> int:
                  for tree in point_trees.values()]
         futs += [pool.submit(gk.build, tree, dc_emit.TEMPLATES, parametric)
                  for tree in dc_trees.values() for parametric in (False, True)]
+        futs += [pool.submit(gk.build, tree, gk.PRUNE_TEMPLATES, parametric)
+                 for tree in trees.values() for parametric in (False, True)]
         for fut in futs:
             fut.result()
     build_s = time.perf_counter() - t0
     log(f"phase 2: built {len(futs)} kernel libraries ({len(trees) + 1} trees' K1 + K2, "
         f"{len(kernels.STATIC_KERNELS)} MC kernels, {len(point_trees)} trees' KP, "
         f"{len(trees2d)} 2D trees' K2-2D, {len(trees)} structures' K1p, {len(point_trees)} "
-        f"structures' KPp, {len(dc_trees)} trees' K5 and K5p; one nvcc each, in parallel) in "
+        f"structures' KPp, {len(dc_trees)} trees' K5 and K5p, {len(trees)} trees' K6c + K6a "
+        f"and their parametric forms; one nvcc each, in parallel) in "
         f"{build_s:.1f} s; "
         f"compiler runs {_build.COUNTS['compiles']}, libraries loaded {_build.COUNTS['loads']}")
     n_params = {name: int(par.kernel_params(trees[name]).size) for name in golden_parts}
@@ -924,6 +1222,8 @@ def main() -> int:
              for name, _, _, _ in flagships.PNG_SCENES]
     logs += [(f"K5{'p' if p else ''} bolt", gk.build_log(trees["bolt"], dc_emit.TEMPLATES, p))
              for p in (False, True)]
+    logs += [(f"K6{'p' if p else ''} {name}", gk.build_log(trees[name], gk.PRUNE_TEMPLATES, p))
+             for name in golden_parts for p in (False, True)]
     for name, text in logs:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -950,6 +1250,38 @@ def main() -> int:
         if slab is None and (name, resdiv) in MAIN_GRIDS:
             mc_inputs[(name, resdiv)] = inputs
         del inputs
+
+    # K6c, K6a, their parametric forms, the id map and K7s's tile mode: every
+    # 3D tree at diag/64, tiles of 8 and of a size that leaves edge tiles
+    # overhanging the grid
+    pruned_diff = {}
+    n_pruned_grids = 0
+    for name, tree in trees.items():
+        fr = FlatRenderer(tree, tree.bounds().diagonal() / 64, dev)
+        odd = next(S for S in (7, 6, 5, 9) if any(n % S for n in (fr.nx, fr.ny, fr.nz)))
+        for S in (8, odd):
+            errs, diff = pruned_compare(name, tree, others[name], 64, S, dev, gk)
+            for k, v in errs.items():
+                max_err[k] = max(max_err[k], v)
+            for k, v in diff.items():
+                pruned_diff[k] = pruned_diff.get(k, 0) + v
+            n_pruned_grids += 1
+    log(f"phase 2: K6c, K6a, K6cp, K6ap, the id map and K7s's tile mode against plain (and "
+        f"the atlas against K1) on {n_pruned_grids} grids of {len(trees)} trees: differing "
+        f"{pruned_diff}")
+    # the same at the main path's shapes: each full-width pruned render's
+    # coarse grid, and its first batch of tiles_per_batch kept tiles
+    pruned_full_diff = {}
+    for name, resdiv in PRUNED_GRIDS:
+        errs, diff = pruned_compare(name, trees[name], others[name], resdiv, 8, dev, gk,
+                                    first_batch=True)
+        for k, v in errs.items():
+            max_err[k] = max(max_err[k], v)
+        for k, v in diff.items():
+            pruned_full_diff[k] = pruned_full_diff.get(k, 0) + v
+        torch.cuda.empty_cache()
+    log(f"phase 2: the same at full width, on the coarse grid and first batch (2,048 tiles) of "
+        f"{', '.join(f'{n} {r}' for n, r in PRUNED_GRIDS)}: differing {pruned_full_diff}")
 
     # K5 and K5p: every 3D tree and ten random ones at diag/64, both modes;
     # the bolt at resdiv 256 (the main path's grid) and a slab of it
@@ -1071,6 +1403,15 @@ def main() -> int:
                   for k in versions}
         log(f"  on the card inside one wrapper call ({name}@{resdiv}): "
             + ", ".join(f"{k} {row[k]['on_device']}" for k in versions))
+        # the pruned kernels' device ms come from CUDA graph replay: both
+        # estimators on the same kernels here, in the same run
+        for k in ("classified_grid", "compact_emit", "emit_soup"):
+            row[k]["graph_ms"] = graph_ms(versions[k][0])
+        log(f"  device ms two ways ({name}@{resdiv}): "
+            + ", ".join(f"{k} profiler {row[k]['on_device']['device_ms']:.4f}, graph replay "
+                        f"{row[k]['graph_ms'] and round(row[k]['graph_ms'], 4)}"
+                        for k in ("classified_grid", "compact_emit", "emit_soup"))
+            + f"  [{card}]")
         one_kernel = {"kernels": 1, "memsets": 0, "copies": 0}
         if inside["emit_soup"] != one_kernel or inside["compact_emit"] != one_kernel:
             raise RuntimeError(f"K7s and K4 should be one kernel launch and nothing else: {inside}")
@@ -1249,6 +1590,11 @@ def main() -> int:
         f"a pointer {ptr_ms:.3f} (on the card {ptr_card}, its upload included)  [{card}]")
     if gk.PARAMS_BY_VALUE is not None:
         raise RuntimeError("the parameter form override was left set")
+    torch.cuda.empty_cache()
+
+    # the pruned kernels at flange 400, against their plain versions
+    times["pruned flange@400"] = pruned_kernel_times(trees["flange"], 400, dev, gk,
+                                                     n_params["flange"], card)
     torch.cuda.empty_cache()
 
     # --- phases 3 and 4: each path, counts from 0 around each run -------
@@ -1834,6 +2180,151 @@ def main() -> int:
         f"parametric renders, triangles {sizes}, each mesh equal to the baked render of the "
         f"edited tree within 1e-6; edit to mesh {', '.join(f'{t:.2f}' for t in edit_ms)} ms  "
         f"[{card}]")
+
+    # --- the pruned slice: PrunedRenderer on the default device ------------
+    goldens[("flange", 1000)] = flagships.GOLDEN_FLANGE_1000_TRIS
+    pruned_slice = {}
+    for name, resdiv in PRUNED_GRIDS:
+        tree, golden = trees[name], goldens[(name, resdiv)]
+        res = tree.bounds().diagonal() / resdiv
+        pr = PrunedRenderer(tree, res)  # no device named: the card
+        if pr.device != dev:
+            raise RuntimeError(f"PrunedRenderer defaulted to {pr.device}, not the card")
+        (verts, tri), counts = run(f"pruned {name}@{resdiv}", PRUNED_PATH,
+                                   lambda: pr.render_compact())
+        batches = pr.batches
+        exactly(f"pruned {name}@{resdiv}", counts,
+                {"tile_prune": 1, **{k: batches for k in PRUNED_PATH[1:]}})
+        if pr.fallbacks:
+            raise RuntimeError(f"pruned {name}@{resdiv}: render_compact fell back")
+        stats = {"tiles": pr.tx * pr.ty * pr.tz, "kept": pr.kept, "batches": batches,
+                 "evaluations": pr.evaluations(), "total_pruned": pr.total_pruned(),
+                 "dense_corners": math.prod(FlatRenderer(tree, res, dev).shape())}
+        # the render's counts against the plain coarse pass at its coarse grid
+        _, pcount = gk.coarse_keep_plain(tree, pr.origin, pr.res, pr.S, (pr.tz, pr.ty, pr.tx),
+                                         dev)
+        n_plain, corners = int(pcount), (pr.S + 1) ** 3
+        want = {"kept": n_plain, "batches": -(-n_plain // pr.tiles_per_batch),
+                "evaluations": stats["tiles"] + n_plain * corners,
+                "total_pruned": (stats["tiles"] - n_plain) * corners}
+        if {k: stats[k] for k in want} != want:
+            raise RuntimeError(f"pruned {name}@{resdiv}: the render's counts "
+                               f"{ {k: stats[k] for k in want} } are not the plain coarse "
+                               f"pass's {want}")
+        payload, syncs = synchronising(lambda: PrunedRenderer(tree, res).compact_payload())
+        fr = FlatRenderer(tree, res, dev)
+        dense = compact_field_render(tree, fr.origin, fr.res, fr.shape(), dev)
+        same_dense = all(np.array_equal(a, b) for a, b in zip(payload, dense))
+        missing = np.setdiff1d(dense[0], payload[0])
+        held_to = "the dense payload"
+        if not same_dense:  # a field that is not 1-Lipschitz: the prune dropped cubes
+            plain = pruned_payload_plain(tree, res, dev)
+            if not all(np.array_equal(a, b) for a, b in zip(payload, plain)):
+                raise RuntimeError(f"pruned {name}@{resdiv}: the payload differs from the dense "
+                                   "one and from the plain pruned version")
+            held_to = (f"the plain pruned version (NOT the dense payload: {len(missing)} active "
+                       f"cubes pruned, ids {missing[:8].tolist()}; "
+                       f"{len(np.setdiff1d(payload[0], dense[0]))} extra)")
+            del plain
+        if len(syncs) != 2 + 4 * batches:
+            raise RuntimeError(f"pruned {name}@{resdiv}: {len(syncs)} synchronising calls in "
+                               f"compact_payload, not 2 + 4 a batch: {syncs}")
+        if same_dense and len(tri) != golden:
+            raise RuntimeError(f"pruned {name}@{resdiv}: {len(tri)} triangles, golden {golden}")
+        del payload, dense
+        # warm SDF->STL in turns with the dense compact render: dense, pruned
+        dense_ms, _, _ = cli.bench_part(tree, resdiv, golden, 5, dev, "compact")
+        ms, ntris, all_ms = cli.bench_part(tree, resdiv, len(tri), 5, dev, "pruned")
+        reading = device_reading(lambda: PrunedRenderer(tree, res).render_compact())
+        dense_reading = device_reading(lambda: FlatRenderer(tree, res, dev).render_compact())
+        e2e[f"pruned {name}@{resdiv}"] = ms
+        per_render[f"pruned {name}@{resdiv}"] = {k: n for k, n in counts.items() if n}
+        pruned_slice[f"{name}@{resdiv}"] = {
+            **stats, "triangles": len(tri), "golden": golden, "equal_to": held_to,
+            "synchronising_calls": len(syncs),
+            "sdf_to_stl_ms": ms, "runs_ms": all_ms, "dense_sdf_to_stl_ms": dense_ms,
+            "device": reading, "dense_device": dense_reading}
+        log(f"phase 3: pruned {name} resdiv {resdiv}: {len(tri)} triangles (golden {golden}); "
+            f"payload (ids, cases, t) equal to {held_to}; {pr.kept} of {stats['tiles']} tiles "
+            f"kept, {batches} batch{'es' if batches > 1 else ''}, evaluations "
+            f"{stats['evaluations']} (dense {stats['dense_corners']}), total_pruned "
+            f"{stats['total_pruned']} (kept, batches, evaluations and total_pruned those of the "
+            f"plain coarse pass); launches {per_render[f'pruned {name}@{resdiv}']}; "
+            f"synchronising calls in compact_payload {len(syncs)} (the mask's one fetch, the "
+            f"tile list's upload, then K3's count read and three fetches a batch); "
+            f"SDF->STL warm median {ms:.2f} ms (runs {', '.join(f'{t:.2f}' for t in all_ms)}), "
+            f"dense compact {dense_ms:.2f} in turns; on the card "
+            f"{None if reading is None else round(reading['device_ms'], 4)} ms (dense "
+            f"{None if dense_reading is None else round(dense_reading['device_ms'], 4)})  "
+            f"[{card}]")
+        del verts, tri
+    torch.cuda.empty_cache()
+
+    # the soup: read_triangles' batches, render() == FlatRenderer.render() as rows
+    def rows(tris):
+        r = np.ascontiguousarray(tris.reshape(-1, 9))
+        return r[np.lexsort(r.T[::-1])]
+
+    soup_path = ("tile_prune", "tile_atlas", "compact_active", "emit_soup")
+    for name, resdiv in (("flange", 400), ("showerhead", 350)):
+        tree = trees[name]
+        res = tree.bounds().diagonal() / resdiv
+        pr = PrunedRenderer(tree, res)
+        soup, counts = run(f"pruned render() {name}@{resdiv}", soup_path, pr.render)
+        exactly(f"pruned render() {name}@{resdiv}", counts,
+                {"tile_prune": 1, **{k: pr.batches for k in soup_path[1:]}})
+        per_render[f"pruned soup {name}@{resdiv}"] = {k: n for k, n in counts.items() if n}
+        flat = FlatRenderer(tree, res, dev).render()
+        if len(soup) != goldens[(name, resdiv)] or not np.array_equal(rows(soup), rows(flat)):
+            raise RuntimeError(f"pruned render() {name}@{resdiv}: {len(soup)} triangles, not "
+                               "the flat soup's rows")
+        stream = PrunedRenderer(tree, res)
+        batches = list(stream.read_triangles())
+        if len(batches) != -(-stream.kept // stream.tiles_per_batch) \
+                or not np.array_equal(np.concatenate(batches), soup):
+            raise RuntimeError(f"read_triangles {name}@{resdiv}: {len(batches)} batches of "
+                               f"{stream.kept} tiles, or not the render's soup")
+        log(f"phase 3: pruned render() {name}@{resdiv}: {len(soup)} triangles, equal to "
+            f"FlatRenderer.render() as sorted rows bit for bit; read_triangles yields "
+            f"{len(batches)} batches ({stream.kept} kept tiles, {stream.tiles_per_batch} a "
+            f"batch), launches {per_render[f'pruned soup {name}@{resdiv}']}")
+        del soup, flat, batches
+
+    # the pruned edit loop: the flange pinned by with_bounds, K6cp and K6ap
+    pinned, edits = edit_case(1.2, 0.6, 0.04)
+    ppr = PrunedRenderer(pinned, res400)
+    first, _ = run("pruned edit loop: the first parametric render", PRUNED_PARAM_PATH,
+                   lambda: ppr.render_compact(parametric=True))
+    dense_fr = FlatRenderer(pinned, res400, dev)
+    if not same_mesh(first, dense_fr.render_compact(parametric=True)):
+        raise RuntimeError("pruned edit loop: the first render differs from the dense one")
+    built = (dict(_build.COUNTS), len(gk._libs))
+    sizes, loop_ms = [len(first[1])], []
+    for what, edit in edits:
+        t0 = time.perf_counter()
+        pinned.rebind(edit)
+        mesh, counts = run(f"pruned edit loop: {what}", PRUNED_PARAM_PATH,
+                           lambda: ppr.render_compact(parametric=True))
+        loop_ms.append((time.perf_counter() - t0) * 1e3)
+        exactly("pruned edit loop", counts,
+                {"tile_prune_param": 1, **{k: ppr.batches for k in PRUNED_PARAM_PATH[1:]}})
+        dense = dense_fr.render_compact(parametric=True)
+        if (dict(_build.COUNTS), len(gk._libs)) != built:
+            raise RuntimeError(f"pruned edit loop: an edit built or loaded a library: "
+                               f"{_build.COUNTS}, {len(gk._libs)} libraries, were {built}")
+        if not same_mesh(mesh, dense) or ppr.fallbacks:
+            raise RuntimeError(f"pruned edit loop, {what}: the mesh differs from the dense "
+                               "parametric render of the edited tree")
+        sizes.append(len(mesh[1]))
+    if len(set(sizes)) != len(sizes):
+        raise RuntimeError(f"pruned edit loop: an edit did not change the mesh: {sizes}")
+    per_render["pruned parametric edit"] = {k: n for k, n in counts.items() if n}
+    pruned_slice["edit loop flange@400"] = {"edit_to_mesh_ms": loop_ms, "triangles": sizes}
+    log(f"phase 3: pruned edit loop flange@400 pinned: {len(edits)} rebinds, 0 compiler runs "
+        f"and 0 libraries loaded, triangles {sizes}, each mesh equal to the dense parametric "
+        f"render of the edited tree; edit to mesh {', '.join(f'{t:.2f}' for t in loop_ms)} ms  "
+        f"[{card}]")
+
     log(f"phase 4: kernel launches over the paths: {launches}")
 
     fr = FlatRenderer(f800, res800, dev)
@@ -1859,6 +2350,7 @@ def main() -> int:
     rows["grid_eval_2d"] = times["K2-2D plantpot 1080x1080"]["grid_eval_2d"]
     rows["point_eval_param"] = times[f"KPp flange N={n_points}"]["point_eval_param"]
     rows.update(times["DC bolt@256"])
+    rows.update(times["pruned flange@400"])
     line = [
         {
             "name": name,
@@ -1875,12 +2367,17 @@ def main() -> int:
             "share": rows[name]["share"],
             "launches_per_render": {
                 **{path: per_render[f"{path} flange@400"].get(name, 0)
-                   for path in ("compact", "soup", "indexed", "compact parametric")},
+                   for path in ("compact", "soup", "indexed", "compact parametric", "pruned",
+                                "pruned soup")},
                 **{path: per_render[path].get(name, 0)
-                   for path in ("dc bolt@256", "dc bolt@512", "dc parametric edit")},
+                   for path in ("dc bolt@256", "dc bolt@512", "dc parametric edit",
+                                "pruned parametric edit")},
             },
-            **({"baked_ms": rows[name]["baked_ms"], "by_pointer_ms": rows[name]["by_pointer_ms"]}
+            **({"baked_ms": rows[name]["baked_ms"],
+                "by_pointer_ms": rows[name].get("by_pointer_ms")}
                if name.endswith("_param") else {}),
+            **({"tile_mode": {k: v for k, v in rows["emit_soup_tiles"].items()
+                              if k != "on_device"}} if name == "emit_soup" else {}),
             "on_device_per_call": rows[name]["on_device"],
         }
         for name, source, replaces in KERNELS
@@ -1888,6 +2385,8 @@ def main() -> int:
     log(json.dumps({"build_s": build_s, "device_ms": times, "sdf_to_stl_ms": e2e,
                     "launches_per_render": per_render, "point_and_2d_slice": slice_ms,
                     "parametric_slice": param_ms, "dc_slice": dc_slice,
+                    "pruned_slice": pruned_slice, "pruned_kernels_differing": pruned_diff,
+                    "pruned_kernels_differing_full_width": pruned_full_diff,
                     "parametric_floats_differing_from_baked": differing}))
     log(json.dumps({"kernels": line}))
     log(card)

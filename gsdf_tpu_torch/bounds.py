@@ -99,7 +99,7 @@ def tree_ops_per_point(tree, n: int = 256, seed: int = 0) -> int:
 
 
 def kernel_bytes(name: str, *, corners=0, cubes=0, active=0, n_t=0, tris=0, verts=0,
-                 points=0, ndim=3, pixels=0, n_params=0, edges=0, voxels=0) -> int:
+                 points=0, ndim=3, pixels=0, n_params=0, edges=0, voxels=0, tiles=0) -> int:
     """Bytes a kernel must move: each input read once, each output written
     once, from this run's shapes and counts.
 
@@ -119,6 +119,7 @@ def kernel_bytes(name: str, *, corners=0, cubes=0, active=0, n_t=0, tris=0, vert
       K3's offsets; writes 1 B per active cube and 4 B per t;
     - emit_soup (K7s): reads per active cube its id, case byte and 8
       corner distances, K3's triangle offsets; writes 36 B per triangle;
+      in tile mode it also reads the atlas's tile table, 12 B per tile;
     - emit_welded (K7w): reads per active cube its id and case byte and the
       4 owner-edge distances, K3's two offsets; writes 12 B per vertex and
       per triangle and the 4 B count. Its owner lookups (neighbours' case
@@ -127,7 +128,14 @@ def kernel_bytes(name: str, *, corners=0, cubes=0, active=0, n_t=0, tris=0, vert
     - dc_mesh (K5): writes 4 B (id) and 1 B (flip) per active edge and
       12 B per live voxel; its corner grid, ballot words, ranks, crossing
       points and normals are its own scratch. dc_mesh_param (K5p): also the
-      4 B per parameter that each of its two calls carries.
+      4 B per parameter that each of its two calls carries;
+    - tile_prune (K6c): writes 1 B per tile of the coarse grid and the 4 B
+      count; tile_prune_param (K6cp) also the 4 B per parameter;
+    - tile_atlas (K6a): reads the 12 B row of each of its `tiles`, writes
+      4 B per atlas corner and 1 B per atlas cube (seam layers included);
+      tile_atlas_param (K6ap) also the 4 B per parameter;
+    - tile_global_ids: reads each active id and writes it as a global id
+      (8 B), reads the tile table (12 B per tile).
     """
     offsets = 8 * -(-active // 256)
     per = {
@@ -139,10 +147,15 @@ def kernel_bytes(name: str, *, corners=0, cubes=0, active=0, n_t=0, tris=0, vert
         "point_eval_param": (4 * ndim + 4) * points + 4 * n_params,
         "compact_active": cubes + 4 * active + 2 * offsets + 24,
         "compact_emit": (4 + 1 + 16 + 1) * active + offsets + 4 * n_t,
-        "emit_soup": (4 + 1 + 32) * active + offsets + 36 * tris,
+        "emit_soup": (4 + 1 + 32) * active + offsets + 36 * tris + 12 * tiles,
         "emit_welded": (4 + 1 + 16) * active + 2 * offsets + 12 * verts + 12 * tris + 4,
         "dc_mesh": 5 * edges + 12 * voxels,
         "dc_mesh_param": 5 * edges + 12 * voxels + 8 * n_params,
+        "tile_prune": tiles + 4,
+        "tile_prune_param": tiles + 4 + 4 * n_params,
+        "tile_atlas": 4 * corners + cubes + 12 * tiles,
+        "tile_atlas_param": 4 * corners + cubes + 12 * tiles + 4 * n_params,
+        "tile_global_ids": 8 * active + 12 * tiles,
     }
     return int(per[name])
 

@@ -33,17 +33,22 @@ from .flagships import (
     build_showerhead,
 )
 from .render.flat import FlatRenderer
+from .render.pruned import PrunedRenderer
 from .render.stl import write_binary_stl, write_binary_stl_indexed
 
 
 def render_stl(obj, resdiv, device, path="compact", parametric=False):
     """One SDF->STL render into memory through `path`, "compact" (the main
-    path), "soup" (render()) or "indexed" (render_indexed()): (wall ms,
-    triangle count). parametric=True renders the compact and indexed paths
-    through the library of the part's structure."""
+    path), "soup" (render()), "indexed" (render_indexed()) or "pruned"
+    (PrunedRenderer.render_compact()): (wall ms, triangle count).
+    parametric=True renders the compact, indexed and pruned paths through
+    the libraries of the part's structure."""
     res = obj.bounds().diagonal() / resdiv
     t0 = time.perf_counter()
-    fr = FlatRenderer(obj, res, device)
+    if path == "pruned":
+        fr = PrunedRenderer(obj, res, device=device)
+    else:
+        fr = FlatRenderer(obj, res, device)
     buf = io.BytesIO()
     if path == "soup":
         if parametric:
@@ -51,8 +56,8 @@ def render_stl(obj, resdiv, device, path="compact", parametric=False):
         tris = fr.render()
         write_binary_stl(buf, tris)
         n = len(tris)
-    elif path in ("compact", "indexed"):
-        render = fr.render_compact if path == "compact" else fr.render_indexed
+    elif path in ("compact", "indexed", "pruned"):
+        render = fr.render_indexed if path == "indexed" else fr.render_compact
         verts, tri_idx = render(parametric=parametric)
         write_binary_stl_indexed(buf, verts, tri_idx)
         n = len(tri_idx)

@@ -7,7 +7,8 @@
 //         0 where the corner-0 quick reject |d0| > thr (thr =
 //         f32(2*1.73205080757) * res, computed on the host in float32)
 //         or the case is 0 or 255 -- the TPU kernel's values
-//         (gsdf_tpu/ops/mc_emit.py:168-187).
+//         (gsdf_tpu/ops/mc_emit.py:168-187), by the rule of
+//         gsdf_case.cuh, which K6a (tile_atlas.cu) shares.
 //
 // What bounds it on the card: the ALU, on the tree's operations at every
 // corner (gsdf_tpu_torch/bounds.py counts them); the bytes, 4 per corner
@@ -54,6 +55,7 @@
 
 #include "gsdf_tree.cuh"
 #include "gsdf_params.cuh"
+#include "gsdf_case.cuh"
 
 namespace {
 
@@ -73,24 +75,12 @@ eval_kernel(float* __restrict__ dist, float ox, float oy, float oz, float res,
                                              oz + (float)(k0 + k) * res);
 }
 
-// The case byte of one cube from its 8 corner values in the corner order
-// of gsdf_tpu/ops/mc_emit.py CORNER_OFFSETS, with the quick reject.
-__device__ __forceinline__ unsigned cube_case(float v0, float v1, float v2, float v3,
-                                              float v4, float v5, float v6, float v7,
-                                              float thr) {
-    const unsigned cs = (unsigned)(v0 < 0.0f) | (unsigned)(v1 < 0.0f) << 1
-        | (unsigned)(v2 < 0.0f) << 2 | (unsigned)(v3 < 0.0f) << 3
-        | (unsigned)(v4 < 0.0f) << 4 | (unsigned)(v5 < 0.0f) << 5
-        | (unsigned)(v6 < 0.0f) << 6 | (unsigned)(v7 < 0.0f) << 7;
-    return (fabsf(v0) <= thr && cs != 0u && cs != 255u) ? cs : 0u;
-}
-
 // Cube i's case from the corner rows at (j, k), (j+1, k), (j, k+1), (j+1, k+1).
 __device__ __forceinline__ unsigned row_case(const float* r00, const float* r10,
                                              const float* r01, const float* r11, int i,
                                              float thr) {
-    return cube_case(r00[i], r00[i + 1], r10[i + 1], r10[i], r01[i], r01[i + 1],
-                     r11[i + 1], r11[i], thr);
+    return gsdf_cube_case(r00[i], r00[i + 1], r10[i + 1], r10[i], r01[i], r01[i + 1],
+                          r11[i + 1], r11[i], thr);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -119,8 +109,8 @@ classify_kernel(const float* __restrict__ dist, uint8_t* __restrict__ cases,
         }
 #pragma unroll
         for (int q = 0; q < kCubes; ++q)
-            word |= cube_case(a[q], a[q + 1], b[q + 1], b[q], c[q], c[q + 1], d[q + 1],
-                              d[q], thr) << (8 * q);
+            word |= gsdf_cube_case(a[q], a[q + 1], b[q + 1], b[q], c[q], c[q + 1], d[q + 1],
+                                   d[q], thr) << (8 * q);
     } else {
         for (int q = 0; q < kCubes && id0 + q < n; ++q) {
             word |= row_case(r00, r00 + ni, r00 + plane, r00 + plane + ni, i, thr) << (8 * q);

@@ -33,6 +33,15 @@
 // rows in L2. Edge points are computed where a triangle needs them (the
 // same arithmetic each time, so shared edges agree). Built with
 // -fmad=false and IEEE division: bit-identical to the plain torch version.
+//
+// Tile mode (the pruned renderer's soup, gsdf_tpu/render/pruned.py::
+// _tile_mc_fn :145-201): `grid` and `cases` are a tile atlas of K6a
+// (tile_atlas.cu: (T*P, P, P) corners and (T*P - 1, S, S) cases, P = S + 1)
+// and `tiles` its (T, 3) int32 tile table. The corners are read from the
+// atlas as from any grid; only the positions change: they come from the
+// cube's GLOBAL index, tile * S + local on each axis (atlas plane ka is
+// tile ka / P, local k ka % P), as _tile_mc_fn makes them (:180-188). A
+// template argument picks the mode, so the dense kernel is the one it was.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -44,10 +53,12 @@ namespace {
 constexpr int kThreads = 256;  // active cubes per block: the stride of K3's tri_offsets
 constexpr int kStageWords = kThreads * 5 * 9;  // 5 triangles a cube at most
 
+template <bool kTiles>
 __global__ void __launch_bounds__(kThreads)
 emit_kernel(const float* __restrict__ grid, const uint8_t* __restrict__ cases,
             const int32_t* __restrict__ ids, long long A, int nx, int ny,
             float ox, float oy, float oz, float res, float k0f,
+            const int32_t* __restrict__ tiles,
             const long long* __restrict__ tri_offsets, float* __restrict__ tris) {
     __shared__ __align__(16) float stage[kStageWords + 4];
     __shared__ int warp_sums[kThreads / 32];
@@ -69,8 +80,18 @@ emit_kernel(const float* __restrict__ grid, const uint8_t* __restrict__ cases,
         for (int k = 0; k < 8; ++k)
             v[k] = __ldg(grid + base + kCornerOffsets[3 * k + 2] * nj * ni +
                          kCornerOffsets[3 * k + 1] * ni + kCornerOffsets[3 * k]);
-        const float b[3] = {ox + (float)q.i * res, oy + (float)q.j * res,
-                            oz + ((float)q.k + k0f) * res};
+        float b[3];
+        if (kTiles) {  // nx == ny == S: atlas plane q.k is tile t's local plane lk
+            const int t = q.k / (nx + 1), lk = q.k - t * (nx + 1);
+            const int32_t* tile = tiles + 3 * t;
+            b[0] = ox + (float)(__ldg(tile) * nx + q.i) * res;
+            b[1] = oy + (float)(__ldg(tile + 1) * nx + q.j) * res;
+            b[2] = oz + (float)(__ldg(tile + 2) * nx + lk) * res;
+        } else {
+            b[0] = ox + (float)q.i * res;
+            b[1] = oy + (float)q.j * res;
+            b[2] = oz + ((float)q.k + k0f) * res;
+        }
         for (int s = 0; s < nt; ++s) {
             float* out = stage + shift + (first + s) * 9;
             for (int j = 0; j < 3; ++j) {
@@ -93,15 +114,23 @@ emit_kernel(const float* __restrict__ grid, const uint8_t* __restrict__ cases,
 }  // namespace
 
 // tris (K3's triangle count, 3, 3) f32 in cube-then-table order, one block
-// per 256 active cubes at K3's tri_offsets. Returns cudaGetLastError().
+// per 256 active cubes at K3's tri_offsets; `tiles` null for a grid, the
+// atlas's tile table in tile mode (then nx == ny == S and k0f == 0).
+// Returns cudaGetLastError().
 extern "C" int gsdf_emit_soup(const float* grid, const uint8_t* cases,
                               const int32_t* ids, long long A, int nx, int ny,
                               float ox, float oy, float oz, float res, float k0f,
-                              const long long* tri_offsets, float* tris,
-                              void* stream) {
+                              const int32_t* tiles, const long long* tri_offsets,
+                              float* tris, void* stream) {
     const long long blocks = gsdf::blocks_for(A, kThreads);
     if (A <= 0 || blocks < 0 || nx < 1 || ny < 1) return (int)cudaErrorInvalidValue;
-    emit_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        grid, cases, ids, A, nx, ny, ox, oy, oz, res, k0f, tri_offsets, tris);
+    if (tiles != nullptr && (nx != ny || k0f != 0.0f)) return (int)cudaErrorInvalidValue;
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (tiles != nullptr)
+        emit_kernel<true><<<(unsigned)blocks, kThreads, 0, s>>>(
+            grid, cases, ids, A, nx, ny, ox, oy, oz, res, k0f, tiles, tri_offsets, tris);
+    else
+        emit_kernel<false><<<(unsigned)blocks, kThreads, 0, s>>>(
+            grid, cases, ids, A, nx, ny, ox, oy, oz, res, k0f, tiles, tri_offsets, tris);
     return (int)cudaGetLastError();
 }

@@ -26,6 +26,15 @@ read through a pointer. Which of the two a library takes is fixed by the
 vector's length when it is built. A parametric call never builds or
 launches a baked library.
 
+The pruned renderer's two per-tree kernels (render/pruned.py) live here
+too, baked and parametric, in one library per tree (PRUNE_TEMPLATES):
+- K6c `coarse_keep`: the keep mask of the coarse tile grid, the tree's
+  distance at each tile centre against S*res*sqrt(3)/2
+  (gsdf_tpu/render/pruned.py::_coarse_fn, :41-98);
+- K6a `tile_grid`: the corners of T kept tiles as one atlas grid and its
+  case grid (pruned.py::_tile_grid, :101-142, with the classification of
+  ops/compact_field.py::tile_compact_emit, :288-303).
+
 Grid layout is [k, j, i], x contiguous; the corner at integer index
 (i, j, k) sits at origin + index * res in float32, from the global index.
 """
@@ -58,11 +67,15 @@ TEMPLATES = ("grid_eval.cu", "classified_grid.cu")
 #: the parametric K1 is a library of its own (K2 has no parametric form:
 #: no caller of it takes `parametric` in the JAX package)
 PARAM_TEMPLATES = ("classified_grid.cu",)
+#: the pruned renderer's coarse pass (K6c) and tile atlas (K6a), baked or
+#: parametric (K6cp, K6ap): one library of both per tree or structure
+PRUNE_TEMPLATES = ("tile_prune.cu", "tile_atlas.cu")
 #: included by the templates that have a parametric form
 PARAMS_HEADER = "gsdf_params.cuh"
 #: further headers a template includes: from csrc/, and generated beside
 #: gsdf_tree.cuh (name -> the function that writes its text)
-INCLUDES = {"dc_mesh.cu": ("gsdf_scan.cuh", "gsdf_qef.cuh")}
+INCLUDES = {"dc_mesh.cu": ("gsdf_scan.cuh", "gsdf_qef.cuh"),
+            "classified_grid.cu": ("gsdf_case.cuh",), "tile_atlas.cu": ("gsdf_case.cuh",)}
 GENERATED = {"dc_mesh.cu": {"gsdf_dc_tables.cuh": dc_tables.header}}
 
 _V, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -72,6 +85,8 @@ _SIGNATURES = {
     "classified_grid.cu": {"gsdf_classified_grid": (_I, [_V] * 2 + [_F] * 5 + [_I] * 4 + [_V])},
     "point_eval.cu": {"gsdf_point_eval": (_I, [_V, ctypes.c_int64, _V, _V])},
     "grid_eval_2d.cu": {"gsdf_grid_eval_2d": (_I, [_V] + [_F] * 4 + [_I] * 2 + [_V])},
+    "tile_prune.cu": {"gsdf_tile_prune": (_I, [_V] * 2 + [_F] * 6 + [_I] * 3 + [_V])},
+    "tile_atlas.cu": {"gsdf_tile_atlas": (_I, [_V] * 3 + [_I] * 5 + [_F] * 5 + [_V])},
     "dc_mesh.cu": {
         "gsdf_dc_work": (ctypes.c_int64, [_I] * 4),
         "gsdf_dc_count": (_I, [_V] + [_F] * 4 + [_I] * 5 + [_V] * 4 + [_V]),
@@ -87,6 +102,12 @@ _PARAM_SIGNATURES = {
         "gsdf_classified_grid_param": (_I, [_V] * 2 + [_F] * 5 + [_I] * 4 + [_V, _I, _V])
     },
     "point_eval.cu": {"gsdf_point_eval_param": (_I, [_V, ctypes.c_int64, _V, _V, _I, _V])},
+    "tile_prune.cu": {
+        "gsdf_tile_prune_param": (_I, [_V] * 2 + [_F] * 6 + [_I] * 3 + [_V, _I, _V])
+    },
+    "tile_atlas.cu": {
+        "gsdf_tile_atlas_param": (_I, [_V] * 3 + [_I] * 5 + [_F] * 5 + [_V, _I, _V])
+    },
     "dc_mesh.cu": {
         "gsdf_dc_work": (ctypes.c_int64, [_I] * 4),
         "gsdf_dc_count_param": (_I, [_V] + [_F] * 4 + [_I] * 5 + [_V] * 4 + [_V, _I, _V]),
@@ -250,4 +271,144 @@ def classified_grid(tree, origin, res, shape, device, k0: int = 0, parametric: b
         launch("classified_grid_param", device, lib.gsdf_classified_grid_param, *args, ptr, n)
     else:
         launch("classified_grid", device, lib.gsdf_classified_grid, *args)
+    return dist, cases
+
+
+# --- the pruned renderer's coarse pass (K6c) and tile atlas (K6a) -------
+def prune_constants(res, S: int):
+    """(tres, half, thr) of the coarse pass in float32, in the JAX
+    package's arithmetic (pruned.py:58-69): a tile's side S * res, its
+    half, and the keep threshold side * f32(sqrt(3) / 2)."""
+    tres = _f32(S) * _f32(res)
+    return tres, tres * _f32(0.5), tres * _f32(np.sqrt(3) / 2)
+
+
+def coarse_keep_plain(tree, origin, res, S, shape, device):
+    """K6c's plain version: (keep (tz,ty,tx) u8, count (1,) int32)."""
+    tz, ty, tx = _shape(shape)
+    o = np.asarray(origin, _f32).reshape(3)
+    tres, half, thr = (float(v) for v in prune_constants(res, S))
+
+    def axis(n, origin_c):  # origin + idx * (S * res) + half
+        idx = torch.arange(n, dtype=torch.int32, device=device).to(torch.float32)
+        return float(origin_c) + idx * tres + half
+
+    z = axis(tz, o[2])[:, None, None].expand(tz, ty, tx)
+    y = axis(ty, o[1])[None, :, None].expand(tz, ty, tx)
+    x = axis(tx, o[0])[None, None, :].expand(tz, ty, tx)
+    keep = (torch.abs(tree.distance(torch.stack([x, y, z], dim=-1))) < thr).to(torch.uint8)
+    return keep, keep.sum(dtype=torch.int32).reshape(1)
+
+
+def coarse_keep(tree, origin, res, S, shape, device, parametric: bool = False):
+    """The coarse pass of the pruned renderer (K6c): for the (tz, ty, tx)
+    tiles of S^3 cubes, (keep u8 1 where |d(centre)| < S*res*sqrt(3)/2,
+    count (1,) int32 of kept tiles). parametric=True runs K6cp, the
+    library of the tree's structure with its current parameters."""
+    tz, ty, tx = _shape(shape)
+    if torch.device(device).type == "cpu":
+        return coarse_keep_plain(tree, origin, res, S, shape, device)
+    device = cuda_device(device)
+    lib = build(tree, PRUNE_TEMPLATES, parametric)
+    n = tz * ty * tx
+    buf = torch.empty(-(-n // 4) + 1, dtype=torch.int32, device=device)  # mask, then count
+    keep, count = buf.view(torch.uint8)[:n].view(tz, ty, tx), buf[-1:]
+    args = (keep.data_ptr(), count.data_ptr(),
+            *float_args(origin, *prune_constants(res, S)), tz, ty, tx)
+    if parametric:
+        ptr, n_params, _keep = param_args(tree, lib, device)
+        launch("tile_prune_param", device, lib.gsdf_tile_prune_param, *args, ptr, n_params)
+    else:
+        launch("tile_prune", device, lib.gsdf_tile_prune, *args)
+    return keep, count
+
+
+def keep_to_host(keep, count):
+    """(keep mask as a numpy u8 array, kept-tile count) on the host. K6c
+    writes both into one int32 buffer (the mask's bytes, then the count),
+    which comes over in ONE copy; the plain version's tensors are read as
+    they are."""
+    store = keep.untyped_storage()
+    if count.untyped_storage().data_ptr() != store.data_ptr():
+        return keep.cpu().numpy(), int(count.cpu()[0])
+    host = torch.empty(0, dtype=torch.uint8, device=keep.device).set_(store).cpu()
+    n, at = keep.numel(), keep.storage_offset()
+    mask = host[at : at + n].numpy().reshape(keep.shape)
+    c = count.storage_offset() * count.element_size()
+    return mask, int(host[c : c + 4].view(torch.int32)[0])
+
+
+def _tile_dims(tiles, S, dims):
+    S = int(S)
+    nx, ny, nz = (int(d) for d in dims)
+    if S < 1 or min(nx, ny, nz) < 1 or tiles.ndim != 2 or tiles.shape[1] != 3 \
+            or tiles.shape[0] < 1:
+        raise ValueError(f"a tile atlas needs T >= 1 tiles (T, 3) and S >= 1, got "
+                         f"{tuple(tiles.shape)}, S = {S}, dims {dims}")
+    return tiles.shape[0], S, nx, ny, nz
+
+
+def tile_positions(tiles, origin, res, S, device):
+    """(T, P, P, P, 3) float32 corner positions of the T tiles (P = S + 1)
+    from their global integer indices: origin + f32(tile * S + local) * res,
+    K1's formula (grid_positions)."""
+    T, P = tiles.shape[0], int(S) + 1
+    tiles = tiles.to(device=device, dtype=torch.int64)
+    local = torch.arange(P, dtype=torch.int64, device=device)
+    o = np.asarray(origin, _f32).reshape(3)
+    r = float(_f32(res))
+
+    def axis(c):  # (T, P)
+        return float(o[c]) + (tiles[:, c, None] * int(S) + local).to(torch.float32) * r
+
+    x = axis(0)[:, None, None, :].expand(T, P, P, P)
+    y = axis(1)[:, None, :, None].expand(T, P, P, P)
+    z = axis(2)[:, :, None, None].expand(T, P, P, P)
+    return torch.stack([x, y, z], dim=-1)
+
+
+def tile_grid_plain(tree, tiles, origin, res, S, dims, device):
+    """K6a's plain version: (dist (T*P, P, P) f32, cases (T*P-1, S, S)
+    u8), the cases 0 on the seam layers and past the global grid."""
+    T, S, nx, ny, nz = _tile_dims(tiles, S, dims)
+    P = S + 1
+    dist = tree.distance(tile_positions(tiles, origin, res, S, device)).reshape(T * P, P, P)
+    cases = mc_emit.effective_cases(dist, res)
+    tiles = tiles.to(device=device, dtype=torch.int64)
+    ka = torch.arange(T * P - 1, device=device)
+    t, lk = ka // P, ka % P
+    local = torch.arange(S, device=device)
+    in_k = (lk < S) & (tiles[t, 2] * S + lk < nz)  # lk == S: the seam between two tiles
+    in_j = tiles[t, 1, None] * S + local < ny  # (T*P-1, S)
+    in_i = tiles[t, 0, None] * S + local < nx
+    inside = in_k[:, None, None] & in_j[:, :, None] & in_i[:, None, :]
+    return dist, torch.where(inside, cases, 0).to(torch.uint8)
+
+
+def tile_grid(tree, tiles, origin, res, S, dims, device, parametric: bool = False):
+    """The tile atlas (K6a): tiles (T, 3) int32 [i, j, k] tile coordinates
+    of S^3-cube tiles, dims (nx, ny, nz) the whole grid's cubes -> (dist
+    (T*P, P, P) f32 corner distances, tile t's plane lk at atlas plane
+    t*P + lk, P = S + 1; cases (T*P-1, S, S) u8 with K1's effective-case
+    rule, 0 on the seam layer between two tiles and on cubes past the
+    global grid). K3 and K4 read the pair as an ordinary grid.
+    parametric=True runs K6ap."""
+    T, S, nx, ny, nz = _tile_dims(tiles, S, dims)
+    if torch.device(device).type == "cpu":
+        return tile_grid_plain(tree, tiles, origin, res, S, dims, device)
+    device = cuda_device(device)
+    P = S + 1
+    if T * P**3 >= 1 << 31:
+        raise ValueError(f"a tile atlas of {T} tiles of {P}^3 corners exceeds int32 indices")
+    check_out(tiles, (T, 3), torch.int32, device)
+    lib = build(tree, PRUNE_TEMPLATES, parametric)
+    dist = torch.empty((T * P, P, P), dtype=torch.float32, device=device)
+    cases = torch.empty((T * P - 1, S, S), dtype=torch.uint8, device=device)
+    args = (dist.data_ptr(), cases.data_ptr(), tiles.data_ptr(), T, S, nx, ny, nz,
+            *float_args(origin, res, mc_emit.quick_reject_threshold(res)))
+    if parametric:
+        ptr, n_params, _keep = param_args(tree, lib, device)
+        launch("tile_atlas_param", device, lib.gsdf_tile_atlas_param, *args, ptr, n_params)
+    else:
+        launch("tile_atlas", device, lib.gsdf_tile_atlas, *args)
     return dist, cases

@@ -25,6 +25,7 @@ from .geometry.polygon import PolygonBuilder
 # bolt and knurled counts are the CPU oracle's, gsdf_tpu/flagships.py:25-30).
 GOLDEN_FLANGE_TRIS = 423852  # resdiv 400
 GOLDEN_FLANGE_800_TRIS = 1704568  # resdiv 800
+GOLDEN_FLANGE_1000_TRIS = 2660772  # resdiv 1000 (tests/test_golden_scale.py:29)
 GOLDEN_SHOWERHEAD_TRIS = 309872  # resdiv 350
 GOLDEN_BOLT_TRIS = 137528  # resdiv 300
 GOLDEN_KNURLED_TRIS = 616324  # resdiv 350

@@ -20,13 +20,20 @@ Kernels (all hand-written CUDA C++ in gsdf_tpu_torch/csrc/, nvcc sm_90a):
 - K7w `emit_welded`: indexed mesh (ops/fused_welded.py::emit_welded);
 - K5 `dc_mesh`, K5p `dc_mesh_param`: dual contouring's device stage, per
   tree (K5p per tree STRUCTURE), from the tree to the live voxels'
-  vertices (ops/dc_emit.py).
+  vertices (ops/dc_emit.py);
+- K6c `tile_prune`, K6a `tile_atlas` and their parametric forms K6cp
+  `tile_prune_param`, K6ap `tile_atlas_param`: the pruned renderer's
+  coarse keep mask and the corner atlas + case grid of the kept tiles, per
+  tree (eval/grid_kernels.py::coarse_keep, tile_grid; render/pruned.py);
+- `tile_global_ids`: the atlas cube ids that K3 returns as the global cube
+  ids of the whole grid (ops/compact_field.py::tile_global_ids). K7s has
+  a tile mode that places the atlas's triangles by global index.
 
-K3, K4, K7s and K7w do not depend on the tree: each source builds once
-into its own library, cached by a hash of its sources and flags under
-build/gsdf_tpu_torch/. The MC tables reach them through a header
-generated from ops/mc_tables.py (never retyped by hand). Nothing is
-built when a module is imported, only at a wrapper's first CUDA call.
+K3, K4, K7s, K7w and the id map do not depend on the tree: each source
+builds once into its own library, cached by a hash of its sources and
+flags under build/gsdf_tpu_torch/. The MC tables reach them through a
+header generated from ops/mc_tables.py (never retyped by hand). Nothing
+is built when a module is imported, only at a wrapper's first CUDA call.
 """
 from __future__ import annotations
 
@@ -55,6 +62,11 @@ LAUNCHES = {
     "emit_welded": 0,
     "dc_mesh": 0,
     "dc_mesh_param": 0,
+    "tile_prune": 0,
+    "tile_atlas": 0,
+    "tile_prune_param": 0,
+    "tile_atlas_param": 0,
+    "tile_global_ids": 0,
 }
 
 CSRC = os.path.join(_build.PKG_DIR, "csrc")
@@ -75,7 +87,7 @@ _V = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I = ctypes.c_int
 _F = ctypes.c_float
-#: the four tree-independent kernels' C entry points (source = name.cu)
+#: the tree-independent kernels' C entry points (source = name.cu)
 STATIC_KERNELS = {
     "compact_active": {
         "gsdf_compact_work": (_I64, [_I64]),
@@ -86,7 +98,7 @@ STATIC_KERNELS = {
     },
     "emit_soup": {
         "gsdf_emit_soup": (
-            _I, [_V, _V, _V, _I64, _I, _I] + [_F] * 5 + [_V, _V, _V],
+            _I, [_V, _V, _V, _I64, _I, _I] + [_F] * 5 + [_V] * 4,
         ),
     },
     "emit_welded": {
@@ -94,6 +106,9 @@ STATIC_KERNELS = {
             _I,
             [_V, _V, _V, _I64, _I, _I, _I] + [_F] * 5 + [_V] * 7,
         ),
+    },
+    "tile_global_ids": {
+        "gsdf_tile_global_ids": (_I, [_V, _I64, _V, _I, _I, _I, _V, _V]),
     },
 }
 

@@ -12,6 +12,12 @@ The JAX package packs ids as u8 deltas for its slow device link
 and t (f32) as they are, with identical decoded arrays. Sizes come from
 one read of K3's device counts, so there is no grow-and-retry and no size
 hint.
+
+The pruned renderer's counterpart (render/pruned.py) runs the same K3 and
+K4 over a tile atlas (eval/grid_kernels.py::tile_grid, K6a), which they
+read as an ordinary grid, with one more kernel that maps the atlas cube
+ids to global ones (`tile_global_ids`): `tile_compact_emit` per batch of
+tiles, then `merge_compact_payloads` on the host.
 """
 from __future__ import annotations
 
@@ -23,11 +29,14 @@ from ..eval.grid_kernels import classified_grid
 from .mc_emit import (  # noqa: F401  (crossing re-exported)
     EMIT_BLOCK,
     MAX_CUBES,
+    atlas_global_coords,
     block_offsets,
     check_kernel_inputs,
     compact_active,
+    compact_active_plain,
     crossing,
     cube_bases,
+    cube_coords,
     edge_t,
 )
 
@@ -134,3 +143,105 @@ def compact_field_render_slabbed(tree, origin, res, shape, device, max_points,
         np.concatenate(t_parts) if t_parts else np.empty(0, _f32),
         n_points,
     )
+
+
+# --- the pruned renderer: the tile atlas's payload ----------------------
+def tile_global_ids_plain(ids, tiles, S, dims):
+    """The id map's plain version: global int32 cube ids of atlas ids."""
+    nx, ny, _ = (int(d) for d in dims)
+    gi, gj, gk = atlas_global_coords(*cube_coords(ids, int(S), int(S)), tiles, int(S))
+    return ((gk * ny + gj) * nx + gi).to(torch.int32)
+
+
+def tile_global_ids(ids, tiles, S, dims):
+    """The global cube ids (in the (nz, ny, nx) grid of dims = (nx, ny,
+    nz)) of K3's atlas ids `ids` (A,) int32, tiles (T, 3) int32 the atlas's
+    tile table of S^3-cube tiles (gsdf_tpu/ops/compact_field.py:311-319).
+    The caller keeps the grid below 2^31 cubes."""
+    if ids.device.type == "cpu":
+        return tile_global_ids_plain(ids, tiles, S, dims)
+    device = kernels.cuda_device(ids.device)
+    A = ids.numel()
+    nx, ny, _ = (int(d) for d in dims)
+    kernels.check_out(ids, (A,), torch.int32, device)
+    kernels.check_out(tiles, (tiles.shape[0], 3), torch.int32, device)
+    out = torch.empty(A, dtype=torch.int32, device=device)
+    if A == 0:
+        return out
+    lib = kernels.static_lib("tile_global_ids")
+    kernels.launch("tile_global_ids", device, lib.gsdf_tile_global_ids, ids.data_ptr(), A,
+                   tiles.data_ptr(), int(S), nx, ny, out.data_ptr())
+    return out
+
+
+def tile_compact_emit_plain(grid, cases, tiles, dims):
+    """tile_compact_emit's plain version."""
+    ids = compact_active_plain(cases).ids
+    idx8, t = compact_emit_plain(grid, cases, ids)
+    return tile_global_ids_plain(ids, tiles, grid.shape[2] - 1, dims), idx8, t
+
+
+def tile_compact_emit(grid, cases, tiles, dims):
+    """The compact payload of one batch of tiles: grid, cases the tile
+    atlas of K6a (eval/grid_kernels.py::tile_grid), tiles its (T, 3) int32
+    tile table, dims (nx, ny, nz) the whole grid's cubes -> (global cube
+    ids (A,) int32, case bytes (A,) u8, t (V,) f32) on the atlas's device
+    (gsdf_tpu/ops/compact_field.py::tile_compact_emit, :264-327, whose
+    classification is K6a's). K3 compacts the atlas (its one count read),
+    the id map makes the ids global, K4 emits case bytes and t. Rows are in
+    the JAX package's tile-major slot order; merge_compact_payloads sorts
+    the batches into the dense payload."""
+    if grid.device.type == "cpu":
+        return tile_compact_emit_plain(grid, cases, tiles, dims)
+    comp = compact_active(cases)
+    ids = tile_global_ids(comp.ids, tiles, grid.shape[2] - 1, dims)
+    idx8, t = compact_emit(grid, cases, comp.ids, comp.n_t, comp.offsets)
+    return ids, idx8, t
+
+
+def merge_compact_payloads(parts):
+    """Merge per-batch compact payloads (GLOBAL ids, batch-local t order)
+    into the dense path's exact payload: ids ascending (= dense cube
+    order), cases aligned, t re-gathered cube-major. Host numpy, O(A); the
+    JAX package's merge (gsdf_tpu/ops/compact_field.py:330-380), copied.
+
+    parts: list of (ids u32, cases u8, tvals f32). Returns
+    (ids, cases, tvals)."""
+    # a kept tile can hold no active cube (the prune keeps NEAR-surface
+    # tiles): empty parts carry no rows and would break the per-part
+    # rebase below
+    parts = [p for p in parts if len(p[0])]
+    if not parts:
+        return np.empty(0, np.uint32), np.empty(0, np.uint8), np.empty(0, _f32)
+    ids = np.concatenate([p[0] for p in parts])
+    cases = np.concatenate([p[1] for p in parts])
+    tcat = np.concatenate([p[2] for p in parts])
+
+    # crossing-edge count per cube from the case byte (K4's crossing rule)
+    b0 = cases & 1
+    cnt = (
+        (b0 != ((cases >> 1) & 1)).astype(np.int64)
+        + (b0 != ((cases >> 3) & 1))
+        + (b0 != ((cases >> 4) & 1))
+    )
+    # each cube's t-slice start within tcat: per-part cumsum, offset by
+    # the part's start in the concatenation
+    ends = np.cumsum(cnt)
+    starts = ends - cnt
+    sizes = np.array([len(p[0]) for p in parts])
+    tsizes = np.array([len(p[2]) for p in parts])
+    part_row0 = np.cumsum(sizes) - sizes  # first row of each part
+    part_t0 = np.cumsum(tsizes) - tsizes  # first t of each part
+    row_part = np.repeat(np.arange(len(parts)), sizes)
+    starts = starts - starts[part_row0][row_part] + part_t0[row_part]
+
+    order = np.argsort(ids, kind="stable")
+    ids = ids[order]
+    cases = cases[order]
+    cnt_s = cnt[order]
+    src = starts[order]
+    out_end = np.cumsum(cnt_s)
+    out_off = out_end - cnt_s
+    total = int(out_end[-1])
+    flat_src = np.repeat(src - out_off, cnt_s) + np.arange(total)
+    return ids, cases, tcat[flat_src].astype(_f32, copy=False)

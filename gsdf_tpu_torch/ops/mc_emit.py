@@ -272,14 +272,27 @@ def compact_indices(cases):
 
 
 # --- K7s: the triangle soup ---------------------------------------------
-def emit_triangles_plain(grid, cases, ids, origin, res, k0=0):
+def atlas_global_coords(ci, cj, ck, tiles, S: int):
+    """(gi, gj, gk) int64 global cube coordinates of cubes (ci, cj, ck)
+    of a tile atlas (eval/grid_kernels.py::tile_grid; atlas plane ck is
+    tile ck // (S+1), local plane ck % (S+1)); tiles (T, 3) [i, j, k]."""
+    tiles = tiles.to(device=ci.device, dtype=torch.int64)
+    t, lk = ck // (S + 1), ck % (S + 1)
+    return tiles[t, 0] * S + ci, tiles[t, 1] * S + cj, tiles[t, 2] * S + lk
+
+
+def emit_triangles_plain(grid, cases, ids, origin, res, k0=0, tiles=None):
     """K7s's plain version (the torch port of the JAX package's
     emit_triangles + corner_positions + interpolate_edges): (T,3,3) f32
     triangles of the cubes `ids`, cube-then-table order, reversed winding.
-    k0 is added to the z index coordinate as a float32."""
+    k0 is added to the z index coordinate as a float32. With `tiles` the
+    grid is a tile atlas and positions come from global indices (tile
+    mode, gsdf_tpu/render/pruned.py:175-189)."""
     base, (ci, cj, ck) = cube_bases(grid, ids)
     nk, nj, ni = grid.shape
     v = gather_corners(grid.reshape(-1), base, ni, nj * ni)  # (A,8)
+    if tiles is not None:
+        ci, cj, ck = atlas_global_coords(ci, cj, ck, tiles, ni - 1)
     fk = ck.to(torch.float32) + float(_f32(k0))
     pc = corner_positions(origin, res, ci.to(torch.float32), cj.to(torch.float32), fk)
     pt = interpolate_edges(v, pc)  # (A,12,3)
@@ -304,16 +317,28 @@ def block_offsets(name, cases, ids, count, offsets, edge_ranks=False):
     return comp
 
 
-def emit_triangles(grid, cases, ids, origin, res, k0=0, n_tris=None, tri_offsets=None):
+def emit_triangles(grid, cases, ids, origin, res, k0=0, n_tris=None, tri_offsets=None,
+                   tiles=None):
     """Triangle soup (T,3,3) f32 of the active cubes `ids` (K7s;
     gsdf_tpu/ops/mc_emit.py:305-373). grid (nk,nj,ni) distances, cases
     its u8 case grid, k0 the grid's plane offset in the whole grid.
     n_tris and tri_offsets are K3's triangle count and block offsets for
     these ids: with them the call is one launch and reads nothing; without
-    them the wrapper runs K3 on `cases` first."""
+    them the wrapper runs K3 on `cases` first.
+
+    Tile mode: `tiles` (T, 3) int32 makes grid and cases a tile atlas of
+    S = ni - 1 (eval/grid_kernels.py::tile_grid, k0 0) and places each
+    cube by its global index (gsdf_tpu/render/pruned.py:175-189)."""
+    if tiles is not None and (tuple(tiles.shape) != (grid.shape[0] // grid.shape[2], 3)
+                              or grid.shape[0] % grid.shape[2]
+                              or grid.shape[1] != grid.shape[2] or int(k0) != 0):
+        raise ValueError(f"tile mode needs a (T*P, P, P) atlas of (T, 3) tiles and k0 0, got "
+                         f"{tuple(grid.shape)}, {tuple(tiles.shape)} tiles, k0 {k0}")
     if grid.device.type == "cpu":
-        return emit_triangles_plain(grid, cases, ids, origin, res, k0)
+        return emit_triangles_plain(grid, cases, ids, origin, res, k0, tiles)
     device, A, nx, ny, _ = check_kernel_inputs(grid, cases, ids)
+    if tiles is not None:
+        kernels.check_out(tiles, tuple(tiles.shape), torch.int32, device)
     comp = block_offsets("emit_triangles", cases, ids, n_tris, tri_offsets)
     if comp is not None:
         n_tris, tri_offsets = comp.n_tris, comp.tri_offsets
@@ -324,7 +349,8 @@ def emit_triangles(grid, cases, ids, origin, res, k0=0, n_tris=None, tri_offsets
     lib = kernels.static_lib("emit_soup")
     kernels.launch("emit_soup", device, lib.gsdf_emit_soup, grid.data_ptr(), cases.data_ptr(),
                    ids.data_ptr(), A, nx, ny, *kernels.float_args(origin, res, k0),
-                   tri_offsets.data_ptr(), tris.data_ptr())
+                   None if tiles is None else tiles.data_ptr(), tri_offsets.data_ptr(),
+                   tris.data_ptr())
     return tris
 
 

@@ -8,6 +8,7 @@ from .image import (
     render_image_2d,
     write_png,
 )
+from .pruned import PrunedRenderer, render_all
 from .mesh_export import (
     write_obj,
     write_obj_file,
@@ -24,10 +25,12 @@ __all__ = [
     "DualContourLeastSquares",
     "DualContourRenderer",
     "FlatRenderer",
+    "PrunedRenderer",
     "bw_conversion",
     "iq_debug_conversion",
     "minecraft_render",
     "read_binary_stl",
+    "render_all",
     "render_distance_field",
     "render_flat",
     "render_image_2d",

@@ -23,6 +23,22 @@ last on the chunk route) through DualContourRenderer's stages by hand,
 K5 (with its one count read), fetch, host quad emission, STL encode; past
 mono_voxels a K5 and a fetch per chunk.
 
+    python -m gsdf_tpu_torch.stages --pruned
+
+runs the pruned renderer instead: PrunedRenderer.render_compact by hand
+on flange 400, showerhead 350, bolt 300, flange 800 and flange 1000 (and
+the dense compact row of flange 1000 beside it): the coarse pass (K6c,
+the mask's fetch and the host's tile list), then per batch of tiles K6a,
+K3 (with its count read), the id map, K4 and the fetch (each summed over
+the batches), the host merge of the batches, decode and STL encode.
+
+    git show 506a570:gsdf_tpu_torch/csrc/emit_soup.cu > .scratch/emit_soup_506a570.cu
+    python -m gsdf_tpu_torch.stages --k7s-turns .scratch/emit_soup_506a570.cu
+
+times K7s's dense mode as that earlier source builds it (before the tile
+mode, commit 506a570) against this checkout's, in turns, after holding
+their soups equal, on K1's grid of each golden grid.
+
     python -m gsdf_tpu_torch.stages --wrappers
 
 instead splits one call of each marching-cubes wrapper (K3, K3 with the
@@ -34,8 +50,10 @@ of 30 calls): a wrapper timed back to back shows the larger of the two.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import io
 import json
+import os
 import statistics
 import subprocess
 import time
@@ -44,10 +62,12 @@ import numpy as np
 import torch
 
 from . import flagships, native
+from .eval import grid_kernels
 from .eval.grid_kernels import classified_grid
 from .ops import compact_field, fused_welded, mc_emit
 from .render import dual_contour
 from .render.flat import FlatRenderer
+from .render.pruned import PrunedRenderer
 from .render.stl import stl_header
 
 PARTS = {
@@ -58,6 +78,17 @@ PARTS = {
     ("knurled", 350): flagships.GOLDEN_KNURLED_TRIS,
 }
 
+
+#: the pruned rows: the compact goldens the pruned payload reaches exactly
+#: (the flange, showerhead and bolt are 1-Lipschitz enough; ROADMAP.md) and
+#: flange 1000, the size the JAX package's examples/prune_scale.py measures
+PRUNED_PARTS = {
+    ("flange", 400): flagships.GOLDEN_FLANGE_TRIS,
+    ("showerhead", 350): flagships.GOLDEN_SHOWERHEAD_TRIS,
+    ("bolt", 300): flagships.GOLDEN_BOLT_TRIS,
+    ("flange", 800): flagships.GOLDEN_FLANGE_800_TRIS,
+    ("flange", 1000): flagships.GOLDEN_FLANGE_1000_TRIS,
+}
 
 #: the dual contouring rows: the bolt's goldens (tests/test_dual_contour.py:191,
 #: tests/test_golden_scale.py:30-31); resdiv 512 is past mono_voxels
@@ -156,6 +187,34 @@ def indexed(fr, c, parametric=False):
     return len(tri), nbytes
 
 
+def pruned(pr, c, parametric=False):
+    """One PrunedRenderer.render_compact by hand, its stages as the
+    renderer runs them: coarse (K6c, the mask's fetch, the tile list),
+    then per batch K6a, K3, the id map, K4 and the fetch, then the host
+    merge, decode and STL encode."""
+    tiles = pr._prune(parametric)
+    c.lap("K6c + mask fetch")
+    parts = []
+    for batch in pr._batches(tiles):
+        dist, cases = grid_kernels.tile_grid(pr.s, batch, pr.origin, pr.res, pr.S, pr.dims(),
+                                             pr.device, parametric)
+        c.lap("K6a")
+        comp = mc_emit.compact_active(cases)
+        c.lap("K3")
+        ids = compact_field.tile_global_ids(comp.ids, batch, pr.S, pr.dims())
+        c.lap("K id map")
+        idx8, t = compact_field.compact_emit(dist, cases, comp.ids, comp.n_t, comp.offsets)
+        c.lap("K4")
+        parts.append((ids.cpu().numpy().view(np.uint32), idx8.cpu().numpy(), t.cpu().numpy()))
+        c.lap("fetch")
+    payload = compact_field.merge_compact_payloads(parts)
+    c.lap("merge")
+    verts, tri = native.mc_decode(*payload, pr.nx, pr.ny, pr.nz, pr.origin, pr.res)
+    c.lap("host decode")
+    _encode(c, verts, tri)
+    return len(tri), sum(a.nbytes for p in parts for a in p)
+
+
 def dc(dcr, c, parametric=False):
     """One DualContourRenderer render by hand: K5 (its count read
     included) and the fetch, per chunk past mono_voxels, then the host
@@ -235,6 +294,92 @@ def wrappers(trees, dev, card):
     return out
 
 
+#: gsdf_emit_soup's C signature before K7s took a tile table (the dense
+#: mode alone): no `tiles` argument between k0 and tri_offsets
+_K7S_DENSE_ONLY = [ctypes.c_void_p] * 3 + [ctypes.c_int64] + [ctypes.c_int] * 2 \
+    + [ctypes.c_float] * 5 + [ctypes.c_void_p] * 3
+
+
+def k7s_turns(trees, dev, card, source, launches=200, rounds=3):
+    """K7s's dense mode built from another version of csrc/emit_soup.cu
+    (`source`, one from before the tile mode) against this checkout's, on
+    K1's grid and K3's result of each golden grid: both entry points
+    called raw through ctypes on the same inputs, the outputs equal, then
+    `rounds` rounds of other, this, this, other, each `launches` launches
+    back to back between CUDA events. Returns {grid: row}."""
+    from . import _build, kernels
+
+    with open(source) as f:
+        text = f.read()
+    header = kernels.tables_header()
+    key = _build.source_key(text, header, *kernels.NVCC_FLAGS)
+
+    def command(out, d):
+        _build.write_atomic(os.path.join(d, kernels.TABLES_HEADER), header)
+        _build.write_atomic(os.path.join(d, "emit_soup_other.cu"), text)
+        return [kernels.nvcc(), *kernels.NVCC_FLAGS, "-I", d, "-I", kernels.CSRC, "-o", out,
+                os.path.join(d, "emit_soup_other.cu")]
+
+    other = _build.load(_build.build_shared("gsdf_emit_soup_other", key, command),
+                        {"gsdf_emit_soup": (ctypes.c_int, _K7S_DENSE_ONLY)})
+    this = kernels.static_lib("emit_soup")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = {"card": card, "source": source}
+    for name, resdiv in PARTS:
+        fr = FlatRenderer(trees[name], trees[name].bounds().diagonal() / resdiv, dev)
+        dist, cases = classified_grid(fr.s, fr.origin, fr.res, fr.shape(), dev)
+        comp = mc_emit.compact_active(cases)
+        head = (dist.data_ptr(), cases.data_ptr(), comp.ids.data_ptr(), len(comp.ids), fr.nx,
+                fr.ny, *kernels.float_args(fr.origin, fr.res, 0))
+        t_other = torch.empty((comp.n_tris, 3, 3), dtype=torch.float32, device=dev)
+        t_this = torch.empty_like(t_other)
+
+        def run_other():
+            if other.gsdf_emit_soup(*head, comp.tri_offsets.data_ptr(), t_other.data_ptr(),
+                                    stream):
+                raise RuntimeError("the other K7s did not launch")
+
+        def run_this():
+            if this.gsdf_emit_soup(*head, None, comp.tri_offsets.data_ptr(), t_this.data_ptr(),
+                                   stream):
+                raise RuntimeError("K7s did not launch")
+
+        run_other()
+        run_this()
+        torch.cuda.synchronize()
+        if not torch.equal(t_other, t_this):
+            raise RuntimeError(f"K7s {name}@{resdiv}: the two versions' soups differ")
+
+        def ms(fn):
+            fn()
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(launches):
+                fn()
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end) / launches
+
+        o, n = [], []
+        for _ in range(rounds):
+            o.append(ms(run_other))
+            n += [ms(run_this), ms(run_this)]
+            o.append(ms(run_other))
+        row = {"other_ms": o, "this_ms": n, "other_min": min(o), "this_min": min(n),
+               "other_median": statistics.median(o), "this_median": statistics.median(n),
+               "tris": comp.n_tris}
+        out[f"{name}@{resdiv}"] = row
+        print(f"K7s dense {name}@{resdiv}: equal soups ({comp.n_tris} triangles); other "
+              f"version min {row['other_min']:.4f} ms, this checkout's {row['this_min']:.4f} "
+              f"ms; medians {row['other_median']:.4f} / {row['this_median']:.4f} ms ({launches} "
+              f"launches back to back, {rounds} rounds of other, this, this, other) [{card}]",
+              flush=True)
+        del dist, cases, comp, t_other, t_this
+    return out
+
+
 def measure(render, golden, runs):
     """One row: render(Clock()) `runs` times, each holding the golden
     count; the median of each stage over the runs after the first two, and
@@ -266,8 +411,12 @@ def main(argv=None):
                     help="the compact and indexed rows through K1's parametric form")
     ap.add_argument("--dc", action="store_true",
                     help="dual contouring rows (the bolt at resdiv 256, 384, 512) instead")
+    ap.add_argument("--pruned", action="store_true",
+                    help="pruned renderer rows (flange 400 to 1000, showerhead, bolt) instead")
     ap.add_argument("--wrappers", action="store_true",
                     help="split each marching-cubes wrapper's call into host and device time")
+    ap.add_argument("--k7s-turns", metavar="EMIT_SOUP_CU",
+                    help="time K7s's dense mode against this earlier emit_soup.cu, in turns")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("stages: needs a CUDA device")
@@ -278,8 +427,9 @@ def main(argv=None):
     ).stdout.strip()
     trees = {n: getattr(flagships, f"build_{n}")() for n in ("flange", "showerhead", "bolt",
                                                                "knurled")}
-    if args.wrappers:
-        out = wrappers(trees, dev, card)
+    if args.wrappers or args.k7s_turns:
+        out = (k7s_turns(trees, dev, card, args.k7s_turns) if args.k7s_turns
+               else wrappers(trees, dev, card))
         if args.out:
             with open(args.out, "w") as f:
                 json.dump(out, f, indent=1)
@@ -291,6 +441,9 @@ def main(argv=None):
         rows = [r for r in rows if r[0] != "soup" and not (r[0] == "indexed" and r[2][1] == 800)]
     if args.dc:
         rows = [("dc", None, part) for part in DC_PARTS]
+    if args.pruned:
+        rows = [("pruned", None, part) for part in PRUNED_PARTS]
+        rows.append(("compact", compact, ("flange", 1000)))
     out = {"card": card}
     for path, fn, (name, resdiv) in rows:
         tree = trees[name]
@@ -300,10 +453,14 @@ def main(argv=None):
                 return dc(dual_contour.DualContourRenderer(tree, res, device=dev), c,
                           args.parametric)
             golden = DC_PARTS[(name, resdiv)]
+        elif path == "pruned":
+            def render(c):
+                return pruned(PrunedRenderer(tree, res, device=dev), c, args.parametric)
+            golden = PRUNED_PARTS[(name, resdiv)]
         else:
             def render(c, fn=fn):
                 return fn(FlatRenderer(tree, res, dev), c, args.parametric)
-            golden = PARTS[(name, resdiv)]
+            golden = {**PARTS, **PRUNED_PARTS}[(name, resdiv)]
         out[f"{path} {name}@{resdiv}"] = row = measure(render, golden, args.runs)
         print(f"{path} {name}@{resdiv}: "
               + ", ".join(f"{k} {v:.3f}" for k, v in row["stages_ms"].items())

@@ -139,3 +139,40 @@ def test_on_card_ms_takes_the_fullest_trace(monkeypatch):
     monkeypatch.setattr(chip_smoke, "device_launches", fake)
     monkeypatch.setattr(chip_smoke, "log", lambda msg: None)
     assert chip_smoke.on_card_ms("a", "b") == (0.1805, None)
+
+
+def test_tile_prune_bytes_and_ops():
+    """K6c writes a byte a tile and the count; its plain version runs the
+    tree at every tile centre, |d| and the compare there, and 3 operations
+    per index of each axis to make the centres (origin + idx * side +
+    half)."""
+    assert bounds.kernel_bytes("tile_prune", tiles=60) == 64
+    assert bounds.kernel_bytes("tile_prune_param", tiles=60, n_params=7) == 92
+    shape = (3, 4, 5)
+    _, ops = bounds.count_ops(gk.coarse_keep_plain, Builder().new_sphere(1.0),
+                              np.float32([-1.2, -1.2, -1.2]), np.float32(0.1), 8, shape, "cpu")
+    assert ops == (SPHERE_OPS + 2) * 60 + 3 * (3 + 4 + 5)
+
+
+def test_tile_atlas_bytes_and_ops():
+    """K6a reads each tile's row and writes the atlas (4 B a corner) and
+    its case grid (1 B a cube, seams included); its plain version runs the
+    tree at every atlas corner, 2 operations per index of each axis of each
+    tile to make the positions, and the classification's 10 per atlas
+    cube."""
+    T, S = 3, 4
+    P = S + 1
+    corners, cubes = T * P**3, (T * P - 1) * S * S
+    assert bounds.kernel_bytes("tile_atlas", corners=corners, cubes=cubes, tiles=T) == (
+        4 * 375 + 224 + 36)
+    assert bounds.kernel_bytes("tile_atlas_param", corners=corners, cubes=cubes, tiles=T,
+                               n_params=5) == 4 * 375 + 224 + 36 + 20
+    assert bounds.kernel_bytes("tile_global_ids", active=10, tiles=T) == 80 + 36
+    assert bounds.kernel_bytes("emit_soup", active=1, tris=2, tiles=T) == (
+        bounds.kernel_bytes("emit_soup", active=1, tris=2) + 36)
+    tiles = torch.tensor([[0, 0, 0], [1, 0, 0], [1, 1, 2]], dtype=torch.int32)
+    (dist, cases), ops = bounds.count_ops(
+        gk.tile_grid_plain, Builder().new_sphere(1.0), tiles, np.float32([-1.2] * 3),
+        np.float32(0.15), S, (7, 8, 9), "cpu")
+    assert dist.numel() == corners and cases.numel() == cubes
+    assert ops == SPHERE_OPS * corners + 6 * T * P + 10 * cubes

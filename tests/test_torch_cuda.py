@@ -20,7 +20,12 @@ build raising instead of falling back. Then K5 and K5p (dual contouring)
 against their plain version on every tree in both modes and on a slab at
 k0 != 0 with a halo layer, K5's grid pass equal to K2's in every float,
 one count read before the fetch, the bolt's three goldens and the DC edit
-loop.
+loop. Then the pruned renderer's kernels: K6c and K6a (baked and
+parametric), the id map and K7s's tile mode against their plain versions
+on every tree with tiles of 8 and 7, the atlas equal to K1's grid at the
+same corners, K7s's dense mode unchanged (and a one-tile atlas placed as
+the dense grid), the pruned payload equal to the dense one with its
+launches per batch, the flange's golden, the soup and the edit loop.
 
 Tolerances: case grids, ids, counts, K3's block offsets and edge ranks and tri_idx exact; t, soup and welded
 vertices bit-identical (the kernels are built -fmad=false and fed the
@@ -919,3 +924,130 @@ def test_dc_edit_loop_builds_nothing(cuda_device):
         sizes.append(len(tris))
         counts, libs = dict(_build.COUNTS), len(gk._libs)  # the baked render built one
     assert len(set(sizes)) == len(sizes)
+
+
+# --- K6c / K6a / the id map / K7s tile mode: the pruned renderer ---------
+def _kept_tiles(keep, device):
+    rows = np.argwhere(keep.cpu().numpy())[:, ::-1]
+    return torch.from_numpy(np.ascontiguousarray(rows, dtype=np.int32)).to(device)
+
+
+@pytest.mark.parametrize("S", [8, 7])
+@pytest.mark.parametrize("name", list(TREES))
+def test_pruned_kernels_match_plain(name, S, cuda_device):
+    """K6c and K6a, baked and parametric, the id map and K7s's tile mode
+    against their plain versions: keep masks, counts, case bytes, ids and
+    the soup exact, atlas distances within 1e-5 * max(1, |d|); the atlas
+    equal to K1's grid at the same corners bit for bit."""
+    from gsdf_tpu_torch.render.pruned import PrunedRenderer
+
+    tree = TREES[name]()
+    pr = PrunedRenderer(tree, tree.bounds().diagonal() / 64, tile_size=S, device=cuda_device)
+    shape, dims, grid = (pr.tz, pr.ty, pr.tx), pr.dims(), (pr.origin, pr.res, S)
+    fr = FlatRenderer(tree, pr.res, cuda_device)
+    d1, _ = gk.classified_grid(tree, fr.origin, fr.res, fr.shape(), cuda_device)
+    pkeep, pcount = gk.coarse_keep_plain(tree, *grid, shape, cuda_device)
+    tiles = _kept_tiles(pkeep, cuda_device)
+    assert len(tiles) > 0
+    pdist, pcases = gk.tile_grid_plain(tree, tiles, *grid, dims, cuda_device)
+    for parametric in (False, True):
+        before = dict(kernels.LAUNCHES)
+        keep, count = gk.coarse_keep(tree, *grid, shape, cuda_device, parametric)
+        dist, cases = gk.tile_grid(tree, tiles, *grid, dims, cuda_device, parametric)
+        torch.cuda.synchronize()
+        suffix = "_param" if parametric else ""
+        assert kernels.LAUNCHES["tile_prune" + suffix] == before["tile_prune" + suffix] + 1
+        assert kernels.LAUNCHES["tile_atlas" + suffix] == before["tile_atlas" + suffix] + 1
+        assert torch.equal(keep, pkeep) and int(count) == int(pcount) == len(tiles)
+        mask, n_keep = gk.keep_to_host(keep, count)  # the renderer's one copy
+        assert np.array_equal(mask, pkeep.cpu().numpy()) and n_keep == len(tiles)
+        assert torch.equal(cases, pcases)
+        tol = 1e-5 * pdist.abs().clamp(min=1.0)
+        assert bool(((dist - pdist).abs() <= tol).all())
+        P = S + 1
+        t = tiles.long()
+        loc = torch.arange(P, device=cuda_device)
+        gi, gj, gk_ = (t[:, c, None] * S + loc for c in range(3))
+        nk, nj, ni = d1.shape
+        inside = ((gk_ < nk)[:, :, None, None] & (gj < nj)[:, None, :, None]
+                  & (gi < ni)[:, None, None, :])
+        lin = (gk_.clamp(max=nk - 1)[:, :, None, None] * nj
+               + gj.clamp(max=nj - 1)[:, None, :, None]) * ni + gi.clamp(max=ni - 1)[:, None, None, :]
+        assert not bool(((dist.view(-1, P, P, P) != d1.reshape(-1)[lin]) & inside).any())
+    comp = mc_emit.compact_active(cases)
+    ids = compact_field.tile_global_ids(comp.ids, tiles, S, dims)
+    assert torch.equal(ids, compact_field.tile_global_ids_plain(comp.ids, tiles, S, dims))
+    tris = mc_emit.emit_triangles(dist, cases, comp.ids, pr.origin, pr.res, 0, comp.n_tris,
+                                  comp.tri_offsets, tiles=tiles)
+    assert torch.equal(tris, mc_emit.emit_triangles_plain(dist, cases, comp.ids, pr.origin,
+                                                          pr.res, 0, tiles))
+    assert len(tris) > 100
+
+
+def test_emit_soup_dense_mode_unchanged(cuda_device):
+    """K7s with no tile table is the dense kernel: equal to plain; and a
+    one-tile atlas at tile (0, 0, 0) in tile mode places every triangle
+    where the dense mode places it, bit for bit."""
+    tree = _solid()
+    origin, res = _centred((33, 33, 33))
+    dist, cases = gk.classified_grid(tree, origin, res, (33, 33, 33), cuda_device)
+    comp = mc_emit.compact_active(cases)
+    dense = mc_emit.emit_triangles(dist, cases, comp.ids, origin, res, 0, comp.n_tris,
+                                   comp.tri_offsets)
+    assert torch.equal(dense, mc_emit.emit_triangles_plain(dist, cases, comp.ids, origin, res))
+    one = torch.zeros((1, 3), dtype=torch.int32, device=cuda_device)
+    tiled = mc_emit.emit_triangles(dist, cases, comp.ids, origin, res, 0, comp.n_tris,
+                                   comp.tri_offsets, tiles=one)
+    assert torch.equal(tiled, dense) and len(dense) > 1000
+
+
+@pytest.mark.parametrize("name", ["solid", "flange", "bolt", "showerhead"])
+def test_pruned_payload_equals_dense_on_card(name, cuda_device):
+    """PrunedRenderer.compact_payload == the dense compact_field_render
+    payload (ids, cases, t) on the card; one K6c, and one K6a, K3, id map
+    and K4 a batch."""
+    from gsdf_tpu_torch.render.pruned import PrunedRenderer
+
+    tree = TREES[name]()
+    res = tree.bounds().diagonal() / 150
+    pr = PrunedRenderer(tree, res, tiles_per_batch=256, device=cuda_device)
+    before = dict(kernels.LAUNCHES)
+    payload = pr.compact_payload()
+    got = {k: kernels.LAUNCHES[k] - before[k] for k in before if kernels.LAUNCHES[k] != before[k]}
+    assert pr.batches > 1
+    assert got == {"tile_prune": 1, **{k: pr.batches for k in (
+        "tile_atlas", "compact_active", "tile_global_ids", "compact_emit")}}
+    fr = FlatRenderer(tree, res, cuda_device)
+    dense = compact_field.compact_field_render(tree, fr.origin, fr.res, fr.shape(), cuda_device)
+    for a, b in zip(payload, dense):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def test_pruned_renders_on_card(cuda_device):
+    """The flange's golden through the pruned compact path; render() the
+    flat soup as sorted rows; the parametric edit loop with no build."""
+    from gsdf_tpu_torch.render.pruned import PrunedRenderer
+
+    tree = flagships.build_flange()
+    res = tree.bounds().diagonal() / 400
+    verts, tri = PrunedRenderer(tree, res).render_compact()
+    assert len(tri) == flagships.GOLDEN_FLANGE_TRIS and tri.max() < len(verts)
+    small = tree.bounds().diagonal() / 150
+
+    def rows(t):
+        r = np.ascontiguousarray(t.reshape(-1, 9))
+        return r[np.lexsort(r.T[::-1])]
+
+    soup = PrunedRenderer(tree, small, device=cuda_device).render()
+    assert np.array_equal(rows(soup), rows(FlatRenderer(tree, small, cuda_device).render()))
+    pinned, cyl = _boss_part()
+    pr = PrunedRenderer(pinned, 0.02, device=cuda_device)
+    pr.render_compact(parametric=True)
+    FlatRenderer(pinned, 0.02, cuda_device).render_compact(parametric=True)
+    counts, libs = dict(_build.COUNTS), len(gk._libs)
+    for r in (0.35, 0.5):
+        pinned.rebind({cyl: {"r": r}})
+        verts, tri = pr.render_compact(parametric=True)
+        dverts, dtri = FlatRenderer(pinned, 0.02, cuda_device).render_compact(parametric=True)
+        assert dict(_build.COUNTS) == counts and len(gk._libs) == libs
+        assert np.array_equal(tri, dtri) and np.array_equal(verts, dverts)
