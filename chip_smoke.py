@@ -141,6 +141,33 @@
    render_compact(parametric=True) on the pinned flange: 0 compiler runs,
    0 libraries loaded, each mesh equal to the dense parametric render);
    each pruned kernel timed at flange 400 against its plain version.
+   Then the raymarcher (visual/raymarch.py, pipeline/interactive.py): K8
+   and K8p (csrc/raymarch.cu, built in phase 2 for the five parts and
+   three random trees) were held in phase 2 against raymarch_plain at
+   128 x 128, aa 2, 196 steps: every pixel and every ray's evaluation
+   count, K8p against K8, and K8p's library with a structurally equal
+   tree's values. K8 and K8p are then held to raymarch_plain, in every
+   pixel and every ray's evaluation count, at each frame the path below
+   makes at the default view: 512 x 512 at aa 1 and at aa 3 (1536^2
+   supersamples, box-filtered), the drag frame (256 x 256, 72 steps) and
+   the ui frame (800 x 600), on the flange, showerhead, bolt, knurled
+   cylinder and the sphere. Then on those parts, on the default device:
+   raymarch_image with the JAX package's defaults (512 x 512, 196 steps,
+   auto_relax, aa 1) and at aa 3 (one launch a frame, one synchronising
+   call: the fetch; the image equal to plain's); the InteractiveViewer
+   driven by on_press / on_move / on_scroll / on_release (drag frames 256
+   x 256 at 72 steps, full frames 512 x 512 at aa 3, counted apart; no
+   build after the first frame, which equals plain's; frame ms split into
+   K8, fetch and host; pipelined drag frames in turns with synchronous
+   ones); ui(part, UIConfig()) (24 frames at 800 x 600 and the GIF, read
+   back); a slider viewer (params=[...]) through set_param: K8p only, no
+   compiler run and no library loaded after the first frame, each edited
+   512 x 512 aa 3 frame equal to the edited tree's plain version. Launches
+   per frame are recorded as counted on each path. K8 is timed on each
+   part at each of those frames (wrapper ms, CUDA-graph device ms) beside
+   its bound from the evaluations it made (bounds.raymarch_ops), with the
+   mean and most march steps per ray and the plain call's ms; at 512 x
+   512 aa 1 also K8p in turns against K8.
 4. Fails unless each kernel launched on every path that runs it, once per
    render and slab (the wrapper calls counted per render of each path are
    printed and held to what the path should make); prints the device
@@ -603,6 +630,9 @@ KERNELS = (
     ("tile_atlas_param", "gsdf_tpu_torch/csrc/tile_atlas.cu", "gsdf_tpu/render/pruned.py:236"),
     ("tile_global_ids", "gsdf_tpu_torch/csrc/tile_global_ids.cu",
      "gsdf_tpu/ops/compact_field.py:311"),
+    # the raymarcher, baked and parametric
+    ("raymarch", "gsdf_tpu_torch/csrc/raymarch.cu", "gsdf_tpu/visual/raymarch.py:26"),
+    ("raymarch_param", "gsdf_tpu_torch/csrc/raymarch.cu", "gsdf_tpu/visual/raymarch.py:151"),
 )
 
 
@@ -957,6 +987,350 @@ def pruned_kernel_times(tree, resdiv, dev, gk, n_params, card):
     return row
 
 
+#: the raymarcher's parts: the five that the MC phases render
+RM_PARTS = ("flange", "showerhead", "bolt", "knurled", "sphere")
+#: and the random trees K8 and K8p are held to plain on
+RM_FUZZ = ("fuzz0", "fuzz3", "fuzz4")
+#: the path's frames at full width, (label, width, height, steps, aa): raymarch_image's
+#: defaults, its rest frame at aa 3 (= the viewer's full frame), the viewer's drag
+#: frame, a frame of ui(UIConfig())
+RM_FRAMES = (("image aa1", 512, 512, 196, 1), ("image aa3", 512, 512, 196, 3),
+             ("drag", 256, 256, 72, 1), ("ui", 800, 600, 196, 1))
+
+
+def rm_args(tree, width, height, steps, aa, dev):
+    """K8's arguments for one frame of `tree` at the JAX package's default view."""
+    from gsdf_tpu_torch.visual import raymarch as vrm
+
+    return (vrm.camera(tree, 0.6, 0.5, 2.4), width, height, steps, vrm.auto_relax(tree), aa,
+            dev)
+
+
+def rm_levels(a, b):
+    """(pixels that differ, the most levels any channel differs) of two u8 images."""
+    d = (a.int() - b.int()).abs().amax(-1)
+    return int((d > 0).sum()), int(d.max())
+
+
+def raymarch_compare(name, tree, other, dev, w=128, h=128, aa=2, steps=196):
+    """K8 and K8p against raymarch_plain at w x h, aa 2, 196 steps: pixels
+    and every ray's evaluation count; K8p against K8; K8p's library with a
+    structurally equal tree's values (`other`) against that tree's plain
+    version. Returns {form: (pixels differing, max levels)} and the
+    evaluations that differ; raises unless every count is 0."""
+    import torch
+    from gsdf_tpu_torch.eval import ray_kernels as rk
+
+    args, oargs = rm_args(tree, w, h, steps, aa, dev), rm_args(other, w, h, steps, aa, dev)
+    img, ev = rk.raymarch(tree, *args, evals=True)
+    pimg, pev = rk.raymarch(tree, *args, parametric=True, evals=True)
+    oimg = rk.raymarch(other, *oargs, parametric=True)
+    ref, ref_ev = rk.raymarch_plain(tree, *args, evals=True)
+    oref = rk.raymarch_plain(other, *oargs)
+    torch.cuda.synchronize()
+    out = {"raymarch": rm_levels(img, ref), "raymarch_param": rm_levels(pimg, ref),
+           "raymarch_param other values": rm_levels(oimg, oref),
+           "raymarch_param vs raymarch": rm_levels(pimg, img)}
+    ev_diff = int((ev != ref_ev).sum()) + int((pev != ref_ev).sum())
+    log(f"  raymarch {name:12s} {w}x{h} aa {aa}: pixels differing (max levels) {out}, "
+        f"evaluations differing {ev_diff}; steps per ray mean "
+        f"{float(ev.float().mean()) - 5:.2f} max {int(ev.max()) - 5}")
+    if ev_diff or any(n for n, _ in out.values()):
+        raise RuntimeError(f"raymarch {name}: K8 / K8p differ from plain: {out}, evaluations "
+                           f"{ev_diff}")
+    return out
+
+
+def rm_slider(tree):
+    """(node, name) of the continuous parameter a slider edits: the first
+    cylinder's or sphere's radius in BFS order."""
+    from gsdf_tpu_torch.eval.parametric import param_spec
+
+    for node, name, _ in param_spec(tree):
+        if (type(node).__name__, name) in (("Cylinder", "r"), ("Sphere", "r")):
+            return node, name
+    raise RuntimeError("no radius to slide")
+
+
+def raymarch_kernel_times(parts, dev, card):
+    """K8 on each part at each frame of RM_FRAMES: K8's and K8p's images
+    and every ray's evaluation count against raymarch_plain's (raises
+    unless all are equal), the plain call's ms (CUDA events, that one
+    call), the wrapper's ms (CUDA events, 10 launches), the device ms of
+    one call from a CUDA graph (graph_ms), the tree evaluations K8 made
+    (checked against plain's) with the mean and most march steps per ray,
+    and the bound from them (bounds.raymarch_ops; bytes: the u8 output).
+    At raymarch_image's defaults also K8p in turns against K8. Returns
+    ({part: {frame: row}}, {part: {frame: plain's image on the host}})."""
+    import torch
+    from gsdf_tpu_torch import bounds
+    from gsdf_tpu_torch.eval import ray_kernels as rk
+    from gsdf_tpu_torch.eval.parametric import kernel_params
+
+    out, refs = {}, {}
+    for name, tree in parts.items():
+        out[name], refs[name] = {}, {}
+        for label, w, h, steps, aa in RM_FRAMES:
+            args = rm_args(tree, w, h, steps, aa, dev)
+            img, evals = rk.raymarch(tree, *args, evals=True)
+            pimg, pevals = rk.raymarch(tree, *args, parametric=True, evals=True)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            ref, ref_evals = rk.raymarch_plain(tree, *args, evals=True)
+            end.record()
+            end.synchronize()
+            differing = {"raymarch": rm_levels(img, ref), "raymarch_param": rm_levels(pimg, ref)}
+            ev_diff = int((evals != ref_evals).sum()) + int((pevals != ref_evals).sum())
+            if ev_diff or any(n for n, _ in differing.values()):
+                raise RuntimeError(f"raymarch {name} {label} ({w}x{h}, {steps} steps, aa {aa}): "
+                                   f"K8 / K8p differ from plain: pixels (max levels) "
+                                   f"{differing}, evaluations {ev_diff}")
+            refs[name][label] = ref.cpu().numpy()
+            n, rays = int(evals.sum()), evals.numel()
+            del img, pimg, ref, pevals, ref_evals
+
+            def kernel(args=args):
+                return rk.raymarch(tree, *args)
+
+            ms, dev_ms = cuda_ms(kernel, 10), graph_ms(kernel, 10)
+            b = bounds.bound(bounds.raymarch_ops(tree, n, rays),
+                             bounds.kernel_bytes("raymarch", pixels=w * h))
+            row = {"ms": ms, "graph_ms": dev_ms, "plain_ms": start.elapsed_time(end),
+                   "pixels_differing_from_plain": {k: v[0] for k, v in differing.items()},
+                   "evaluations_differing_from_plain": ev_diff, "evaluations": n, "rays": rays,
+                   "mean_steps": n / rays - 5, "max_steps": int(evals.max()) - 5,
+                   "launches_per_call": 1 + (aa > 1), "library_ms": None, **b,
+                   "share": b["bound_ms"] / ms, "device_share": dev_ms and b["bound_ms"] / dev_ms}
+            if label == "image aa1":
+
+                def param(args=args):
+                    return rk.raymarch(tree, *args, parametric=True)
+
+                row["param_ms"], row["baked_ms"] = in_turns(param, kernel)
+                row["param_graph_ms"] = graph_ms(param, 10)
+                row["param_bytes"] = bounds.kernel_bytes(
+                    "raymarch_param", pixels=w * h, n_params=int(kernel_params(tree).size))
+            out[name][label] = row
+            torch.cuda.empty_cache()
+        log(f"  device ms raymarch {name}, K8 and K8p equal to plain in every pixel and "
+            "evaluation at every frame: "
+            + ", ".join(f"{k} {v['ms']:.4f} (graph {v['graph_ms'] and round(v['graph_ms'], 4)}, "
+                        f"bound {v['bound_ms']:.4f} by {v['bound_by']}, device share "
+                        f"{v['device_share'] and round(v['device_share'], 3)}, steps per ray mean "
+                        f"{v['mean_steps']:.2f} max {v['max_steps']}, plain {v['plain_ms']:.3f}"
+                        + (f", K8p / K8 in turns {v['param_ms']:.4f} / "
+                           f"{v['baked_ms']:.4f}, K8p graph {v['param_graph_ms'] and round(v['param_graph_ms'], 4)}"
+                           if "param_ms" in v else "") + ")"
+                        for k, v in out[name].items())
+            + f"  [{card}]")
+    return out, refs
+
+
+def raymarch_paths(parts, refs, dev, card, run, exactly):
+    """The raymarcher's main path at full width on each part, through the
+    entry points a user calls, on the default device (the card): every
+    launch count at 0 just before each path and read just after, launches
+    per frame exact and recorded as counted, one synchronising call per
+    frame (the fetch). `refs` is raymarch_kernel_times' plain images at
+    the default view ({part: {RM_FRAMES label: image}}).
+    - raymarch_image(part) with the JAX package's defaults (512 x 512, 196
+      steps, auto_relax, aa 1), and with aa 3: host-clock ms per frame, the
+      image equal to plain's;
+    - InteractiveViewer(part) driven by on_press / on_move / on_scroll /
+      on_release (drag frames 256 x 256 at 72 steps, full frames 512 x 512
+      at 196 steps and aa 3), drag and full frames counted apart: no build
+      after the first frame, whose image equals plain's; frame ms split
+      into K8 (graph_ms), fetch and host (the drag frame's np.repeat); the
+      pipelined drag frames against the synchronous ones;
+    - ui(part, UIConfig()): 24 frames at 800 x 600 and the GIF, read back;
+    - InteractiveViewer(part, params=[...]) with set_param: K8p only, no
+      build and no library loaded after the first frame, each edited
+      frame (512 x 512, aa 3) equal to the edited tree's plain version.
+    Returns ({part: results}, {path: launches per frame})."""
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+    from PIL import Image
+    from gsdf_tpu_torch import _build, pipeline
+    from gsdf_tpu_torch.eval import ray_kernels as rk
+    from gsdf_tpu_torch.visual import raymarch as vrm
+
+    results, per_frame = {}, {}
+
+    def counted_frames(path, counts, frames):
+        """Record the launches per frame of `path`, as counted; the same on
+        every part."""
+        got = {k: n / frames for k, n in counts.items() if n}
+        if per_frame.setdefault(path, got) != got:
+            raise RuntimeError(f"{path}: launches per frame {got}, {per_frame[path]} before")
+
+    def same_as_plain(label, img, ref):
+        if not np.array_equal(img, ref):
+            raise RuntimeError(f"{label}: {int((img != ref).any(-1).sum())} pixels differ from "
+                               "raymarch_plain's")
+
+    def median_ms(fn, reps=3):
+        ms = []
+        for _ in range(reps + 1):
+            t0 = time.perf_counter()
+            fn()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(ms[1:])  # the first is a warm-up
+
+    def split(v, quality, reps=3):
+        """(K8 graph ms, fetch ms, host ms) of one viewer frame."""
+        k8 = graph_ms(lambda: v._dispatch(quality), 5)
+        fetch, host = [], []
+        for _ in range(reps):
+            frame = v._dispatch(quality)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img = frame.cpu().numpy()
+            t1 = time.perf_counter()
+            if quality == "drag":
+                np.repeat(np.repeat(img, 2, axis=0), 2, axis=1)
+            t2 = time.perf_counter()
+            fetch.append((t1 - t0) * 1e3)
+            host.append((t2 - t1) * 1e3)
+        return k8, statistics.median(fetch), statistics.median(host)
+
+    for name, tree in parts.items():
+        row = {}
+        for aa in (1, 3):
+            label = f"raymarch_image {name} aa {aa}"
+            ms, counts = run(label, ("raymarch",), lambda: median_ms(
+                lambda: vrm.raymarch_image(tree, aa=aa)))
+            exactly(label, counts, {"raymarch": 4})
+            counted_frames(f"raymarch_image aa{aa}", counts, 4)  # a warm-up and 3
+            img, syncs = synchronising(lambda: vrm.raymarch_image(tree, aa=aa))
+            if len(syncs) != 1:
+                raise RuntimeError(f"{label}: {len(syncs)} synchronising calls, not 1: {syncs}")
+            if img.shape != (512, 512, 3) or img.dtype != np.uint8 or len(
+                    np.unique(img.reshape(-1, 3), axis=0)) < 100:
+                raise RuntimeError(f"{label}: not a shaded 512 x 512 image")
+            same_as_plain(label, img, refs[name][f"image aa{aa}"])
+            row[f"raymarch_image aa{aa} ms"] = ms
+
+        v = pipeline.InteractiveViewer(tree)  # no device named: the card
+        if v.device != dev:
+            raise RuntimeError(f"InteractiveViewer defaulted to {v.device}, not the card")
+        first_img, counts = run(f"viewer {name} first frame", ("raymarch",),
+                                lambda: v.render_current("full"))  # builds or loads
+        exactly(f"viewer {name} first frame", counts, {"raymarch": 1})
+        same_as_plain(f"viewer {name} first frame", first_img, refs[name]["image aa3"])
+        first = dict(_build.COUNTS)
+
+        def drags(v=v):
+            v.on_press(256, 256)
+            for x in (270, 290, 310, 330):
+                v.on_move(x, 262)
+                v.render_current("drag")
+            v.on_release()
+            v.on_scroll(1)
+            v.render_current("drag")
+
+        def fulls(v=v):
+            for _ in range(3):
+                v.render_current("full")
+                v.on_scroll(-1)
+
+        _, counts = run(f"viewer {name} drag frames", ("raymarch",), drags)
+        exactly(f"viewer {name} drag frames", counts, {"raymarch": 5})
+        counted_frames("viewer drag", counts, 5)
+        _, counts = run(f"viewer {name} full frames", ("raymarch",), fulls)
+        exactly(f"viewer {name} full frames", counts, {"raymarch": 3})
+        counted_frames("viewer full", counts, 3)
+        if dict(_build.COUNTS) != first:
+            raise RuntimeError(f"viewer {name}: built after the first frame")
+        stats = v.frame_stats()
+        _, drag_syncs = synchronising(lambda: v.render_current("drag"))
+        _, full_syncs = synchronising(lambda: v.render_current("full"))
+        if len(drag_syncs) != 1 or len(full_syncs) != 1:
+            raise RuntimeError(f"viewer {name}: synchronising calls a frame {drag_syncs} / "
+                               f"{full_syncs}, not 1")
+        row["viewer"] = {q: {"frames": s["frames"], "median_ms": s["median_ms"]}
+                         for q, s in stats.items()}
+        row["split drag (K8 graph, fetch, host)"] = split(v, "drag")
+        row["split full (K8 graph, fetch, host)"] = split(v, "full")
+        pipe = pipeline.InteractiveViewer(tree, pipeline=True)
+        sync_v = pipeline.InteractiveViewer(tree)
+        for viewer in (pipe, sync_v):
+            viewer.on_press(256, 256)
+        turns = {"pipelined": [], "synchronous": []}
+        for k in range(12):
+            for key, viewer in (("synchronous", sync_v), ("pipelined", pipe)):
+                viewer.on_move(256 + 3 * k, 258)
+                t0 = time.perf_counter()
+                viewer.render_current("drag")
+                turns[key].append((time.perf_counter() - t0) * 1e3)
+        row["drag ms pipelined / synchronous"] = (statistics.median(turns["pipelined"][2:]),
+                                                  statistics.median(turns["synchronous"][2:]))
+
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "turntable.gif")
+            t0 = time.perf_counter()
+            frames, counts = run(f"ui {name}", ("raymarch",),
+                                 lambda: pipeline.ui(tree, pipeline.UIConfig(gif_path=path)))
+            ui_ms = (time.perf_counter() - t0) * 1e3
+            exactly(f"ui {name}", counts, {"raymarch": 24})
+            counted_frames("ui frame", counts, len(frames))
+            # Pillow writes a frame equal to the one before it as one frame
+            distinct = 1 + sum(not np.array_equal(a, b) for a, b in zip(frames, frames[1:]))
+            with Image.open(path) as gif:
+                if len(frames) != 24 or frames[0].shape != (600, 800, 3) or (
+                        gif.n_frames != distinct):
+                    raise RuntimeError(f"ui {name}: {len(frames)} frames, GIF of "
+                                       f"{gif.n_frames}, {distinct} distinct")
+        row["ui ms (24 frames + GIF)"] = ui_ms
+
+        node, pname = rm_slider(tree)
+        value = float(getattr(node, pname))
+        pv = pipeline.InteractiveViewer(tree, params=[(pname, node, pname, 0.5 * value,
+                                                       1.5 * value)])
+        first_img, counts = run(f"viewer set_param {name} first frame", ("raymarch_param",),
+                                lambda: pv.render_current("full"))  # builds or loads
+        exactly(f"viewer set_param {name} first frame", counts, {"raymarch_param": 1})
+        same_as_plain(f"viewer set_param {name} first frame", first_img, refs[name]["image aa3"])
+        first = dict(_build.COUNTS)
+
+        def edits(pv=pv, node=node, pname=pname, value=value):
+            imgs, edit_ms = [], []
+            for f in (1.02, 0.98, 1.0):
+                pv.set_param(node, pname, value * f)
+                t0 = time.perf_counter()
+                imgs.append(pv.render_current("full"))
+                edit_ms.append((time.perf_counter() - t0) * 1e3)
+            pv.on_press(256, 256)
+            pv.on_move(280, 262)
+            pv.render_current("drag")
+            pv.render_current("drag")
+            return imgs, edit_ms
+
+        (imgs, edit_ms), counts = run(f"viewer set_param {name}", ("raymarch_param",), edits)
+        exactly(f"viewer set_param {name}", counts, {"raymarch_param": 5})
+        counted_frames("viewer set_param", counts, 5)
+        if dict(_build.COUNTS) != first:
+            raise RuntimeError(f"viewer set_param {name}: built after the first frame")
+        # each edited frame against the edited tree's plain version at the
+        # viewer's own full frame (the camera frames the edited bounds);
+        # the last edit restores the value
+        for f, img in zip((1.02, 0.98), imgs):
+            pv.set_param(node, pname, value * f)
+            full_args = rm_args(pv.obj, pv.width, pv.height, pv.steps, pv.aa, dev)
+            same_as_plain(f"viewer set_param {name} {pname} x {f}", img,
+                          rk.raymarch_plain(pv.obj, *full_args).cpu().numpy())
+        pv.set_param(node, pname, value)
+        same_as_plain(f"viewer set_param {name} restored", imgs[-1], refs[name]["image aa3"])
+        row["set_param"] = {"param": f"{type(node).__name__}.{pname}",
+                            "edit_to_frame_ms": edit_ms,
+                            "edit visible": not np.array_equal(imgs[0], first_img)}
+        results[name] = row
+        log(f"phase 3: raymarch {name}: {json.dumps(row)}  [{card}]")
+    return results, per_frame
+
+
 def dc_compare(label, tree, res, dev, slab=None, chiseled=False):
     """K5 and K5p through their wrapper (dc_emit.dc_mesh) against
     dc_mesh_plain on the card: edge ids, flips and the live-voxel count
@@ -1129,6 +1503,7 @@ def main() -> int:
         from gsdf_tpu_torch.eval import grid_kernels as gk
         from gsdf_tpu_torch.eval import parametric as par
         from gsdf_tpu_torch.eval import point_kernels as pk
+        from gsdf_tpu_torch.eval import ray_kernels as rk
         from gsdf_tpu_torch.forge import threads
         from gsdf_tpu_torch.geometry.boxes import Box
         from gsdf_tpu_torch.ops import compact_field, dc_emit, fused_welded, mc_emit
@@ -1180,6 +1555,10 @@ def main() -> int:
     # a structurally equal tree with other values, for each parametric library
     others = {name: perturbed(tree) for name, tree in point_trees.items()}
     golden_parts = ("flange", "showerhead", "bolt", "knurled")
+    # the raymarcher's trees: the five parts and three random trees
+    rm_parts = {name: trees[name] for name in RM_PARTS if name in trees}
+    rm_parts["sphere"] = Builder().new_sphere(1.0)
+    rm_trees = {**rm_parts, **{name: trees[name] for name in RM_FUZZ if name in trees}}
     t0 = time.perf_counter()
     # one nvcc per library, all queued together; 32 at a time keep the
     # host's cores busy without holding every compiler in memory at once
@@ -1196,6 +1575,8 @@ def main() -> int:
                  for tree in dc_trees.values() for parametric in (False, True)]
         futs += [pool.submit(gk.build, tree, gk.PRUNE_TEMPLATES, parametric)
                  for tree in trees.values() for parametric in (False, True)]
+        futs += [pool.submit(gk.build, tree, rk.TEMPLATES, parametric)
+                 for tree in rm_trees.values() for parametric in (False, True)]
         for fut in futs:
             fut.result()
     build_s = time.perf_counter() - t0
@@ -1203,7 +1584,8 @@ def main() -> int:
         f"{len(kernels.STATIC_KERNELS)} MC kernels, {len(point_trees)} trees' KP, "
         f"{len(trees2d)} 2D trees' K2-2D, {len(trees)} structures' K1p, {len(point_trees)} "
         f"structures' KPp, {len(dc_trees)} trees' K5 and K5p, {len(trees)} trees' K6c + K6a "
-        f"and their parametric forms; one nvcc each, in parallel) in "
+        f"and their parametric forms, {len(rm_trees)} trees' K8 and K8p; one nvcc each, in "
+        f"parallel) in "
         f"{build_s:.1f} s; "
         f"compiler runs {_build.COUNTS['compiles']}, libraries loaded {_build.COUNTS['loads']}")
     n_params = {name: int(par.kernel_params(trees[name]).size) for name in golden_parts}
@@ -1224,6 +1606,8 @@ def main() -> int:
              for p in (False, True)]
     logs += [(f"K6{'p' if p else ''} {name}", gk.build_log(trees[name], gk.PRUNE_TEMPLATES, p))
              for name in golden_parts for p in (False, True)]
+    logs += [(f"K8{'p' if p else ''} {name}", gk.build_log(tree, rk.TEMPLATES, p))
+             for name, tree in rm_parts.items() for p in (False, True)]
     for name, text in logs:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -1326,6 +1710,15 @@ def main() -> int:
     for name, (tree, width, height) in trees2d.items():
         max_err["grid_eval_2d"] = max(max_err["grid_eval_2d"],
                                       compare_field(name, tree, width, height, dev, pk))
+
+    # K8 and K8p at 128 x 128, aa 2, on the five parts and three random trees
+    log(f"phase 2: K8 and K8p against raymarch_plain on {len(rm_trees)} trees")
+    rm_differing = {}
+    for name, tree in rm_trees.items():
+        other = others[name] if name in others else perturbed(tree)
+        rm_differing[name] = raymarch_compare(name, tree, other, dev)
+        for k in ("raymarch", "raymarch_param"):
+            max_err[k] = max(max_err[k], float(rm_differing[name][k][1]))
 
     # bounds: the tree's operations per corner, counted on the CPU
     ops_per_point = {name: bounds.tree_ops_per_point(trees[name])
@@ -1595,6 +1988,19 @@ def main() -> int:
     # the pruned kernels at flange 400, against their plain versions
     times["pruned flange@400"] = pruned_kernel_times(trees["flange"], 400, dev, gk,
                                                      n_params["flange"], card)
+    torch.cuda.empty_cache()
+    rm_times, rm_refs = raymarch_kernel_times(rm_parts, dev, card)
+    flange_rm = rm_times["flange"]["image aa1"]
+    times["raymarch flange 512"] = {
+        "raymarch": {**flange_rm, "on_device": device_reading(
+            lambda: rk.raymarch(trees["flange"], *rm_args(trees["flange"], 512, 512, 196, 1,
+                                                          dev)))},
+        "raymarch_param": {**flange_rm, **bounds.bound(flange_rm["ops"], flange_rm["param_bytes"]),
+                           "ms": flange_rm["param_ms"], "graph_ms": flange_rm["param_graph_ms"],
+                           "on_device": None},
+    }
+    times["raymarch flange 512"]["raymarch_param"]["share"] = (
+        times["raymarch flange 512"]["raymarch_param"]["bound_ms"] / flange_rm["param_ms"])
     torch.cuda.empty_cache()
 
     # --- phases 3 and 4: each path, counts from 0 around each run -------
@@ -2325,6 +2731,10 @@ def main() -> int:
         f"render of the edited tree; edit to mesh {', '.join(f'{t:.2f}' for t in loop_ms)} ms  "
         f"[{card}]")
 
+    # the raymarcher's path at full width, on the default device
+    rm_slice, rm_per_frame = raymarch_paths(rm_parts, rm_refs, dev, card, run, exactly)
+    per_render.update(rm_per_frame)
+
     log(f"phase 4: kernel launches over the paths: {launches}")
 
     fr = FlatRenderer(f800, res800, dev)
@@ -2351,6 +2761,7 @@ def main() -> int:
     rows["point_eval_param"] = times[f"KPp flange N={n_points}"]["point_eval_param"]
     rows.update(times["DC bolt@256"])
     rows.update(times["pruned flange@400"])
+    rows.update(times["raymarch flange 512"])
     line = [
         {
             "name": name,
@@ -2371,7 +2782,9 @@ def main() -> int:
                                 "pruned soup")},
                 **{path: per_render[path].get(name, 0)
                    for path in ("dc bolt@256", "dc bolt@512", "dc parametric edit",
-                                "pruned parametric edit")},
+                                "pruned parametric edit", "raymarch_image aa1",
+                                "raymarch_image aa3", "viewer drag", "viewer full", "ui frame",
+                                "viewer set_param")},
             },
             **({"baked_ms": rows[name]["baked_ms"],
                 "by_pointer_ms": rows[name].get("by_pointer_ms")}
@@ -2387,7 +2800,9 @@ def main() -> int:
                     "parametric_slice": param_ms, "dc_slice": dc_slice,
                     "pruned_slice": pruned_slice, "pruned_kernels_differing": pruned_diff,
                     "pruned_kernels_differing_full_width": pruned_full_diff,
-                    "parametric_floats_differing_from_baked": differing}))
+                    "parametric_floats_differing_from_baked": differing,
+                    "raymarch_kernels": rm_times, "raymarch_slice": rm_slice,
+                    "raymarch_pixels_differing_from_plain": rm_differing}))
     log(json.dumps({"kernels": line}))
     log(card)
     log(json.dumps({

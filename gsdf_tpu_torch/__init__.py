@@ -11,7 +11,10 @@ compact emit (K4), the soup emit (K7s) and the welded emit (K7w) — plus
 the native host decode, STL, OBJ and PLY output; the point evaluators
 (`eval`: SDF3, SDF2, normals, caches, Batcher, the special evaluators) on
 the point kernel KP, and 2D trees to images and PNG files (`render.image`,
-`pipeline`) on the pixel-grid kernel K2-2D.
+`pipeline`) on the pixel-grid kernel K2-2D; parametric evaluation, dual
+contouring and pruned rendering on their kernels (K1p, KPp, K5, K6); and
+the raymarcher (`visual.raymarch`, the interactive viewer and `ui` in
+`pipeline`) on the sphere-tracing kernel K8 and its parametric form K8p.
 
 Every entry point runs on the card unless the caller passes a `device`
 (`kernels.default_device`); with no card such a call raises.

@@ -18,6 +18,11 @@
   (K1, K2) `tree_ops_per_point` counts the plain tree on seeded points on
   the CPU; the card's kernel evaluates the same expression (KP and K2-2D
   too, on 2D trees as well).
+- **K8** (the raymarcher) counts what the kernel does, which depends on
+  the data: each ray stops when it is done, so its ops are `raymarch_ops`
+  from this run's evaluation count (K8 returns each ray's, and so does
+  its plain version): evaluations x the tree's operations per point, plus
+  each march step's own arithmetic and each ray's direction and shading.
 - **PEAK_OPS** is half the H100 SXM's published 67 TFLOP/s float32: that
   peak counts a fused multiply-add as two operations, and the kernels are
   built with -fmad=false (the golden counts need it), so every operation
@@ -135,7 +140,10 @@ def kernel_bytes(name: str, *, corners=0, cubes=0, active=0, n_t=0, tris=0, vert
       4 B per atlas corner and 1 B per atlas cube (seam layers included);
       tile_atlas_param (K6ap) also the 4 B per parameter;
     - tile_global_ids: reads each active id and writes it as a global id
-      (8 B), reads the tile table (12 B per tile).
+      (8 B), reads the tile table (12 B per tile);
+    - raymarch (K8): writes 3 B per output pixel; the supersamples of an
+      aa > 1 frame are its own scratch. raymarch_param (K8p) also the 4 B
+      per parameter.
     """
     offsets = 8 * -(-active // 256)
     per = {
@@ -156,8 +164,56 @@ def kernel_bytes(name: str, *, corners=0, cubes=0, active=0, n_t=0, tris=0, vert
         "tile_atlas": 4 * corners + cubes + 12 * tiles,
         "tile_atlas_param": 4 * corners + cubes + 12 * tiles + 4 * n_params,
         "tile_global_ids": 8 * active + 12 * tiles,
+        "raymarch": 3 * pixels,
+        "raymarch_param": 3 * pixels + 4 * n_params,
     }
     return int(per[name])
+
+
+class _NoTree:
+    """A stand-in tree whose distance is a view of the positions (no
+    operation): what the raymarcher does besides the tree."""
+
+    NDIM = 3
+
+    @staticmethod
+    def distance(p):
+        return p[..., 0]
+
+
+def _per_ray(fn, n: int = 64) -> int:
+    """fn(n)'s operations per ray: fn on 2n rays less fn on n, over n."""
+    _, ops2 = count_ops(fn, 2 * n)
+    _, ops1 = count_ops(fn, n)
+    per, rest = divmod(ops2 - ops1, n)
+    if rest:
+        raise RuntimeError(f"not linear in rays: {ops2 - ops1} / {n}")
+    return per
+
+
+def raymarch_ops(tree, evaluations: int, rays: int) -> int:
+    """K8's floating-point operations on a frame of `rays` supersamples
+    that made `evaluations` tree evaluations in all (the march's, and 5 a
+    ray after it): evaluations x tree_ops_per_point, the march steps' own
+    arithmetic (position, the scene's scale and offset, the hit and far
+    tests, the move of t) and each ray's direction and shading, counted by
+    OpCounter over the plain version's pieces (eval/ray_kernels.py) with
+    the tree's work taken out."""
+    from .eval import ray_kernels as rk
+
+    cam = rk.pack_camera([0, 0, 2], [1, 0, 0], [0, 1, 0], [0, 0, -1], [0, 0, 0],
+                         [0, 0, 1], 1, 6)
+    c = rk.frame_consts(cam, 0.8, "cpu")
+
+    def along(n):
+        rd = torch.tensor([[0.0, 0.0, -1.0]]).expand(n, 3)
+        return rd, torch.full((n,), 0.5)
+
+    step = _per_ray(lambda n: rk.march_step(_NoTree, c, *along(n)))
+    ray = _per_ray(lambda n: rk.rays(c, n, 1, "cpu"))
+    shade = _per_ray(lambda n: rk.shade(_NoTree, c, *along(n)))
+    march = evaluations - 5 * rays
+    return int(evaluations * tree_ops_per_point(tree) + march * step + rays * (ray + shade))
 
 
 def bound(ops: int, nbytes: int) -> dict:

@@ -12,7 +12,8 @@ Both are hand-written CUDA C++ templates (gsdf_tpu_torch/csrc/) around
 the per-tree distance function that codegen/cuda.py generates; nvcc
 builds them for sm_90a at first use, cached by source hash under
 build/gsdf_tpu_torch/. `build` also serves the two per-tree kernels of
-eval/point_kernels.py (KP, K2-2D), each a library of its own. On a CPU tensor device each wrapper runs its plain
+eval/point_kernels.py (KP, K2-2D) and the raymarcher K8
+(eval/ray_kernels.py), each a library of its own. On a CPU tensor device each wrapper runs its plain
 torch version; on a CUDA device it launches the kernel or raises.
 
 K1 and KP also have a parametric form (`parametric=True`): the same
@@ -75,7 +76,8 @@ PARAMS_HEADER = "gsdf_params.cuh"
 #: further headers a template includes: from csrc/, and generated beside
 #: gsdf_tree.cuh (name -> the function that writes its text)
 INCLUDES = {"dc_mesh.cu": ("gsdf_scan.cuh", "gsdf_qef.cuh"),
-            "classified_grid.cu": ("gsdf_case.cuh",), "tile_atlas.cu": ("gsdf_case.cuh",)}
+            "classified_grid.cu": ("gsdf_case.cuh",), "tile_atlas.cu": ("gsdf_case.cuh",),
+            "raymarch.cu": ("gsdf_raymarch.cuh",)}
 GENERATED = {"dc_mesh.cu": {"gsdf_dc_tables.cuh": dc_tables.header}}
 
 _V, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -87,6 +89,7 @@ _SIGNATURES = {
     "grid_eval_2d.cu": {"gsdf_grid_eval_2d": (_I, [_V] + [_F] * 4 + [_I] * 2 + [_V])},
     "tile_prune.cu": {"gsdf_tile_prune": (_I, [_V] * 2 + [_F] * 6 + [_I] * 3 + [_V])},
     "tile_atlas.cu": {"gsdf_tile_atlas": (_I, [_V] * 3 + [_I] * 5 + [_F] * 5 + [_V])},
+    "raymarch.cu": {"gsdf_raymarch": (_I, [_V] * 4 + [_I] * 3 + [_F, _I] + [_V])},
     "dc_mesh.cu": {
         "gsdf_dc_work": (ctypes.c_int64, [_I] * 4),
         "gsdf_dc_count": (_I, [_V] + [_F] * 4 + [_I] * 5 + [_V] * 4 + [_V]),
@@ -108,6 +111,7 @@ _PARAM_SIGNATURES = {
     "tile_atlas.cu": {
         "gsdf_tile_atlas_param": (_I, [_V] * 3 + [_I] * 5 + [_F] * 5 + [_V, _I, _V])
     },
+    "raymarch.cu": {"gsdf_raymarch_param": (_I, [_V] * 4 + [_I] * 3 + [_F, _I] + [_V, _I, _V])},
     "dc_mesh.cu": {
         "gsdf_dc_work": (ctypes.c_int64, [_I] * 4),
         "gsdf_dc_count_param": (_I, [_V] + [_F] * 4 + [_I] * 5 + [_V] * 4 + [_V, _I, _V]),

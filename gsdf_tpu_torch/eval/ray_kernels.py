@@ -1,0 +1,218 @@
+"""Raymarching on the card: K8, the per-tree kernel behind
+visual/raymarch.py, and its plain torch version.
+
+- K8 `raymarch`: a shaded (height, width, 3) u8 image of a 3D tree, each
+  of its (aa*height) x (aa*width) supersamples sphere traced, shaded and
+  box-filtered down on the card. Counterpart of the XLA-jitted
+  `_raymarch_fn` of the JAX package (gsdf_tpu/visual/raymarch.py:26-181).
+
+A hand-written CUDA C++ template (csrc/raymarch.cu, the per-ray arithmetic
+in csrc/gsdf_raymarch.cuh) around the tree's generated `gsdf_tree`, built
+into a library of its own at the wrapper's first CUDA call
+(grid_kernels.build). The frame's size, step count, relaxation, aa and
+camera are launch arguments, so one library serves every frame of a tree.
+On the CPU the wrapper runs its plain torch version; on a CUDA device it
+launches its kernel or raises.
+
+K8 has a parametric form, K8p (`raymarch(..., parametric=True)`): the same
+template around the tree's parametric source, one library per tree
+structure, the tree's continuous parameters a launch argument
+(grid_kernels.param_args). Counterpart of `_raymarch_fn(parametric=True)`
+(raymarch.py:150-169).
+
+The camera is 20 float32 numbers made once a frame on the host
+(`pack_camera`, visual/raymarch.py::camera): the kernel and the plain
+version take the same numbers.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core import mathx as mx
+from ..kernels import check_out, entry_device, launch
+from .grid_kernels import build, param_args
+
+_f32 = np.float32
+
+TEMPLATES = ("raymarch.cu",)
+#: gsdf_rm::Camera's fields in order, and their lengths
+CAMERA_FIELDS = (("ro", 3), ("uu", 3), ("vv", 3), ("ww", 3), ("center", 3), ("light", 3),
+                 ("scale", 1), ("far_plane", 1))
+CAMERA_FLOATS = 20
+#: the tetrahedral normal's offsets k1..k4 (raymarch.py:112-115)
+NORMAL_K = np.array([[1, -1, -1], [-1, -1, 1], [-1, 1, -1], [1, 1, 1]], _f32)
+#: hit tests: the march's |d| and the final |d| (raymarch.py:95, :110)
+MARCH_EPS, HIT_EPS, NORMAL_H = _f32(1e-4), _f32(1e-3), _f32(1e-4)
+BASE, SKY = np.array([0.85, 0.6, 0.3], _f32), np.array([0.65, 0.78, 0.9], _f32)
+GAMMA = _f32(1 / 2.2)
+
+
+def pack_camera(ro, uu, vv, ww, center, light, scale, far_plane) -> np.ndarray:
+    """The 20 float32 numbers of one frame, in gsdf_rm::Camera's layout."""
+    parts = (ro, uu, vv, ww, center, light, [scale], [far_plane])
+    return np.concatenate([np.asarray(p, _f32).reshape(-1) for p in parts]).astype(_f32)
+
+
+def unpack_camera(camera) -> dict:
+    """name -> float32 numpy value of each field of a packed camera."""
+    c = np.asarray(camera, _f32).reshape(CAMERA_FLOATS)
+    out, at = {}, 0
+    for name, n in CAMERA_FIELDS:
+        out[name] = c[at] if n == 1 else c[at : at + n]
+        at += n
+    return out
+
+
+def _frame(width, height, steps, aa):
+    width, height, steps, aa = int(width), int(height), int(steps), int(aa)
+    if width < 1 or height < 1 or steps < 0 or aa < 1:
+        raise ValueError(f"a raymarched frame needs width, height, aa >= 1 and steps >= 0, "
+                         f"got {width} x {height}, steps {steps}, aa {aa}")
+    return width, height, steps, aa
+
+
+# --- plain torch version -------------------------------------------------
+def frame_consts(camera, relax, device) -> dict:
+    """The camera's fields and the frame's other constants as float32
+    tensors on `device` (0-dim where a scalar, so that no division or
+    product takes a host scalar: mathx's note), as the pieces below take
+    them."""
+    c = unpack_camera(camera)
+    like = torch.empty(0, device=device)
+    out = {k: mx.const(v, like) for k, v in c.items()}
+    out.update(ww18=mx.const(_f32(1.8) * c["ww"], like),  # 1.8 * ww, in float32
+               relax=mx.const(_f32(relax), like), march_eps=mx.const(MARCH_EPS, like),
+               hit_eps=mx.const(HIT_EPS, like), tiny=mx.const(_f32(1e-20), like),
+               kh=mx.const(NORMAL_K * NORMAL_H, like), base=mx.const(BASE, like),
+               sky=mx.const(SKY, like))
+    return out
+
+
+def rays(c: dict, rw: int, rh: int, device) -> torch.Tensor:
+    """(rh * rw, 3) unit ray directions of the supersamples, row-major,
+    in the JAX package's operations and order (raymarch.py:60-88)."""
+    iy = torch.arange(rh, dtype=torch.float32, device=device)[:, None].expand(rh, rw)
+    ix = torch.arange(rw, dtype=torch.float32, device=device)[None, :].expand(rh, rw)
+    w, h = mx.const(_f32(rw), ix), mx.const(_f32(rh), ix)
+    ux = mx.div(2.0 * ix - w, h).reshape(-1)
+    uy = mx.div(-(2.0 * iy - h), h).reshape(-1)
+    r = [(ux * c["uu"][k] + uy * c["vv"][k]) + c["ww18"][k] for k in range(3)]
+    length = mx.sqrt((r[0] * r[0] + r[1] * r[1]) + r[2] * r[2])
+    return torch.stack([mx.div(x, length) for x in r], -1)
+
+
+def scene(tree, c: dict, p: torch.Tensor) -> torch.Tensor:
+    """tree(p * scale + center) / scale (raymarch.py:65-66)."""
+    return mx.div(tree.distance(p * c["scale"] + c["center"]), c["scale"])
+
+
+def march_step(tree, c: dict, rd: torch.Tensor, t: torch.Tensor):
+    """One sphere-tracing step of the rays that are not done: (t after it,
+    done after it). A hit keeps its t; a miss moves by d * relax and is
+    done past the far plane (raymarch.py:91-106)."""
+    d = scene(tree, c, c["ro"] + rd * t[:, None])
+    hit = torch.abs(d) < c["march_eps"]
+    moved = t + d * c["relax"]
+    return torch.where(hit, t, moved), hit | (moved > c["far_plane"])
+
+
+def shade(tree, c: dict, rd: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """(N, 3) u8 colours of rays that stopped at t: the final distance and
+    the four tetrahedral offsets in one tree call, then the shading
+    (raymarch.py:108-138)."""
+    pos = c["ro"] + rd * t[:, None]
+    offsets = [pos] + [pos + c["kh"][q] for q in range(4)]
+    d = scene(tree, c, torch.cat(offsets)).reshape(5, -1)
+    k = NORMAL_K.tolist()  # +-1.0 as Python floats
+    n = [((k[0][a] * d[1] + k[1][a] * d[2]) + k[2][a] * d[3]) + k[3][a] * d[4] for a in range(3)]
+    length = mx.sqrt(((n[0] * n[0] + n[1] * n[1]) + n[2] * n[2]) + c["tiny"])
+    n = [mx.div(x, length) for x in n]
+    light = c["light"]
+    dif = torch.clamp((n[0] * light[0] + n[1] * light[1]) + n[2] * light[2], 0.0, 1.0)
+    amb = 0.5 + 0.5 * n[2]
+    lit = 0.25 * amb + 0.8 * dif
+    rn2 = 2.0 * ((rd[:, 0] * n[0] + rd[:, 1] * n[1]) + rd[:, 2] * n[2])
+    r = [rd[:, a] - rn2 * n[a] for a in range(3)]
+    spec = torch.clamp((r[0] * light[0] + r[1] * light[1]) + r[2] * light[2], 0.0, 1.0)
+    for _ in range(4):  # ** 16: XLA's integer_pow, four squarings
+        spec = spec * spec
+    hit = torch.abs(d[0]) < c["hit_eps"]
+    col = torch.stack([torch.where(hit, c["base"][a] * lit + 0.15 * spec,
+                                   c["sky"][a] - 0.4 * rd[:, 2]) for a in range(3)], -1)
+    col = torch.clamp(col, 0.0, 1.0)
+    if col.device.type == "cpu":  # mathx's note: torch's float32 CPU pow is not rounded once
+        col = torch.pow(col.double(), float(GAMMA)).float()
+    else:
+        col = torch.pow(col, float(GAMMA))
+    return (col * 255.0).to(torch.uint8)
+
+
+def box_filter(img: torch.Tensor, width: int, height: int, aa: int) -> torch.Tensor:
+    """(height, width, 3) u8 from the (aa*height, aa*width, 3) u8 samples:
+    (2 s + n) // (2 n) (raymarch.py:140-148)."""
+    if aa == 1:
+        return img
+    s = img.reshape(height, aa, width, aa, 3).to(torch.int32).sum(dim=(1, 3))
+    n = aa * aa
+    return torch.div(2 * s + n, 2 * n, rounding_mode="floor").to(torch.uint8)
+
+
+def raymarch_plain(tree, camera, width, height, steps, relax, aa, device, evals=False):
+    """K8's plain version: the torch node tree, each step on the rays that
+    are not done (a done ray's t no longer changes, as in the JAX
+    package's masked loop), so it does K8's work and no more. Returns the
+    (height, width, 3) u8 image, and with evals=True also the (aa*height,
+    aa*width) int32 tree evaluations of each supersample (its steps and
+    5)."""
+    width, height, steps, aa = _frame(width, height, steps, aa)
+    rw, rh = width * aa, height * aa
+    c = frame_consts(camera, relax, device)
+    rd = rays(c, rw, rh, device)
+    t = torch.zeros(rw * rh, dtype=torch.float32, device=device)
+    n_evals = torch.full((rw * rh,), 5, dtype=torch.int32, device=device)
+    live = torch.arange(rw * rh, device=device)
+    for _ in range(steps):
+        if not live.numel():
+            break
+        t_live, done = march_step(tree, c, rd[live], t[live])
+        t[live] = t_live
+        n_evals[live] += 1
+        live = live[~done]
+    img = box_filter(shade(tree, c, rd, t).reshape(rh, rw, 3), width, height, aa)
+    return (img, n_evals.reshape(rh, rw)) if evals else img
+
+
+# --- kernel wrapper ----------------------------------------------------------
+def raymarch(tree, camera, width, height, steps, relax, aa, device, parametric=False,
+             evals=False):
+    """The shaded (height, width, 3) u8 image of the 3D `tree` under
+    `camera` (pack_camera's 20 floats) on `device` (K8; K8p with
+    parametric=True, through the library of the tree's structure), not
+    synchronised: one wrapper call, one launch (two where aa > 1, the box
+    filter's). With evals=True also the (aa*height, aa*width) int32 tree
+    evaluations of each supersample."""
+    width, height, steps, aa = _frame(width, height, steps, aa)
+    if tree.NDIM != 3:
+        raise TypeError(f"the raymarcher draws 3D trees, got a {tree.NDIM}D one")
+    device = entry_device(device)
+    cam = np.ascontiguousarray(camera, _f32).reshape(-1)
+    if cam.size != CAMERA_FLOATS:
+        raise ValueError(f"a camera is {CAMERA_FLOATS} floats, got {cam.size}")
+    if device.type == "cpu":
+        return raymarch_plain(tree, cam, width, height, steps, relax, aa, device, evals)
+    lib = build(tree, TEMPLATES, parametric)
+    out = torch.empty((height, width, 3), dtype=torch.uint8, device=device)
+    samples = out if aa == 1 else torch.empty((height * aa, width * aa, 3), dtype=torch.uint8,
+                                              device=device)
+    check_out(samples, (height * aa, width * aa, 3), torch.uint8, device)
+    n_evals = (torch.empty((height * aa, width * aa), dtype=torch.int32, device=device)
+               if evals else None)
+    args = (samples.data_ptr(), out.data_ptr(), None if n_evals is None else n_evals.data_ptr(),
+            cam.ctypes.data, width, height, steps, float(_f32(relax)), aa)
+    if parametric:
+        ptr, n_params, _keep = param_args(tree, lib, device)
+        launch("raymarch_param", device, lib.gsdf_raymarch_param, *args, ptr, n_params)
+    else:
+        launch("raymarch", device, lib.gsdf_raymarch, *args)
+    return (out, n_evals) if evals else out

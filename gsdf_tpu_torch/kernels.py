@@ -27,7 +27,10 @@ Kernels (all hand-written CUDA C++ in gsdf_tpu_torch/csrc/, nvcc sm_90a):
   tree (eval/grid_kernels.py::coarse_keep, tile_grid; render/pruned.py);
 - `tile_global_ids`: the atlas cube ids that K3 returns as the global cube
   ids of the whole grid (ops/compact_field.py::tile_global_ids). K7s has
-  a tile mode that places the atlas's triangles by global index.
+  a tile mode that places the atlas's triangles by global index;
+- K8 `raymarch`, K8p `raymarch_param`: the raymarcher, per tree (K8p per
+  tree STRUCTURE), from a camera to a shaded u8 image: sphere tracing,
+  normals, shading and the supersampling box filter (eval/ray_kernels.py).
 
 K3, K4, K7s, K7w and the id map do not depend on the tree: each source
 builds once into its own library, cached by a hash of its sources and
@@ -67,6 +70,8 @@ LAUNCHES = {
     "tile_prune_param": 0,
     "tile_atlas_param": 0,
     "tile_global_ids": 0,
+    "raymarch": 0,
+    "raymarch_param": 0,
 }
 
 CSRC = os.path.join(_build.PKG_DIR, "csrc")

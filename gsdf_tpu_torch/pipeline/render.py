@@ -1,10 +1,11 @@
 """High-level render pipeline (reference gsdfaux.RenderShader3D,
 gsdfaux/gsdfaux.go:63-241; torch counterpart of
-gsdf_tpu/pipeline/render.py): tree -> renderer -> STL, and 2D tree -> PNG,
-with stopwatch log lines in the reference's `[dur] msg` format.
+gsdf_tpu/pipeline/render.py): tree -> renderer -> STL, 2D tree -> PNG,
+and a turntable of the raymarcher (`ui`), with stopwatch log lines in the
+reference's `[dur] msg` format.
 
 The shadertoy visual (`RenderConfig.visual_output`) waits for the port of
-visual/shadertoy.py, and `UIConfig` / `ui` for the raymarcher.
+visual/shadertoy.py.
 """
 from __future__ import annotations
 
@@ -109,3 +110,34 @@ def render_png_file_2d(path, obj, width: int = 512, height: int = 512, device=No
     img = render_image_2d(obj, width, height, device=device)
     write_png(path, img)
     return img
+
+
+@dataclasses.dataclass
+class UIConfig:
+    """(reference gsdfaux.UIConfig, gsdfaux.go:49). `device` is the port's:
+    where the frames render (None: the card), as RenderConfig's."""
+
+    width: int = 800
+    height: int = 600
+    frames: int = 24
+    pitch: float = 0.5
+    gif_path: Optional[str] = None
+    device: object = None
+
+
+def ui(obj: Shader3D, cfg: UIConfig = UIConfig()):
+    """Headless counterpart of the reference's interactive raymarch UI
+    (gsdfaux.UI): renders an orbiting turntable of the part with the
+    raymarcher on the card (K8) and optionally writes an animated GIF.
+    Returns the list of (H,W,3) frames."""
+    from ..visual.raymarch import turntable
+
+    return turntable(
+        obj,
+        n_frames=cfg.frames,
+        width=cfg.width,
+        height=cfg.height,
+        pitch=cfg.pitch,
+        gif_path=cfg.gif_path,
+        device=cfg.device,
+    )

@@ -176,3 +176,26 @@ def test_tile_atlas_bytes_and_ops():
         np.float32(0.15), S, (7, 8, 9), "cpu")
     assert dist.numel() == corners and cases.numel() == cubes
     assert ops == SPHERE_OPS * corners + 6 * T * P + 10 * cubes
+
+
+@pytest.mark.parametrize("name", ["scene", "bolt"])
+def test_raymarch_ops_count_what_the_plain_version_does(name):
+    """K8's ops from its evaluation count (bounds.raymarch_ops) equal the
+    operations of its plain version on the same frame, which marches only
+    the rays that are not done, as the kernel does."""
+    from gsdf_tpu_torch.eval import ray_kernels as rk
+    from gsdf_tpu_torch.visual.raymarch import auto_relax, camera
+
+    b = Builder()
+    tree = (flagships.build_bolt() if name == "bolt"
+            else b.smooth_union(0.1, b.new_sphere(0.7), b.new_box(1.0, 0.6, 0.4, 0.05)))
+    cam = camera(tree, 0.6, 0.5, 2.4)
+    (_, evals), ops = bounds.count_ops(rk.raymarch_plain, tree, cam, 24, 20, 40,
+                                       auto_relax(tree), 2, "cpu", True)
+    assert ops == bounds.raymarch_ops(tree, int(evals.sum()), evals.numel())
+    assert int(evals.sum()) < 45 * evals.numel()  # rays stop before the step limit
+
+
+def test_raymarch_bytes():
+    assert bounds.kernel_bytes("raymarch", pixels=512 * 512) == 3 * 512 * 512
+    assert bounds.kernel_bytes("raymarch_param", pixels=100, n_params=50) == 500

@@ -26,6 +26,12 @@ on every tree with tiles of 8 and 7, the atlas equal to K1's grid at the
 same corners, K7s's dense mode unchanged (and a one-tile atlas placed as
 the dense grid), the pruned payload equal to the dense one with its
 launches per batch, the flange's golden, the soup and the edit loop.
+Last, the raymarcher: K8 and K8p against their plain version on every
+tree at aa 1 and 2 (every pixel and every ray's evaluation count), K8p
+with another tree's values through one library, one library across
+frame sizes, steps and aa, the launch's argument checks, the entry
+points' default device, the viewer's frames with no build after the
+first, and pipelined drag frames one view behind.
 
 Tolerances: case grids, ids, counts, K3's block offsets and edge ranks and tri_idx exact; t, soup and welded
 vertices bit-identical (the kernels are built -fmad=false and fed the
@@ -1051,3 +1057,133 @@ def test_pruned_renders_on_card(cuda_device):
         dverts, dtri = FlatRenderer(pinned, 0.02, cuda_device).render_compact(parametric=True)
         assert dict(_build.COUNTS) == counts and len(gk._libs) == libs
         assert np.array_equal(tri, dtri) and np.array_equal(verts, dverts)
+
+
+# --- the raymarcher: K8 and K8p ------------------------------------------
+def _frame_args(tree, w, h, aa, steps, device):
+    from gsdf_tpu_torch.visual import raymarch as vrm
+
+    return (vrm.camera(tree, 0.6, 0.5, 2.4), w, h, steps, vrm.auto_relax(tree), aa, device)
+
+
+@pytest.mark.parametrize("aa", [1, 2])
+@pytest.mark.parametrize("name", list(TREES))
+def test_raymarch_matches_plain(name, aa, cuda_device):
+    """K8 and K8p against raymarch_plain at 64 x 48 (196 steps): every
+    pixel and every ray's evaluation count equal (both built without
+    multiply-add contraction, the same host camera, CUDA's functions in
+    both); K8p equal to K8; then the same K8p library with a structurally
+    equal tree's values, against that tree's plain version."""
+    from gsdf_tpu_torch.eval import ray_kernels as rk
+
+    tree = TREES[name]()
+    args = _frame_args(tree, 64, 48, aa, 196, cuda_device)
+    before = dict(kernels.LAUNCHES)
+    img, evals = rk.raymarch(tree, *args, evals=True)
+    pimg, pevals = rk.raymarch(tree, *args, parametric=True, evals=True)
+    assert kernels.LAUNCHES["raymarch"] == before["raymarch"] + 1
+    assert kernels.LAUNCHES["raymarch_param"] == before["raymarch_param"] + 1
+    ref, ref_evals = rk.raymarch_plain(tree, *args, evals=True)
+    torch.cuda.synchronize()
+    assert img.shape == (48, 64, 3) and img.dtype == torch.uint8 and img.device == cuda_device
+    assert torch.equal(img, ref) and torch.equal(evals, ref_evals)
+    assert torch.equal(pimg, img) and torch.equal(pevals, evals)
+    other = _perturbed(tree)
+    libs, counts = len(gk._libs), dict(_build.COUNTS)
+    oargs = _frame_args(other, 64, 48, aa, 196, cuda_device)
+    oimg = rk.raymarch(other, *oargs, parametric=True)
+    assert len(gk._libs) == libs and dict(_build.COUNTS) == counts  # the same library
+    assert torch.equal(oimg, rk.raymarch_plain(other, *oargs))
+
+
+def test_raymarch_one_library_per_tree(cuda_device):
+    """Frame size, steps, relaxation and aa are launch arguments: after the
+    first frame no size, step count or aa builds or loads a library, and
+    each frame equals the plain version's."""
+    from gsdf_tpu_torch.eval import ray_kernels as rk
+
+    tree = _solid()
+    rk.raymarch(tree, *_frame_args(tree, 8, 8, 1, 4, cuda_device))
+    counts, libs = dict(_build.COUNTS), len(gk._libs)
+    for w, h, aa, steps in ((16, 16, 1, 5), (33, 17, 3, 200), (7, 40, 2, 0), (64, 64, 1, 72)):
+        args = _frame_args(tree, w, h, aa, steps, cuda_device)
+        img = rk.raymarch(tree, *args)
+        assert torch.equal(img, rk.raymarch_plain(tree, *args))
+    assert dict(_build.COUNTS) == counts and len(gk._libs) == libs
+
+
+def test_raymarch_launch_rejects_what_the_kernel_does_not_take(cuda_device):
+    from gsdf_tpu_torch.eval import ray_kernels as rk
+
+    tree = _solid()
+    lib = gk.build(tree, rk.TEMPLATES)
+    cam = _frame_args(tree, 4, 4, 1, 4, cuda_device)[0]
+    buf = torch.empty((8, 8, 3), dtype=torch.uint8, device=cuda_device)
+    for w, h, steps, aa, out in ((4, 4, 4, 2, buf), (8, 8, -1, 1, buf), (0, 8, 4, 1, buf)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            kernels.launch("raymarch", cuda_device, lib.gsdf_raymarch, buf.data_ptr(),
+                           out.data_ptr(), None, cam.ctypes.data, w, h, steps, 0.8, aa)
+
+
+def test_raymarch_entry_points_default_to_the_card(cuda_device):
+    from gsdf_tpu_torch.visual import raymarch as vrm
+
+    tree = _solid()
+    dev_img = vrm.raymarch_image_device(tree, 32, 24, steps=32)
+    assert dev_img.device == cuda_device and dev_img.shape == (24, 32, 3)
+    img = vrm.raymarch_image(tree, 32, 24, steps=32)
+    np.testing.assert_array_equal(img, dev_img.cpu().numpy())
+    np.testing.assert_array_equal(img, vrm.raymarch_image(tree, 32, 24, steps=32, device="cpu"))
+
+
+def test_viewer_on_card_builds_nothing_after_the_first_frame(cuda_device):
+    """The viewer's drag, rest and slider frames on the card: one K8p
+    launch a frame, no compiler run and no library loaded after the first
+    frame, each frame equal to the plain version's on the CPU."""
+    from gsdf_tpu_torch.pipeline import InteractiveViewer
+
+    b = Builder()
+    boss = b.new_cylinder(0.45, 1.2, 0.05)
+    obj = b.smooth_union(0.1, b.new_box(1.6, 1.0, 0.5, 0.05), boss)
+    v = InteractiveViewer(obj, width=64, height=64, steps=48, drag_steps=16,
+                          params=[("boss r", boss, "r", 0.2, 0.6)])
+    assert v.device == cuda_device
+    v.render_current("full")
+    counts, before = dict(_build.COUNTS), dict(kernels.LAUNCHES)
+    cpu = InteractiveViewer(obj, width=64, height=64, steps=48, drag_steps=16,
+                            params=v.params, device="cpu")
+    v.on_press(5, 5)
+    v.on_move(25, 9)
+    frames = [v.render_current("drag")]
+    v.set_param(boss, "r", 0.3)
+    v.on_release()
+    frames.append(v.render_current("full"))
+    assert dict(_build.COUNTS) == counts
+    assert kernels.LAUNCHES["raymarch_param"] == before["raymarch_param"] + 2
+    assert kernels.LAUNCHES["raymarch"] == before["raymarch"]
+    cpu.yaw, cpu.pitch = v.yaw, v.pitch
+    np.testing.assert_array_equal(frames[1], cpu.render_current("full"))
+
+
+def test_pipelined_drag_frames_on_card(cuda_device):
+    """Drag pipelining on the card: frame N-1's copy is enqueued before
+    frame N launches; each displayed frame equals the unpipelined viewer's
+    frame of the view one event earlier."""
+    from gsdf_tpu_torch.pipeline import InteractiveViewer
+
+    obj = _solid()
+    v = InteractiveViewer(obj, width=64, height=64, steps=48, drag_steps=16, pipeline=True)
+    ref = InteractiveViewer(obj, width=64, height=64, steps=48, drag_steps=16)
+    v.on_press(10, 10)
+    views, shown = [], []
+    for x in (20, 40, 60, 80):
+        v.on_move(x, 12)
+        views.append((v.yaw, v.pitch))
+        shown.append(v.render_current("drag"))
+    expect = []
+    for yaw, pitch in views:
+        ref.yaw, ref.pitch = yaw, pitch
+        expect.append(ref.render_current("drag"))
+    np.testing.assert_array_equal(shown[0], expect[0])
+    for k in range(1, 4):
+        np.testing.assert_array_equal(shown[k], expect[k - 1])
