@@ -167,7 +167,18 @@
    part at each of those frames (wrapper ms, CUDA-graph device ms) beside
    its bound from the evaluations it made (bounds.raymarch_ops), with the
    mean and most march steps per ray and the plain call's ms; at 512 x
-   512 aa 1 also K8p in turns against K8.
+   512 aa 1 also K8p in turns against K8. With each row: K8p's wrapper and
+   device ms at every frame, how K8's own evaluation counts would fill
+   32-ray warps (16 x 2, 8 x 4) and 128-ray blocks that run as long as
+   their slowest ray (lane_efficiency), each form's registers, spills and
+   resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+   the device work inside one call at 512 x 512 (a memset of the ray
+   queue's counter, K8, and the box filter at aa 3: never more), and the
+   lone-ray probe: the 512 x 512 aa 1 ray that evaluates most, alone in a
+   1 x 1 frame, the floor of any design at that frame (rm_lone_ray).
+   `python3 chip_smoke.py --raymarch` runs these raymarch kernel rows
+   alone; a copy of this script beside another checkout measures that
+   checkout's K8.
 4. Fails unless each kernel launched on every path that runs it, once per
    render and slab (the wrapper calls counted per render of each path are
    printed and held to what the path should make); prints the device
@@ -1012,6 +1023,126 @@ def rm_levels(a, b):
     return int((d > 0).sum()), int(d.max())
 
 
+#: groups of rays that run as long as their slowest ray when each thread
+#: marches one ray: a 32-ray warp as 16 x 2 or 8 x 4 rays, a 128-thread
+#: block of 16 x 8 rays (the layout of a one-thread-a-ray launch)
+LANE_TILES = {"warp 16x2": (16, 2), "warp 8x4": (8, 4), "block 16x8": (16, 8)}
+
+
+def lane_efficiency(evals, tiles=LANE_TILES) -> dict:
+    """{tile: sum of evaluations / sum over tiles of (tile rays x the
+    tile's most)}: the share of a group's evaluation slots that do work
+    where each group of w x h neighbouring rays runs as long as its
+    slowest one. evals is (rh, rw), one count a ray; rays past a ragged
+    edge are idle lanes. 1.0 where no ray evaluates at all."""
+    import numpy as np
+
+    e = np.asarray(evals, np.int64)
+    rh, rw = e.shape
+    out = {}
+    for label, (tw, th) in tiles.items():
+        pad = np.zeros((-(-rh // th) * th, -(-rw // tw) * tw), np.int64)
+        pad[:rh, :rw] = e
+        most = pad.reshape(pad.shape[0] // th, th, pad.shape[1] // tw, tw).max(axis=(1, 3))
+        slots = int(most.sum()) * tw * th
+        out[label] = int(e.sum()) / slots if slots else 1.0
+    return out
+
+
+def ptxas_usage(text, kernel="raymarch_kernel") -> dict:
+    """{"registers", "spill_stores", "spill_loads"} of the entry function
+    whose name holds `kernel`, from nvcc's -Xptxas -v report."""
+    import re
+
+    usage, current = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )([^' ]+)", line)
+        if m:
+            current = m.group(1)
+            continue
+        if current is None or kernel not in current:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            usage["spill_stores"], usage["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage["registers"] = int(m.group(1))
+    return usage
+
+
+_RM_OCCUPANCY = {}
+
+
+def rm_occupancy(tree, parametric, threads=128) -> int:
+    """Resident blocks of `threads` threads per SM of raymarch_kernel
+    (csrc/raymarch.cu around the tree's source, the parametric source with
+    parametric=True), as cudaOccupancyMaxActiveBlocksPerMultiprocessor
+    gives it: a small library that includes the template and asks the
+    runtime, built beside the kernel's own (nvcc, the same flags)."""
+    import ctypes
+
+    from gsdf_tpu_torch import _build, kernels
+    from gsdf_tpu_torch.eval import grid_kernels as gk
+    from gsdf_tpu_torch.eval import ray_kernels as rk
+
+    gen, _, key = gk._sources(tree, rk.TEMPLATES, parametric)
+    probe = ('#include "raymarch.cu"\n'
+             'extern "C" int gsdf_rm_occupancy(int threads) {\n'
+             "    int n = -1;\n"
+             "    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, raymarch_kernel, threads, "
+             "0) != cudaSuccess) return -1;\n"
+             "    return n;\n}\n")
+    key = _build.source_key(key, probe)
+    if key not in _RM_OCCUPANCY:
+        def command(out, d):
+            for name, text in {**gen, "rm_occupancy.cu": probe}.items():
+                _build.write_atomic(os.path.join(d, name), text)
+            return [kernels.nvcc(), *kernels.NVCC_FLAGS, "-I", d, "-I", kernels.CSRC, "-o", out,
+                    os.path.join(d, "rm_occupancy.cu")]
+
+        lib = ctypes.CDLL(_build.build_shared("rm_occupancy", key, command))
+        lib.gsdf_rm_occupancy.argtypes = [ctypes.c_int]
+        lib.gsdf_rm_occupancy.restype = ctypes.c_int
+        _RM_OCCUPANCY[key] = lib
+    n = _RM_OCCUPANCY[key].gsdf_rm_occupancy(threads)
+    if n < 1:
+        raise RuntimeError(f"occupancy query of raymarch_kernel failed ({n})")
+    return n
+
+
+def rm_lone_ray(tree, evals, dev, steps=196):
+    """The longest ray's serial latency at 512 x 512 aa 1, the floor of
+    any K8 design at that frame: the ray of the frame's K8 evaluation
+    counts (`evals`) that evaluates most, alone, as a 1 x 1 frame whose
+    camera has uu = vv = 0 and ww = r / 1.8 (r that ray's unnormalised
+    direction), so that its one supersample's direction (-uu + vv) +
+    1.8 ww is r again, up to the rounding of r / 1.8 * 1.8. Returns the
+    ray, its evaluations and the probe's (through evals=True), and the
+    probe frame's wrapper ms (events) and device ms (CUDA graph)."""
+    import numpy as np
+    from gsdf_tpu_torch.eval import ray_kernels as rk
+
+    camera, w, h, _, relax, _, _ = rm_args(tree, 512, 512, steps, 1, dev)
+    e = evals.cpu().numpy()
+    iy, ix = (int(v) for v in np.unravel_index(int(np.argmax(e)), e.shape))
+    c = rk.unpack_camera(camera)
+    f = np.float32
+    ux = (f(2.0) * f(ix) - f(w)) / f(h)
+    uy = -(f(2.0) * f(iy) - f(h)) / f(h)
+    r = (ux * c["uu"] + uy * c["vv"]) + f(1.8) * c["ww"]
+    zero = np.zeros(3, f)
+    lone = rk.pack_camera(c["ro"], zero, zero, r / f(1.8), c["center"], c["light"], c["scale"],
+                          c["far_plane"])
+
+    def kernel():
+        return rk.raymarch(tree, lone, 1, 1, steps, relax, 1, dev)
+
+    probe = int(rk.raymarch(tree, lone, 1, 1, steps, relax, 1, dev, evals=True)[1].item())
+    return {"ray": (ix, iy), "evaluations": int(e[iy, ix]), "probe_evaluations": probe,
+            "ms": cuda_ms(kernel, 20), "graph_ms": graph_ms(kernel, 20)}
+
+
 def raymarch_compare(name, tree, other, dev, w=128, h=128, aa=2, steps=196):
     """K8 and K8p against raymarch_plain at w x h, aa 2, 196 steps: pixels
     and every ray's evaluation count; K8p against K8; K8p's library with a
@@ -1056,20 +1187,31 @@ def raymarch_kernel_times(parts, dev, card):
     """K8 on each part at each frame of RM_FRAMES: K8's and K8p's images
     and every ray's evaluation count against raymarch_plain's (raises
     unless all are equal), the plain call's ms (CUDA events, that one
-    call), the wrapper's ms (CUDA events, 10 launches), the device ms of
-    one call from a CUDA graph (graph_ms), the tree evaluations K8 made
-    (checked against plain's) with the mean and most march steps per ray,
-    and the bound from them (bounds.raymarch_ops; bytes: the u8 output).
-    At raymarch_image's defaults also K8p in turns against K8. Returns
-    ({part: {frame: row}}, {part: {frame: plain's image on the host}})."""
+    call), K8's and K8p's wrapper ms (CUDA events, 10 launches) and device
+    ms of one call from a CUDA graph (graph_ms), the tree evaluations K8
+    made (checked against plain's) with the mean and most march steps per
+    ray, the bound from them (bounds.raymarch_ops; bytes: the u8 output),
+    and how K8's own counts would fill groups of rays that run as long as
+    their slowest one (lane_efficiency). Per part: each form's registers and spills (ptxas), its
+    resident 128-thread blocks per SM (rm_occupancy) and, per frame, the
+    waves a launch of one such block per 16 x 8 rays would take; at 512 x
+    512 aa 1 also K8p in turns against K8 and the lone-ray probe
+    (rm_lone_ray). Returns ({part: {frame: row, "forms": ...}}, {part:
+    {frame: plain's image on the host}})."""
     import torch
     from gsdf_tpu_torch import bounds
+    from gsdf_tpu_torch.eval import grid_kernels as gk
     from gsdf_tpu_torch.eval import ray_kernels as rk
     from gsdf_tpu_torch.eval.parametric import kernel_params
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out, refs = {}, {}
     for name, tree in parts.items():
-        out[name], refs[name] = {}, {}
+        forms = {}
+        for form, p in (("raymarch", False), ("raymarch_param", True)):
+            forms[form] = {**ptxas_usage(gk.build_log(tree, rk.TEMPLATES, p)),
+                           "blocks_per_sm": rm_occupancy(tree, p), "sms": sms}
+        out[name], refs[name] = {"forms": forms}, {}
         for label, w, h, steps, aa in RM_FRAMES:
             args = rm_args(tree, w, h, steps, aa, dev)
             img, evals = rk.raymarch(tree, *args, evals=True)
@@ -1087,43 +1229,91 @@ def raymarch_kernel_times(parts, dev, card):
                                    f"{differing}, evaluations {ev_diff}")
             refs[name][label] = ref.cpu().numpy()
             n, rays = int(evals.sum()), evals.numel()
+            host_evals = evals.cpu().numpy()
             del img, pimg, ref, pevals, ref_evals
 
             def kernel(args=args):
                 return rk.raymarch(tree, *args)
 
+            def param(args=args):
+                return rk.raymarch(tree, *args, parametric=True)
+
             ms, dev_ms = cuda_ms(kernel, 10), graph_ms(kernel, 10)
             b = bounds.bound(bounds.raymarch_ops(tree, n, rays),
                              bounds.kernel_bytes("raymarch", pixels=w * h))
+            tiles = -(-w * aa // 16) * -(-h * aa // 8)
             row = {"ms": ms, "graph_ms": dev_ms, "plain_ms": start.elapsed_time(end),
                    "pixels_differing_from_plain": {k: v[0] for k, v in differing.items()},
                    "evaluations_differing_from_plain": ev_diff, "evaluations": n, "rays": rays,
-                   "mean_steps": n / rays - 5, "max_steps": int(evals.max()) - 5,
-                   "launches_per_call": 1 + (aa > 1), "library_ms": None, **b,
-                   "share": b["bound_ms"] / ms, "device_share": dev_ms and b["bound_ms"] / dev_ms}
+                   "mean_steps": n / rays - 5, "max_steps": int(host_evals.max()) - 5,
+                   # the queue counter's memset, K8, and the box filter at aa > 1
+                   "launches_per_call": {"memsets": 1, "kernels": 1 + (aa > 1)},
+                   "library_ms": None, **b,
+                   "share": b["bound_ms"] / ms, "device_share": dev_ms and b["bound_ms"] / dev_ms,
+                   "lanes": lane_efficiency(host_evals),
+                   "tile_waves": {form: tiles / (v["blocks_per_sm"] * sms)
+                                  for form, v in forms.items()},
+                   "param_ms": cuda_ms(param, 10), "param_graph_ms": graph_ms(param, 10)}
+            row["param_device_share"] = row["param_graph_ms"] and (
+                b["bound_ms"] / row["param_graph_ms"])
+            if label.startswith("image"):
+                # what the card runs inside one wrapper call: a trace can miss
+                # a call's device events, never add one
+                row["on_device"] = device_reading(kernel)
+                seen = row["on_device"] or {}
+                if any(seen.get(k, 0) > n for k, n in row["launches_per_call"].items()):
+                    raise RuntimeError(f"raymarch {name} {label}: the card ran {seen}, more than "
+                                       f"{row['launches_per_call']}")
             if label == "image aa1":
-
-                def param(args=args):
-                    return rk.raymarch(tree, *args, parametric=True)
-
                 row["param_ms"], row["baked_ms"] = in_turns(param, kernel)
-                row["param_graph_ms"] = graph_ms(param, 10)
                 row["param_bytes"] = bounds.kernel_bytes(
                     "raymarch_param", pixels=w * h, n_params=int(kernel_params(tree).size))
+                row["lone_ray"] = rm_lone_ray(tree, evals, dev, steps)
             out[name][label] = row
+            del evals
             torch.cuda.empty_cache()
         log(f"  device ms raymarch {name}, K8 and K8p equal to plain in every pixel and "
-            "evaluation at every frame: "
+            f"evaluation at every frame; forms {json.dumps(forms)}: "
             + ", ".join(f"{k} {v['ms']:.4f} (graph {v['graph_ms'] and round(v['graph_ms'], 4)}, "
                         f"bound {v['bound_ms']:.4f} by {v['bound_by']}, device share "
                         f"{v['device_share'] and round(v['device_share'], 3)}, steps per ray mean "
-                        f"{v['mean_steps']:.2f} max {v['max_steps']}, plain {v['plain_ms']:.3f}"
-                        + (f", K8p / K8 in turns {v['param_ms']:.4f} / "
-                           f"{v['baked_ms']:.4f}, K8p graph {v['param_graph_ms'] and round(v['param_graph_ms'], 4)}"
-                           if "param_ms" in v else "") + ")"
-                        for k, v in out[name].items())
+                        f"{v['mean_steps']:.2f} max {v['max_steps']}, plain {v['plain_ms']:.3f}, "
+                        f"K8p {v['param_ms']:.4f} graph "
+                        f"{v['param_graph_ms'] and round(v['param_graph_ms'], 4)}, lanes "
+                        + json.dumps({x: round(y, 3) for x, y in v["lanes"].items()})
+                        + f", 16x8 tile waves {json.dumps(v['tile_waves'])}"
+                        + (f", K8p / K8 in turns {v['param_ms']:.4f} / {v['baked_ms']:.4f}, "
+                           f"lone ray {json.dumps(v['lone_ray'])}" if "baked_ms" in v else "")
+                        + ")"
+                        for k, v in out[name].items() if k != "forms")
             + f"  [{card}]")
     return out, refs
+
+
+def raymarch_study(dev, card) -> int:
+    """`chip_smoke.py --raymarch`: only the raymarcher's kernel rows
+    (raymarch_kernel_times) on the five parts, their libraries and
+    occupancy probes built in parallel first, as one JSON line. Runs
+    against whichever gsdf_tpu_torch the script's folder holds, so that a
+    copy of it beside an older checkout measures that checkout's K8."""
+    from gsdf_tpu_torch import Builder, flagships
+    from gsdf_tpu_torch.eval import grid_kernels as gk
+    from gsdf_tpu_torch.eval import ray_kernels as rk
+
+    parts = {name: getattr(flagships, f"build_{name}")() for name in RM_PARTS[:4]}
+    parts["sphere"] = Builder().new_sphere(1.0)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=32) as pool:
+        futs = [pool.submit(gk.build, tree, rk.TEMPLATES, p)
+                for tree in parts.values() for p in (False, True)]
+        futs += [pool.submit(rm_occupancy, tree, p) for tree in parts.values() for p in (False, True)]
+        for fut in futs:
+            fut.result()
+    log(f"raymarch study: {len(futs)} libraries in {time.perf_counter() - t0:.1f} s")
+    times, _ = raymarch_kernel_times(parts, dev, card)
+    log(json.dumps({"raymarch_kernels": times}))
+    log(card)
+    return 0
 
 
 def raymarch_paths(parts, refs, dev, card, run, exactly):
@@ -1524,6 +1714,8 @@ def main() -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
+    if sys.argv[1:] == ["--raymarch"]:
+        return raymarch_study(dev, card)
 
     # --- phase 2: build, compare, time ---------------------------------
     trees = {
@@ -1577,6 +1769,8 @@ def main() -> int:
                  for tree in trees.values() for parametric in (False, True)]
         futs += [pool.submit(gk.build, tree, rk.TEMPLATES, parametric)
                  for tree in rm_trees.values() for parametric in (False, True)]
+        futs += [pool.submit(rm_occupancy, tree, parametric)
+                 for tree in rm_parts.values() for parametric in (False, True)]
         for fut in futs:
             fut.result()
     build_s = time.perf_counter() - t0
@@ -1584,9 +1778,8 @@ def main() -> int:
         f"{len(kernels.STATIC_KERNELS)} MC kernels, {len(point_trees)} trees' KP, "
         f"{len(trees2d)} 2D trees' K2-2D, {len(trees)} structures' K1p, {len(point_trees)} "
         f"structures' KPp, {len(dc_trees)} trees' K5 and K5p, {len(trees)} trees' K6c + K6a "
-        f"and their parametric forms, {len(rm_trees)} trees' K8 and K8p; one nvcc each, in "
-        f"parallel) in "
-        f"{build_s:.1f} s; "
+        f"and their parametric forms, {len(rm_trees)} trees' K8 and K8p, {len(rm_parts)} "
+        f"parts' K8 and K8p occupancy probes; one nvcc each, in parallel) in {build_s:.1f} s; "
         f"compiler runs {_build.COUNTS['compiles']}, libraries loaded {_build.COUNTS['loads']}")
     n_params = {name: int(par.kernel_params(trees[name]).size) for name in golden_parts}
     log("  parameters per part (packed as the JAX package packs them / in the kernels' "

@@ -21,4 +21,8 @@ Every entry point runs on the card unless the caller passes a `device`
 """
 from .core import Builder, Flags, Shader2D, Shader3D, ShapeError, with_bounds
 
-__all__ = ["Builder", "Flags", "Shader2D", "Shader3D", "ShapeError", "with_bounds"]
+#: the version of the JAX package this port follows
+__version__ = "0.1.0"
+
+__all__ = ["Builder", "Flags", "Shader2D", "Shader3D", "ShapeError", "__version__",
+           "with_bounds"]

@@ -4,7 +4,8 @@ bench_main and breadth_main).
 `python -m gsdf_tpu_torch.cli [--device cuda]` renders the flange at
 resdiv 400 and the showerhead at resdiv 350 through
 FlatRenderer.render_compact + write_binary_stl_indexed and prints ONE JSON
-line: the median warm SDF->STL wall ms of each (two warm-ups first), the
+line: the median warm SDF->STL wall ms of each (two warm-ups first), each
+one's `vs_baseline` (the reference implementation's ms over it), the
 device it ran on, and the triangle counts, which must equal the golden
 counts exactly or the run fails.
 
@@ -35,6 +36,12 @@ from .flagships import (
 from .render.flat import FlatRenderer
 from .render.pruned import PrunedRenderer
 from .render.stl import write_binary_stl, write_binary_stl_indexed
+
+#: the reference implementation's end-to-end ms on an RX 6800 that the JAX
+#: package's bench line divides by (gsdf_tpu/cli.py:77-92): the flange's
+#: render + STL write, and the showerhead
+BASELINE_FLANGE_MS = 706.0 + 371.0
+BASELINE_SHOWERHEAD_MS = 701.0
 
 
 def render_stl(obj, resdiv, device, path="compact", parametric=False):
@@ -138,12 +145,14 @@ def bench_main(argv=None):
                 "metric": "npt-flange resdiv400 SDF->STL warm (median)",
                 "value": flange_ms,
                 "unit": "ms",
+                "vs_baseline": BASELINE_FLANGE_MS / flange_ms,
                 "triangles": flange_tris,
                 "device": device_name(device),
                 "secondary": {
                     "metric": "fibonacci-showerhead resdiv350 SDF->STL warm (median)",
                     "value": shower_ms,
                     "unit": "ms",
+                    "vs_baseline": BASELINE_SHOWERHEAD_MS / shower_ms,
                     "triangles": shower_tris,
                 },
             }

@@ -8,26 +8,57 @@
 // truncation to u8; where aa > 1, the integer box filter down to H x W.
 // The per-ray arithmetic is gsdf_raymarch.cuh, in the JAX package's order.
 //
-// One thread per supersample, in 16 x 8 blocks: a warp holds 16 x 2
-// neighbouring rays, which tend to march alike. A ray that is done leaves
-// its loop (what the JAX package's masked fori_loop computes: a done ray's
-// t never changes), so a warp runs as long as its slowest ray. The tree is
-// inlined at two call sites: the march loop and one loop over the five
-// positions after it.
-//
 // What bounds it on the card: the ALU, (evaluations) x (the tree's
 // operations per point) plus the shading; the bytes are 3 a pixel out
-// (the samples stay in device memory only where aa > 1). Sky rays,
-// silhouette rays and hit rays finish at different steps, so a warp idles
-// on its early rays: divergence, not memory, is what separates the kernel
-// from that bound (PERF.md §7).
+// (the samples stay in device memory only where aa > 1). Rays end after
+// very different numbers of steps (sky, silhouette, hit: 6 to steps + 5
+// evaluations), so a kernel that gives each thread one ray idles twice:
+// a warp marches as long as its slowest ray, and a block holds its SM
+// slot until its slowest warp ends, which leaves the SMs idle in the
+// launch's last wave (PERF.md §6).
+//
+// The design: persistent warps over a ray queue. One launch of as many
+// 128-thread blocks as the card holds at once (SMs x resident blocks,
+// read once per library and device through the occupancy API), fewer on
+// a frame with fewer rays. Each warp takes ray ids from one global
+// counter, 32 at a time with one atomic; the ids run over tiles of 8 x 4
+// neighbouring supersamples (gsdf_rm::queue_ray), so a batch is a tile
+// that tends to march alike. Each lane marches one ray (gsdf_rm::Lane:
+// direction, t, step count, frame index). A lane whose march is over
+// leaves the ray on the warp's stack and takes the next ray of the
+// warp's batch at once: the idle lanes take consecutive rays by ballot
+// and popc, and the warp takes a new batch only where its batch runs
+// out. Once 32 rays are on the stack (or the queue is empty), the warp
+// gives them their five shading evaluations together, a ray a lane, in
+// five turns of the same loop, and shades them. Every turn of the loop
+// computes each lane's point (its march point, or its stacked ray's hit
+// point plus offset q), evaluates the tree there at the one call site
+// and advances the lane. A warp ends when the queue is empty and its
+// lanes are idle. So a warp idles only once the queue is empty, no block
+// waits for its slowest warp, and what no design can shorten is left:
+// the longest ray's own serial march.
+//
+// Why the shading and a ray's set-up go 32 at a time: a ray's direction
+// (five IEEE divisions and a square root) and its colour (three powf)
+// cost a turn or more each, and done one lane at a time, as lanes free
+// up, they stall the whole warp once a ray. So each lane of the warp sets
+// up one ray of a new batch into the warp's stage in shared memory
+// (WarpStage), and the stacked rays are shaded 32 at once. Measured on
+// the card (PERF.md §6): per-lane set-up and shading made the kernel
+// slower than one ray a thread on every part; the shading phase as each
+// lane's own (q per lane) and waiting for 4 idle lanes before a refill
+// gave the times of this design within 1%.
+//
+// Each ray makes the evaluations it makes in the plain version, its march
+// steps and then 5, in the same arithmetic: the image and the counts are
+// the plain version's bit for bit.
 //
 // width, height, steps, relax, aa and the camera are launch arguments:
 // one library serves a tree at every frame size, step count and aa (the
 // JAX package compiles one executable per (tree, w, h, steps, relax, aa)).
 // The camera (20 floats) goes by value as a __grid_constant__ struct: no
-// upload. A frame is one launch, two where aa > 1 (march into the samples,
-// then the box filter).
+// upload. A frame is a 4-byte memset of the queue's counter and one
+// launch; at aa > 1 a second launch, the box filter.
 //
 // The parametric form, K8p (gsdf_params.cuh): the same kernel around a
 // parametric gsdf_tree(), which reads the tree's continuous parameters
@@ -36,6 +67,7 @@
 // `_raymarch_fn(parametric=True)` (raymarch.py:150-169).
 //
 // gsdf_tree.cuh is generated per tree by gsdf_tpu_torch/codegen/cuda.py.
+#include <atomic>
 #include <cstdint>
 #include <cstring>
 #include <cuda_runtime.h>
@@ -46,24 +78,155 @@
 
 namespace {
 
-constexpr int kBX = 16, kBY = 8;
+constexpr int kThreads = 128;  // four warps a block, each on its own
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kAll = 0xffffffffu;
+constexpr int kBX = 16, kBY = 8;  // the box filter's blocks
+constexpr int kMaxDevices = 64;
 
-__global__ void __launch_bounds__(kBX * kBY)
-raymarch_kernel(uint8_t* __restrict__ samples, int* __restrict__ evals, int rw, int rh,
-                int steps, float relax,
+// One warp's rays on their way in (the next batch, set up) and between
+// march and shading (at most 31 left over and 32 more at a refill), as
+// structures of arrays, so that 32 lanes on 32 entries hit 32 banks.
+struct WarpStage {
+    float next_rd[3][32];
+    int next_at[32];  // the ray's frame index, -1 past the frame's edge
+    float rd[3][64], t[64];
+    int at[64], evals[64];
+};
+
+__global__ void __launch_bounds__(kThreads)
+raymarch_kernel(uint8_t* __restrict__ samples, int* __restrict__ evals, int* __restrict__ queue,
+                int rw, int rh, int n_ids, int steps, float relax,
                 const __grid_constant__ gsdf_rm::Camera cam GSDF_PARAMS_DECL) {
-    const int ix = blockIdx.x * kBX + threadIdx.x;
-    const int iy = blockIdx.y * kBY + threadIdx.y;
-    if (ix >= rw || iy >= rh) return;
+    __shared__ WarpStage stage[kWarps];
+    WarpStage& w = stage[threadIdx.x / 32];
+    const int lane = threadIdx.x & 31;
+    const unsigned below = (1u << lane) - 1u;
     auto scene = [&](float x, float y, float z) { return GSDF_TREE(x, y, z); };
-    const int64_t at = (int64_t)iy * rw + ix;
-    uint8_t rgb[3];
-    int n;
-    gsdf_rm::sample(scene, cam, ix, iy, rw, rh, steps, relax, rgb, &n);
-    samples[3 * at] = rgb[0];
-    samples[3 * at + 1] = rgb[1];
-    samples[3 * at + 2] = rgb[2];
-    if (evals != nullptr) evals[at] = n;
+    gsdf_rm::Lane ray = {};
+    bool busy = false, marched = false;  // marching; holding a ray whose march is over
+    // the lane's ray in a shading round: its hit point, direction, final
+    // distance, normal sum, frame index and count (live: the lane has one)
+    float pos[3] = {}, srd[3] = {}, d0 = 0.0f, n[3] = {};
+    int s_at = 0, s_evals = 0;
+    bool s_live = false;
+    // warp-uniform: busy lanes, rays of the batch handed out, marched rays
+    // on the stack, the shading round's evaluation (-1: march turns), and
+    // whether the queue has run out
+    int n_busy = 0, taken = 32, n_marched = 0, q = -1;
+    bool drained = false;
+#pragma unroll 1
+    for (;;) {
+        if (q < 0 && (n_busy == 0 || (!drained && n_busy < 32))) {
+            // the lanes' marched rays onto the stack
+            const unsigned held = __ballot_sync(kAll, marched);
+            if (marched) {
+                const int i = n_marched + __popc(held & below);
+                for (int a = 0; a < 3; ++a) w.rd[a][i] = ray.rd[a];
+                w.t[i] = ray.t;
+                w.at[i] = ray.at;
+                w.evals[i] = ray.steps + 5;
+                marched = false;
+            }
+            n_marched += __popc(held);
+            if (!drained) {  // rays for the idle lanes, in lane order
+                const unsigned idle = __ballot_sync(kAll, !busy);
+                const int k = __popc(idle), rank = __popc(idle & below), left = 32 - taken;
+                int slot = !busy && rank < left ? taken + rank : -1;
+                if (k <= left) {
+                    taken += k;
+                } else {  // a new batch for the lanes the old one did not serve
+                    int base = 0;
+                    if (lane == 0) base = atomicAdd(queue, 32);
+                    base = __shfl_sync(kAll, base, 0);
+                    if (base >= n_ids) {
+                        drained = true;
+                    } else {
+                        int ix, iy;
+                        float rd[3] = {0.0f, 0.0f, 0.0f};
+                        const bool real = gsdf_rm::queue_ray(base + lane, rw, rh, &ix, &iy);
+                        if (real) gsdf_rm::ray_dir(cam, ix, iy, rw, rh, rd);
+                        if (slot >= 0) {  // the old batch's ray, read before the new is written
+                            const float old[3] = {w.next_rd[0][slot], w.next_rd[1][slot],
+                                                  w.next_rd[2][slot]};
+                            const int at = w.next_at[slot];
+                            if (at >= 0) {
+                                gsdf_rm::lane_start(ray, old, at);
+                                busy = steps > 0;
+                                marched = steps == 0;
+                            }
+                            slot = -1;
+                        }
+                        __syncwarp();
+                        for (int a = 0; a < 3; ++a) w.next_rd[a][lane] = rd[a];
+                        w.next_at[lane] = real ? iy * rw + ix : -1;
+                        __syncwarp();
+                        if (!busy && !marched && rank >= left) slot = rank - left;
+                        taken = k - left;
+                    }
+                }
+                if (slot >= 0 && w.next_at[slot] >= 0) {
+                    const float rd[3] = {w.next_rd[0][slot], w.next_rd[1][slot],
+                                         w.next_rd[2][slot]};
+                    gsdf_rm::lane_start(ray, rd, w.next_at[slot]);
+                    busy = steps > 0;
+                    marched = steps == 0;  // no march step: straight to shading
+                }
+            }
+            n_busy = __popc(__ballot_sync(kAll, busy));
+            if (n_marched >= 32 || (n_busy == 0 && drained && n_marched > 0)) {
+                // a shading round on the stack's top 32 (or all that is left)
+                const int rest = n_marched > 32 ? n_marched - 32 : 0, i = rest + lane;
+                __syncwarp();
+                s_live = i < n_marched;
+                if (s_live) {
+                    for (int a = 0; a < 3; ++a) {
+                        srd[a] = w.rd[a][i];
+                        pos[a] = cam.ro[a] + srd[a] * w.t[i];
+                    }
+                    s_at = w.at[i];
+                    s_evals = w.evals[i];
+                }
+                __syncwarp();
+                n_marched = rest;
+                q = 0;
+            } else if (n_busy == 0) {
+                if (drained && !__any_sync(kAll, marched)) break;
+                continue;  // no lane marches: refill again (or push the rays held)
+            }
+        }
+        float p[3];
+        bool live;
+        if (q >= 0) {
+            gsdf_rm::shade_point(pos, q, p);
+            live = s_live;
+        } else {
+            gsdf_rm::march_point(ray, cam, p);
+            live = busy;
+        }
+        float d = 0.0f;
+        if (live) d = gsdf_rm::scene_at(scene, cam, p);  // the one call site
+        if (q >= 0) {
+            gsdf_rm::shade_step(q, d, &d0, n);
+            if (++q == 5) {
+                if (s_live) {
+                    uint8_t rgb[3];
+                    gsdf_rm::shade(cam, srd, n, d0, rgb);
+                    samples[3 * (int64_t)s_at] = rgb[0];
+                    samples[3 * (int64_t)s_at + 1] = rgb[1];
+                    samples[3 * (int64_t)s_at + 2] = rgb[2];
+                    if (evals != nullptr) evals[s_at] = s_evals;
+                }
+                q = -1;
+            }
+        } else {
+            bool over = false;
+            if (busy) over = gsdf_rm::march_step(ray, cam, d, steps, relax);
+            marched = marched || over;
+            busy = busy && !over;
+            n_busy -= __popc(__ballot_sync(kAll, over));
+        }
+    }
 }
 
 __global__ void __launch_bounds__(kBX * kBY)
@@ -75,19 +238,45 @@ box_filter_kernel(const uint8_t* __restrict__ samples, uint8_t* __restrict__ out
     gsdf_rm::box_filter(samples, out, x, y, width, aa);
 }
 
+// The blocks of raymarch_kernel the current device holds at once (SMs x
+// resident blocks), asked once per device and kept: no call of this
+// synchronises, and the launch after the first asks nothing.
+int resident_blocks(int* blocks) {
+    static std::atomic<int> known[kMaxDevices];
+    int dev = 0;
+    int rc = (int)cudaGetDevice(&dev);
+    if (rc != 0) return rc;
+    if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+    *blocks = known[dev].load(std::memory_order_relaxed);
+    if (*blocks > 0) return 0;
+    int sms = 0, per_sm = 0;
+    rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (rc == 0)
+        rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, raymarch_kernel, kThreads,
+                                                                0);
+    if (rc != 0) return rc;
+    if (sms < 1 || per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    *blocks = sms * per_sm;
+    known[dev].store(*blocks, std::memory_order_relaxed);
+    return 0;
+}
+
 }  // namespace
 
 // samples (aa*height, aa*width, 3) u8; out (height, width, 3) u8, the
 // samples themselves where aa == 1; evals (aa*height, aa*width) int32
-// tree evaluations per supersample, or null; cam the 20 floats of
-// gsdf_rm::Camera (a host pointer). Launches on `stream`; returns
-// cudaGetLastError() (0 = launched). The parametric entry point also takes
-// the parameter vector (a host pointer where it goes by value, else a
-// device pointer) and its length, which must be the structure's.
+// tree evaluations per supersample, or null; queue one int32 of device
+// memory, the ray queue's counter, set to 0 here; cam the 20 floats of
+// gsdf_rm::Camera (a host pointer). Enqueues on `stream` the memset, the
+// kernel and, at aa > 1, the box filter; returns the first CUDA error (0
+// = launched). The parametric entry point also takes the parameter vector
+// (a host pointer where it goes by value, else a device pointer) and its
+// length, which must be the structure's.
 #ifdef GSDF_PARAMETRIC
-extern "C" int gsdf_raymarch_param(uint8_t* samples, uint8_t* out, int* evals, const float* cam,
-                                   int width, int height, int steps, float relax, int aa,
-                                   const float* params, int n_params, void* stream) {
+extern "C" int gsdf_raymarch_param(uint8_t* samples, uint8_t* out, int* evals, int* queue,
+                                   const float* cam, int width, int height, int steps,
+                                   float relax, int aa, const float* params, int n_params,
+                                   void* stream) {
     if (params == nullptr || n_params != GSDF_NPARAMS) return (int)cudaErrorInvalidValue;
 #if GSDF_PARAMS_BY_VALUE
     GsdfParams gsdf_params;
@@ -96,26 +285,33 @@ extern "C" int gsdf_raymarch_param(uint8_t* samples, uint8_t* out, int* evals, c
     const float* gsdf_params = params;
 #endif
 #else
-extern "C" int gsdf_raymarch(uint8_t* samples, uint8_t* out, int* evals, const float* cam,
-                             int width, int height, int steps, float relax, int aa,
-                             void* stream) {
+extern "C" int gsdf_raymarch(uint8_t* samples, uint8_t* out, int* evals, int* queue,
+                             const float* cam, int width, int height, int steps, float relax,
+                             int aa, void* stream) {
 #endif
-    if (width < 1 || height < 1 || steps < 0 || aa < 1 || cam == nullptr ||
-        (int64_t)width * aa > (1 << 20) || (int64_t)height * aa > 65535 * kBY ||
-        (aa == 1) != (samples == out))
+    if (width < 1 || height < 1 || steps < 0 || aa < 1 || cam == nullptr || queue == nullptr ||
+        (int64_t)width * aa > (1 << 20) || (int64_t)height * aa > (1 << 20) ||
+        height > 65535 * kBY || gsdf_rm::queue_length(width * aa, height * aa) > (1 << 30) ||
+        (aa == 1) != (samples == out))  // ids, their counter and frame indices fit an int
         return (int)cudaErrorInvalidValue;
     gsdf_rm::Camera c;
     memcpy(&c, cam, sizeof c);
     const int rw = width * aa, rh = height * aa;
-    const dim3 block(kBX, kBY);
-    raymarch_kernel<<<dim3((rw + kBX - 1) / kBX, (rh + kBY - 1) / kBY), block, 0,
-                      (cudaStream_t)stream>>>(samples, evals, rw, rh, steps, relax,
-                                              c GSDF_PARAMS_ARG);
+    const int64_t n_ids = gsdf_rm::queue_length(rw, rh);
+    int blocks = 0;
+    int rc = resident_blocks(&blocks);
+    if (rc != 0) return rc;
+    if ((int64_t)blocks * kThreads > n_ids) blocks = (int)((n_ids + kThreads - 1) / kThreads);
+    const cudaStream_t s = (cudaStream_t)stream;
+    rc = (int)cudaMemsetAsync(queue, 0, sizeof(int), s);
+    if (rc != 0) return rc;
+    raymarch_kernel<<<blocks, kThreads, 0, s>>>(samples, evals, queue, rw, rh, (int)n_ids, steps,
+                                                relax, c GSDF_PARAMS_ARG);
     if (aa > 1) {
-        const int rc = (int)cudaGetLastError();
+        rc = (int)cudaGetLastError();
         if (rc != 0) return rc;
-        box_filter_kernel<<<dim3((width + kBX - 1) / kBX, (height + kBY - 1) / kBY), block, 0,
-                            (cudaStream_t)stream>>>(samples, out, width, height, aa);
+        box_filter_kernel<<<dim3((width + kBX - 1) / kBX, (height + kBY - 1) / kBY),
+                            dim3(kBX, kBY), 0, s>>>(samples, out, width, height, aa);
     }
     return (int)cudaGetLastError();
 }

@@ -89,7 +89,7 @@ _SIGNATURES = {
     "grid_eval_2d.cu": {"gsdf_grid_eval_2d": (_I, [_V] + [_F] * 4 + [_I] * 2 + [_V])},
     "tile_prune.cu": {"gsdf_tile_prune": (_I, [_V] * 2 + [_F] * 6 + [_I] * 3 + [_V])},
     "tile_atlas.cu": {"gsdf_tile_atlas": (_I, [_V] * 3 + [_I] * 5 + [_F] * 5 + [_V])},
-    "raymarch.cu": {"gsdf_raymarch": (_I, [_V] * 4 + [_I] * 3 + [_F, _I] + [_V])},
+    "raymarch.cu": {"gsdf_raymarch": (_I, [_V] * 5 + [_I] * 3 + [_F, _I] + [_V])},
     "dc_mesh.cu": {
         "gsdf_dc_work": (ctypes.c_int64, [_I] * 4),
         "gsdf_dc_count": (_I, [_V] + [_F] * 4 + [_I] * 5 + [_V] * 4 + [_V]),
@@ -111,7 +111,7 @@ _PARAM_SIGNATURES = {
     "tile_atlas.cu": {
         "gsdf_tile_atlas_param": (_I, [_V] * 3 + [_I] * 5 + [_F] * 5 + [_V, _I, _V])
     },
-    "raymarch.cu": {"gsdf_raymarch_param": (_I, [_V] * 4 + [_I] * 3 + [_F, _I] + [_V, _I, _V])},
+    "raymarch.cu": {"gsdf_raymarch_param": (_I, [_V] * 5 + [_I] * 3 + [_F, _I] + [_V, _I, _V])},
     "dc_mesh.cu": {
         "gsdf_dc_work": (ctypes.c_int64, [_I] * 4),
         "gsdf_dc_count_param": (_I, [_V] + [_F] * 4 + [_I] * 5 + [_V] * 4 + [_V, _I, _V]),

@@ -11,8 +11,11 @@ in csrc/gsdf_raymarch.cuh) around the tree's generated `gsdf_tree`, built
 into a library of its own at the wrapper's first CUDA call
 (grid_kernels.build). The frame's size, step count, relaxation, aa and
 camera are launch arguments, so one library serves every frame of a tree.
-On the CPU the wrapper runs its plain torch version; on a CUDA device it
-launches its kernel or raises.
+The kernel is persistent: warps take rays from a queue and refill a lane
+whose ray is done (csrc/raymarch.cu); the wrapper gives it the queue's
+counter, one int32 that the C entry point zeroes. On the CPU the wrapper
+runs its plain torch version; on a CUDA device it launches its kernel or
+raises.
 
 K8 has a parametric form, K8p (`raymarch(..., parametric=True)`): the same
 template around the tree's parametric source, one library per tree
@@ -189,9 +192,10 @@ def raymarch(tree, camera, width, height, steps, relax, aa, device, parametric=F
     """The shaded (height, width, 3) u8 image of the 3D `tree` under
     `camera` (pack_camera's 20 floats) on `device` (K8; K8p with
     parametric=True, through the library of the tree's structure), not
-    synchronised: one wrapper call, one launch (two where aa > 1, the box
-    filter's). With evals=True also the (aa*height, aa*width) int32 tree
-    evaluations of each supersample."""
+    synchronised: one wrapper call, a 4-byte memset of the ray queue's
+    counter and one launch (and the box filter's where aa > 1). With
+    evals=True also the (aa*height, aa*width) int32 tree evaluations of
+    each supersample."""
     width, height, steps, aa = _frame(width, height, steps, aa)
     if tree.NDIM != 3:
         raise TypeError(f"the raymarcher draws 3D trees, got a {tree.NDIM}D one")
@@ -208,8 +212,9 @@ def raymarch(tree, camera, width, height, steps, relax, aa, device, parametric=F
     check_out(samples, (height * aa, width * aa, 3), torch.uint8, device)
     n_evals = (torch.empty((height * aa, width * aa), dtype=torch.int32, device=device)
                if evals else None)
+    queue = torch.empty(1, dtype=torch.int32, device=device)  # the kernel's ray counter
     args = (samples.data_ptr(), out.data_ptr(), None if n_evals is None else n_evals.data_ptr(),
-            cam.ctypes.data, width, height, steps, float(_f32(relax)), aa)
+            queue.data_ptr(), cam.ctypes.data, width, height, steps, float(_f32(relax)), aa)
     if parametric:
         ptr, n_params, _keep = param_args(tree, lib, device)
         launch("raymarch_param", device, lib.gsdf_raymarch_param, *args, ptr, n_params)

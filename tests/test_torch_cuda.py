@@ -1119,10 +1119,12 @@ def test_raymarch_launch_rejects_what_the_kernel_does_not_take(cuda_device):
     lib = gk.build(tree, rk.TEMPLATES)
     cam = _frame_args(tree, 4, 4, 1, 4, cuda_device)[0]
     buf = torch.empty((8, 8, 3), dtype=torch.uint8, device=cuda_device)
-    for w, h, steps, aa, out in ((4, 4, 4, 2, buf), (8, 8, -1, 1, buf), (0, 8, 4, 1, buf)):
+    queue = torch.empty(1, dtype=torch.int32, device=cuda_device).data_ptr()
+    for w, h, steps, aa, out, q in ((4, 4, 4, 2, buf, queue), (8, 8, -1, 1, buf, queue),
+                                    (0, 8, 4, 1, buf, queue), (8, 8, 4, 1, buf, None)):
         with pytest.raises(RuntimeError, match="launch failed"):
             kernels.launch("raymarch", cuda_device, lib.gsdf_raymarch, buf.data_ptr(),
-                           out.data_ptr(), None, cam.ctypes.data, w, h, steps, 0.8, aa)
+                           out.data_ptr(), None, q, cam.ctypes.data, w, h, steps, 0.8, aa)
 
 
 def test_raymarch_entry_points_default_to_the_card(cuda_device):

@@ -182,3 +182,23 @@ def test_bench_part_on_cpu():
     assert n == len(jtri) and len(times) == 1 and ms > 0
     with pytest.raises(RuntimeError, match="golden"):
         cli.bench_part(torch_flagships.build_showerhead(), RESDIV, n + 1, 1, "cpu")
+
+
+def test_bench_line_carries_vs_baseline(monkeypatch, capsys):
+    """bench_main's one JSON line (bench_part stubbed): the contract keys
+    metric, value, unit and vs_baseline in the flange's part and in its
+    secondary, the showerhead's, vs_baseline the JAX package's baseline
+    ms (706 + 371 for the flange, 701 for the showerhead) over the value."""
+    import json
+
+    ms = {torch_flagships.GOLDEN_FLANGE_TRIS: 40.0, torch_flagships.GOLDEN_SHOWERHEAD_TRIS: 25.0}
+    monkeypatch.setattr(cli, "bench_part", lambda obj, resdiv, golden, *a, **k: (
+        ms[golden], golden, [ms[golden]]))
+    cli.bench_main(["--device", "cpu"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    for part, value, baseline in ((line, 40.0, 706.0 + 371.0), (line["secondary"], 25.0, 701.0)):
+        assert {"metric", "value", "unit", "vs_baseline"} <= part.keys()
+        assert part["value"] == value and part["unit"] == "ms"
+        assert part["vs_baseline"] == baseline / value
+    assert line["device"] == "cpu"
+

@@ -86,6 +86,15 @@ def test_port_uses_nothing_of_the_jax_package():
     assert not bad, bad
 
 
+def test_port_version_is_the_jax_packages():
+    """The port exports __version__, the JAX package's version."""
+    import gsdf_tpu
+    import gsdf_tpu_torch
+
+    assert "__version__" in gsdf_tpu_torch.__all__
+    assert gsdf_tpu_torch.__version__ == gsdf_tpu.__version__ == "0.1.0"
+
+
 def _sphere_soup(r=0.6, res=0.05):
     return FlatRenderer(Builder().new_sphere(r), res, "cpu").render()
 

@@ -271,13 +271,23 @@ GXX_TREES = {
 @pytest.fixture(scope="module")
 def ray_lib(tmp_path_factory):
     """csrc/gsdf_raymarch.cuh around each tree's generated source, built by
-    g++ (-O1 -ffp-contract=off), its gamma's powf glibc's: {name: (tree,
-    render)}."""
+    g++ (-O1 -ffp-contract=off), its gamma's powf glibc's, the lanes driven
+    by a host scheduler that mirrors the kernel's warp: `warp` lanes march,
+    and in a turn with an idle lane the lanes' marched rays go onto a stack
+    and the idle lanes take the next rays, in lane order, of a batch of 32
+    set up from the queue in the kernel's ray order (gsdf_rm::queue_ray,
+    ray_dir); `warp` marched rays at a time (the rest at the end) get their
+    five shading evaluations and their colour.
+    {name: (tree, render)}."""
     if shutil.which("g++") is None:
         pytest.skip("g++ not installed")
     d = tmp_path_factory.mktemp("raymarch")
     shim = ["#include <math.h>", "#include <stdint.h>", "#include <string.h>",
-            '#include "gsdf_raymarch.cuh"']
+            '#include "gsdf_raymarch.cuh"',
+            'extern "C" int64_t queue_length(int rw, int rh) '
+            "{ return gsdf_rm::queue_length(rw, rh); }",
+            'extern "C" int queue_ray(int64_t id, int rw, int rh, int* ix, int* iy) '
+            "{ return gsdf_rm::queue_ray(id, rw, rh, ix, iy); }"]
     trees = {name: make() for name, make in GXX_TREES.items()}
     for i, tree in enumerate(trees.values()):
         (d / f"tree{i}.cuh").write_text(tree_source(tree))
@@ -286,12 +296,66 @@ def ray_lib(tmp_path_factory):
             "struct Scene {\n    float operator()(float x, float y, float z) const "
             "{ return gsdf_tree(x, y, z); }\n};\n}\n"
             f'extern "C" void render{i}(const float* cam, int width, int height, int steps, '
-            "float relax, int aa, uint8_t* samples, uint8_t* out, int* evals) {\n"
+            "float relax, int aa, int warp, uint8_t* samples, uint8_t* out, int* evals) {\n"
             f"    gsdf_rm::Camera c;\n    memcpy(&c, cam, sizeof c);\n    tree{i}::Scene s;\n"
             "    const int rw = width * aa, rh = height * aa;\n"
-            "    for (int iy = 0; iy < rh; ++iy)\n        for (int ix = 0; ix < rw; ++ix)\n"
-            "            gsdf_rm::sample(s, c, ix, iy, rw, rh, steps, relax,\n"
-            "                            samples + 3 * (iy * rw + ix), evals + iy * rw + ix);\n"
+            "    const int64_t n_ids = gsdf_rm::queue_length(rw, rh);\n"
+            "    gsdf_rm::Lane lanes[32] = {};\n    bool busy[32] = {}, marched[32] = {};\n"
+            "    float next_rd[32][3];\n    int next_at[32], taken = 32;\n"
+            "    int64_t next_id = 0;\n"
+            "    gsdf_rm::Lane stack[64];\n    int n_marched = 0;\n"
+            "    for (;;) {\n"
+            "        int idle = 0;\n"
+            "        for (int l = 0; l < warp; ++l) idle += !busy[l];\n"
+            "        bool drained = next_id >= n_ids && taken == 32;\n"
+            "        if (idle == warp || (!drained && idle > 0)) {\n"
+            "            for (int l = 0; l < warp; ++l)\n"
+            "                if (marched[l]) {\n"
+            "                    stack[n_marched++] = lanes[l];\n"
+            "                    marched[l] = false;\n                }\n"
+            "            for (int l = 0; l < warp; ++l) {\n"
+            "                if (busy[l]) continue;\n"
+            "                if (taken == 32) {  // the next batch of 32 queue ids, set up\n"
+            "                    if (next_id >= n_ids) continue;\n"
+            "                    for (int j = 0; j < 32; ++j) {\n"
+            "                        int ix, iy;\n                        next_at[j] = -1;\n"
+            "                        if (gsdf_rm::queue_ray((int)next_id + j, rw, rh, &ix, &iy)) {\n"
+            "                            gsdf_rm::ray_dir(c, ix, iy, rw, rh, next_rd[j]);\n"
+            "                            next_at[j] = iy * rw + ix;\n                        }\n"
+            "                    }\n                    next_id += 32;\n                    taken = 0;\n"
+            "                }\n"
+            "                const int j = taken++;\n"
+            "                if (next_at[j] >= 0) {\n"
+            "                    gsdf_rm::lane_start(lanes[l], next_rd[j], next_at[j]);\n"
+            "                    busy[l] = steps > 0;\n                    marched[l] = steps == 0;\n"
+            "                }\n            }\n"
+            "            int n_busy = 0;\n            bool held = false;\n"
+            "            for (int l = 0; l < warp; ++l) {\n"
+            "                n_busy += busy[l];\n                held = held || marched[l];\n            }\n"
+            "            drained = next_id >= n_ids && taken == 32;\n"
+            "            if (n_marched >= warp || (n_busy == 0 && drained && n_marched > 0)) {\n"
+            "                // a shading round on the stack's top `warp` rays\n"
+            "                const int rest = n_marched > warp ? n_marched - warp : 0;\n"
+            "                for (int i = rest; i < n_marched; ++i) {\n"
+            "                    const gsdf_rm::Lane& r = stack[i];\n"
+            "                    float pos[3], p[3], d0 = 0.0f, n[3] = {0.0f, 0.0f, 0.0f};\n"
+            "                    for (int a = 0; a < 3; ++a) pos[a] = c.ro[a] + r.rd[a] * r.t;\n"
+            "                    for (int q = 0; q < 5; ++q) {\n"
+            "                        gsdf_rm::shade_point(pos, q, p);\n"
+            "                        gsdf_rm::shade_step(q, gsdf_rm::scene_at(s, c, p), &d0, n);\n"
+            "                    }\n"
+            "                    gsdf_rm::shade(c, r.rd, n, d0, samples + 3 * (int64_t)r.at);\n"
+            "                    evals[r.at] = r.steps + 5;\n                }\n"
+            "                n_marched = rest;\n                continue;\n            }\n"
+            "            if (n_busy == 0) {\n"
+            "                if (drained && !held) break;\n                continue;\n            }\n"
+            "        }\n"
+            "        for (int l = 0; l < warp; ++l) {\n"
+            "            if (!busy[l]) continue;\n"
+            "            float p[3];\n            gsdf_rm::march_point(lanes[l], c, p);\n"
+            "            if (gsdf_rm::march_step(lanes[l], c, gsdf_rm::scene_at(s, c, p), steps, relax)) {\n"
+            "                busy[l] = false;\n                marched[l] = true;\n            }\n"
+            "        }\n    }\n"
             "    if (aa > 1)\n        for (int y = 0; y < height; ++y)\n"
             "            for (int x = 0; x < width; ++x)\n"
             "                gsdf_rm::box_filter(samples, out, x, y, width, aa);\n}"
@@ -307,35 +371,104 @@ def ray_lib(tmp_path_factory):
 
     def renderer(i):
         fn = getattr(lib, f"render{i}")
-        fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int] \
-            + [ctypes.c_void_p] * 3
+        fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_float] \
+            + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
         fn.restype = None
 
-        def run(cam, w, h, steps, relax, aa):
+        def run(cam, w, h, steps, relax, aa, warp):
             samples = np.zeros((h * aa, w * aa, 3), np.uint8)
             out = samples if aa == 1 else np.zeros((h, w, 3), np.uint8)
             evals = np.zeros((h * aa, w * aa), np.int32)
-            fn(cam.ctypes.data, w, h, steps, relax, aa, samples.ctypes.data, out.ctypes.data,
-               evals.ctypes.data)
+            fn(cam.ctypes.data, w, h, steps, relax, aa, warp, samples.ctypes.data,
+               out.ctypes.data, evals.ctypes.data)
             return out, evals
 
         return run
 
-    return {name: (tree, renderer(i)) for i, (name, tree) in enumerate(trees.items())}
+    out = {name: (tree, renderer(i)) for i, (name, tree) in enumerate(trees.items())}
+    lib.queue_length.argtypes = [ctypes.c_int] * 2
+    lib.queue_length.restype = ctypes.c_int64
+    lib.queue_ray.argtypes = [ctypes.c_int64] + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+    lib.queue_ray.restype = ctypes.c_int
+    out["queue"] = lib
+    return out
 
 
-@pytest.mark.parametrize("frame", FRAMES, ids=["aa1", "aa2"])
-@pytest.mark.parametrize("name", list(GXX_TREES))
-def test_ray_header_matches_plain(name, frame, ray_lib):
-    """K8's per-ray arithmetic (the very header nvcc builds, no multiply-add
-    contraction on either) against raymarch_plain: the same pixels but the
-    pinned ones, the same evaluations on every ray."""
-    tree, run = ray_lib[name]
-    w, h, aa = frame
+def _header_against_plain(tree, run, w, h, steps, aa, warp):
+    """(pixels past one level, pixels differing) of the g++ lanes' image
+    against raymarch_plain's; fails unless every ray's evaluation count
+    is plain's (a ray the scheduler never finished would count 0)."""
     cam = trm.camera(tree, 0.6, 0.5, 2.4)
     relax = trm.auto_relax(tree)
-    got, evals = run(cam, w, h, STEPS, relax, aa)
-    ref, ref_evals = rk.raymarch_plain(tree, cam, w, h, STEPS, relax, aa, "cpu", evals=True)
-    past, differ = _levels(got, ref.numpy())
-    assert past == 0 and differ == PINNED_GXX[name]
+    got, evals = run(cam, w, h, steps, relax, aa, warp)
+    ref, ref_evals = rk.raymarch_plain(tree, cam, w, h, steps, relax, aa, "cpu", evals=True)
     np.testing.assert_array_equal(evals, ref_evals.numpy())
+    return _levels(got, ref.numpy())
+
+
+@pytest.mark.parametrize("warp", [1, 32], ids=["lanes1", "lanes32"])
+@pytest.mark.parametrize("frame", FRAMES, ids=["aa1", "aa2"])
+@pytest.mark.parametrize("name", list(GXX_TREES))
+def test_ray_header_matches_plain(name, frame, warp, ray_lib):
+    """K8's per-ray arithmetic (the very header nvcc builds, no multiply-add
+    contraction on either), its lanes refilled from the kernel's ray
+    queue, against raymarch_plain: the same pixels but the pinned ones,
+    the same evaluations on every ray."""
+    tree, run = ray_lib[name]
+    w, h, aa = frame
+    past, differ = _header_against_plain(tree, run, w, h, STEPS, aa, warp)
+    assert past == 0 and differ == PINNED_GXX[name]
+
+
+#: frames the kernel's queue meets at its edges, (width, height, steps, aa):
+#: 37 x 23 rays (not a multiple of 32, ragged tiles on both axes), a 1 x 1
+#: frame, and no march step at all
+EDGE_FRAMES = {"ragged": (37, 23, STEPS, 1), "one-ray": (1, 1, STEPS, 1),
+               "no-steps": (48, 40, 0, 2)}
+
+
+@pytest.mark.parametrize("warp", [1, 32], ids=["lanes1", "lanes32"])
+@pytest.mark.parametrize("frame", list(EDGE_FRAMES))
+def test_ray_header_edge_frames(frame, warp, ray_lib):
+    """The lanes at the queue's edges on the bolt: every ray written once
+    with plain's evaluations, the image plain's."""
+    tree, run = ray_lib["bolt"]
+    w, h, steps, aa = EDGE_FRAMES[frame]
+    assert _header_against_plain(tree, run, w, h, steps, aa, warp) == (0, 0)
+
+
+def test_queue_order_covers_each_ray_once(ray_lib):
+    """gsdf_rm::queue_ray: tiles of 8 x 4 supersamples, row-major over the
+    frame and inside each tile; every ray of a ragged frame has exactly
+    one id, and the ids past its edge are no ray."""
+    lib = ray_lib["queue"]
+    for rw, rh in ((37, 23), (1, 1), (64, 8), (800, 3)):
+        n = lib.queue_length(rw, rh)
+        assert n == -(-rw // 8) * -(-rh // 4) * 32
+        seen = np.zeros((rh, rw), np.int32)
+        ix, iy = ctypes.c_int(), ctypes.c_int()
+        for i in range(n):
+            tile, k = divmod(i, 32)
+            tx, ty = tile % -(-rw // 8), tile // -(-rw // 8)
+            want = (tx * 8 + k % 8, ty * 4 + k // 8)
+            inside = lib.queue_ray(i, rw, rh, ctypes.byref(ix), ctypes.byref(iy))
+            assert (ix.value, iy.value) == want
+            assert bool(inside) == (want[0] < rw and want[1] < rh)
+            if inside:
+                seen[iy.value, ix.value] += 1
+        assert (seen == 1).all()
+
+
+def test_lane_efficiency_on_hand_made_counts():
+    """chip_smoke.lane_efficiency, the measure of how a group of rays that
+    runs as long as its slowest ray fills its slots, on hand-made counts."""
+    import chip_smoke
+
+    evals = np.array([[1, 2, 3, 4], [5, 6, 7, 8]])
+    got = chip_smoke.lane_efficiency(evals, {"2x1": (2, 1), "4x2": (4, 2), "3x2": (3, 2)})
+    # 2 x 1: the tiles' most 2, 4, 6, 8 -> 36 / 40; 4 x 2: 36 / (8 * 8);
+    # 3 x 2, a ragged edge whose lanes past it idle: 36 / (6 * 7 + 6 * 8)
+    assert got == {"2x1": 36 / 40, "4x2": 36 / 64, "3x2": 36 / 90}
+    assert set(chip_smoke.lane_efficiency(np.full((8, 64), 3)).values()) == {1.0}
+    assert chip_smoke.lane_efficiency(np.zeros((2, 2), int)) == dict.fromkeys(
+        chip_smoke.LANE_TILES, 1.0)
