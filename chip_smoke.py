@@ -50,8 +50,11 @@
    tree and per structure, built beside the others): held against their
    plain torch version (ops/dc_emit.py::dc_mesh_plain) on every 3D tree
    above and three more seeded random trees (ten random trees in all) at
-   diag/64, on the bolt at resdiv 256, both QEF modes, and on a slab of the
-   bolt at k0 != 0 with a halo layer: edge ids, flips and the live-voxel
+   diag/64, on the bolt at resdiv 256, both QEF modes, on a slab of the
+   bolt at k0 != 0 with a halo layer, and on grids of the bolt whose rows
+   are DC_WORD_NX voxels (below, at and one past a 32-voxel word; one of
+   them a slab with fewer owned layers than layers): edge ids, flips and
+   the live-voxel
    count exactly equal, vertices within 1e-4 * res (the max |d| over res
    is printed), K5's grid pass equal to K2's in every float (the count of
    differing floats is printed); both through the wrapper dc_mesh. On
@@ -59,7 +62,13 @@
    host_qef=True render reads, against dc_edges_plain: edge ids, flips, t
    and the raw normals exactly equal. Timed at the bolt's resdiv 256 and 384
    against the plain version, K5p in turns against K5 and by value against
-   the pointer form.
+   the pointer form. `python3 chip_smoke.py --dc` runs the dual contouring
+   kernel rows alone (dc_study): those checks on the bolt's grids, then
+   for every K5 call of the bolt's renders at resdiv 256, 384 and 512 (a
+   call a chunk) each pass's device time beside its bound, registers and
+   resident blocks, the K5 stage's wall split, and digests of K5's
+   outputs; a copy of this script beside another checkout measures that
+   checkout's K5, and equal digests show equal outputs.
 3. Drives each FlatRenderer path, every launch count set to 0 just before
    it and read just after (golden triangle counts exact; SDF->STL wall ms,
    median of warm renders after two warm-ups):
@@ -109,7 +118,8 @@
    triangles; again through host_qef=True), 384 (226,340) and 512
    (403,104, on the chunk route: one K5 launch a chunk; and as one whole
    grid with mono_voxels raised, bit-identical), each with its K5
-   launches, its one synchronising call before a fetch and its warm ms by
+   launches, what one K5 call runs on the card (at most six kernels and no
+   memset), its one synchronising call before a fetch and its warm ms by
    stage (K5, fetch, host quad emission, STL encode: stages.dc); the
    parametric edit loop on the pinned part of the JAX package's
    test_dc_parametric_edit_zero_recompile: three rebinds through K5p with
@@ -214,6 +224,9 @@ DC_EXTRA_SEEDS = (16, 17, 18)
 DC_GOLDENS = ((256, 99_844), (384, 226_340), (512, 403_104))
 #: K5 against its plain version: max |vertex difference| / res
 DC_TOL = 1e-4
+#: voxels a row of K5's explicit small grids: below, at and one past a
+#: 32-voxel word, and 2 + 64 (so row, word and plane ends fall apart)
+DC_WORD_NX = (7, 32, 33, 65)
 
 
 def log(msg: str) -> None:
@@ -1521,34 +1534,40 @@ def raymarch_paths(parts, refs, dev, card, run, exactly):
     return results, per_frame
 
 
-def dc_compare(label, tree, res, dev, slab=None, chiseled=False):
+def dc_compare(label, tree, res, dev, slab=None, chiseled=False, grid=None):
     """K5 and K5p through their wrapper (dc_emit.dc_mesh) against
     dc_mesh_plain on the card: edge ids, flips and the live-voxel count
     exact, vertices within DC_TOL * res; K5's grid (from a call of its own)
     equal to K2's. On a whole grid, also K5's edge form (dc_emit.dc_edges,
     what the host_qef=True render reads) against dc_edges_plain: edge ids,
     flips, t and the raw normals all exact. slab = (k0, owned layers) runs
-    a slab of the grid with its halo. Returns ({kernel: (max |d|, max |d|
-    / res, grid floats differing from K2)}, edges, voxels, dc_edges
-    floats differing from plain or None on a slab)."""
+    a slab of the grid with its halo; grid = (origin, corner shape) names
+    the grid instead of DualContourRenderer(tree, res). Returns ({kernel:
+    (max |d|, max |d| / res, grid floats differing from K2)}, edges,
+    voxels, dc_edges floats differing from plain or None on a slab)."""
+    import numpy as np
     import torch
     from gsdf_tpu_torch.eval import grid_kernels as gk
     from gsdf_tpu_torch.ops import dc_emit
     from gsdf_tpu_torch.render.dual_contour import DualContourLeastSquares, DualContourRenderer
 
     c = DualContourLeastSquares(chiseled)
-    dcr = DualContourRenderer(tree, res, c, device=dev)
-    shape, (k0, n_own) = dcr.shape(), slab or (0, None)
+    if grid is None:
+        dcr = DualContourRenderer(tree, res, c, device=dev)
+        origin, shape, res = dcr.origin, dcr.shape(), dcr.res
+    else:
+        (origin, shape), res = grid, np.float32(res)
+    k0, n_own = slab or (0, None)
     if slab is not None:
-        shape = (n_own + 2,) + shape[1:]
-    ref = dc_emit.dc_mesh_plain(tree, dcr.origin, dcr.res, shape, dev, c.norm_step,
-                                c.sqrt_lambda, k0, n_own)
-    k2 = gk.evaluate_grid(tree, dcr.origin, dcr.res, shape, dev, k0)
+        shape = (n_own + 2,) + tuple(shape[1:])
+    ref = dc_emit.dc_mesh_plain(tree, origin, res, shape, dev, c.norm_step, c.sqrt_lambda, k0,
+                                n_own)
+    k2 = gk.evaluate_grid(tree, origin, res, shape, dev, k0)
     out = {}
     for name, parametric in (("dc_mesh", False), ("dc_mesh_param", True)):
-        mesh = dc_emit.dc_mesh(tree, dcr.origin, dcr.res, shape, dev, c.norm_step,
-                               c.sqrt_lambda, k0, n_own, parametric)
-        grid = dc_emit._launch_k5(tree, dcr.origin, dcr.res, shape, dev, n_own, k0, parametric,
+        mesh = dc_emit.dc_mesh(tree, origin, res, shape, dev, c.norm_step, c.sqrt_lambda, k0,
+                               n_own, parametric)
+        grid = dc_emit._launch_k5(tree, origin, res, shape, dev, n_own, k0, parametric,
                                   *dc_emit.qef_constants(c.norm_step, c.sqrt_lambda), False,
                                   True)[-1]
         torch.cuda.synchronize()
@@ -1559,14 +1578,14 @@ def dc_compare(label, tree, res, dev, slab=None, chiseled=False):
                                f"{len(mesh.verts)} / {len(ref.verts)} voxels)")
         err = _max_abs(mesh.verts, ref.verts)
         differing = int((grid != k2).sum())
-        if err > DC_TOL * float(dcr.res) or differing:
-            raise RuntimeError(f"{name} {label}: vertices {err / float(dcr.res):.3g} * res from "
+        if err > DC_TOL * float(res) or differing:
+            raise RuntimeError(f"{name} {label}: vertices {err / float(res):.3g} * res from "
                                f"plain, {differing} grid floats differ from K2's")
-        out[name] = (err, err / float(dcr.res), differing)
+        out[name] = (err, err / float(res), differing)
     edges_differing = None
     if slab is None:
-        e = dc_emit.dc_edges(tree, dcr.origin, dcr.res, shape, dev, c.norm_step)
-        e_ref = dc_emit.dc_edges_plain(tree, dcr.origin, dcr.res, shape, dev, c.norm_step)
+        e = dc_emit.dc_edges(tree, origin, res, shape, dev, c.norm_step)
+        e_ref = dc_emit.dc_edges_plain(tree, origin, res, shape, dev, c.norm_step)
         torch.cuda.synchronize()
         if not (torch.equal(e.eids, e_ref.eids) and torch.equal(e.flips, e_ref.flips)):
             raise RuntimeError(f"dc_edges {label}: edge ids or flips differ from plain "
@@ -1581,6 +1600,343 @@ def dc_compare(label, tree, res, dev, slab=None, chiseled=False):
         f"{out['dc_mesh_param'][2]}; dc_edges: ids, flips exact, t and normal floats "
         f"differing {'(a slab: not run)' if edges_differing is None else edges_differing}")
     return out, len(ref.eids), len(ref.verts), edges_differing
+
+
+#: what one K5 call runs on the card: eval, flags, scan, edges, normals,
+#: QEF (its work words are zeroed by the eval pass: no memset)
+DC_KERNELS_PER_CALL = 6
+
+
+def dc_on_card(label, call):
+    """The kernels, memsets and copies (the count read) that torch.profiler
+    sees on the card inside one K5 call; fails where it sees more kernels
+    than DC_KERNELS_PER_CALL or any memset (a trace can miss events, never
+    add any). None where every trace missed the call."""
+    reading = device_reading(call)
+    if reading is None:
+        return None
+    seen = {k: reading[k] for k in ("kernels", "memsets", "copies")}
+    if seen["kernels"] > DC_KERNELS_PER_CALL or seen["memsets"]:
+        raise RuntimeError(f"{label}: a K5 call ran {seen} on the card, expected at most "
+                           f"{DC_KERNELS_PER_CALL} kernels and no memset")
+    return seen
+
+
+def dc_word_grid(tree, nx):
+    """(res, (origin, corner shape)) of a grid of exactly nx voxels a row
+    around the tree (cubic voxels; ny and nz follow from its bounds), so
+    that K5 meets the row, word and plane ends that a given nx makes."""
+    import numpy as np
+
+    bb = tree.bounds()
+    lo, size = np.asarray(bb.min, np.float32), np.asarray(bb.size(), np.float32)
+    res = np.float32(size[0] / (nx - 0.5))
+    ny, nz = (int(math.ceil(size[a] / res + 0.5)) for a in (1, 2))
+    return res, (lo - res / 4, (nz + 1, ny + 1, nx + 1))
+
+
+def dc_grid_cases(tree):
+    """K5's explicit small grids: rows of DC_WORD_NX voxels (below, at and
+    one past a word, and 2 + 64), one as a slab with k0 > 0 and fewer
+    owned layers than it has, as (label, res, slab, grid) for dc_compare."""
+    cases = []
+    for nx in DC_WORD_NX:
+        res, grid = dc_word_grid(tree, nx)
+        cases.append((f"nx={nx} {grid[1]}", res, None, grid))
+    res, grid = dc_word_grid(tree, 33)
+    k0 = grid[1][0] // 2
+    cases.append((f"nx=33 slab k0={k0}, 3 of 4 layers owned", res, (k0, 3), grid))
+    return cases
+
+
+def dc_pass_bounds(name, corners, words, edges, voxels, tree_ops, total_ops, ranked=False):
+    """The bound of one K5 pass, by its kernel's name (bounds.bound): ops
+    for the tree passes and the QEF, bytes for the integer passes, each
+    input read once and each output written once. corners, words (32-voxel
+    words per axis), edges and voxels from this run; tree_ops per point;
+    total_ops the plain version's on the same grid (bounds.count_ops),
+    whose remainder after the tree's and the normals' work is the QEF's
+    (with the few ops of t and the crossing points). ranked: the flag pass
+    also writes the edge ranks (the earlier design, with a live pass)."""
+    from gsdf_tpu_torch import bounds
+
+    eval_ops = tree_ops * corners
+    normal_ops = 6 * edges * tree_ops + 24 * edges  # 18 offsets, 3 differences, 3 scales
+    table = {
+        "eval": (eval_ops, 4 * corners),
+        "flag": (0, 4 * corners + (24 if ranked else 12) * words),  # distances in, words out
+        "live": (0, 12 * words + 4 * voxels),  # the earlier live pass: words in, ids out
+        "scan": (0, 24 * words + 4 * voxels),  # ballot words in, ranks and live ids out
+        "edge": (0, 24 * words + 8 * edges + 17 * edges),  # words, ranks, two ends; id, flip, point
+        "normal": (normal_ops, 24 * edges),
+        "qef": (total_ops - eval_ops - normal_ops, 12 * voxels),
+    }
+    for key, (ops, nbytes) in table.items():
+        if key in name.lower():
+            return bounds.bound(ops, nbytes)
+    return None
+
+
+_DC_OCCUPANCY = {}
+
+
+def dc_occupancy(tree, parametric) -> dict:
+    """{kernel: {"registers", "threads", "blocks_per_sm", "local_bytes"}}
+    of every __global__ function of the checkout's csrc/dc_mesh.cu around
+    the tree's source (the parametric source with parametric=True), as
+    cudaFuncGetAttributes and cudaOccupancyMaxActiveBlocksPerMultiprocessor
+    give them at the block size of its __launch_bounds__: a small library
+    that includes the template, built beside K5 (nvcc, the same flags)."""
+    import ctypes
+    import re
+
+    from gsdf_tpu_torch import _build, kernels
+    from gsdf_tpu_torch.eval import grid_kernels as gk
+    from gsdf_tpu_torch.ops import dc_emit
+
+    with open(os.path.join(kernels.CSRC, "dc_mesh.cu")) as f:
+        names = re.findall(r"__global__\s+void\s+__launch_bounds__\([^)]*\)\s+(\w+)\s*\(", f.read())
+    gen, _, key = gk._sources(tree, dc_emit.TEMPLATES, parametric)
+    probe = ('#include "dc_mesh.cu"\n'
+             "template <typename F> static int occupancy(F f, int* out) {\n"
+             "    cudaFuncAttributes a;\n"
+             "    if (cudaFuncGetAttributes(&a, f) != cudaSuccess) return 1;\n"
+             "    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 2, f, "
+             "a.maxThreadsPerBlock, 0) != cudaSuccess) return 1;\n"
+             "    out[0] = a.numRegs; out[1] = a.maxThreadsPerBlock;\n"
+             "    out[3] = (int)a.localSizeBytes;\n"
+             "    return 0;\n}\n"
+             'extern "C" int gsdf_dc_occupancy(int* out) {\n    int rc = 0;\n'
+             + "".join(f"    rc |= occupancy({n}, out + {4 * i});\n" for i, n in enumerate(names))
+             + "    return rc;\n}\n")
+    key = _build.source_key(key, probe)
+    if key not in _DC_OCCUPANCY:
+        def command(out, d):
+            for name, text in {**gen, "dc_occupancy.cu": probe}.items():
+                _build.write_atomic(os.path.join(d, name), text)
+            return [kernels.nvcc(), *kernels.NVCC_FLAGS, "-I", d, "-I", kernels.CSRC, "-o", out,
+                    os.path.join(d, "dc_occupancy.cu")]
+
+        lib = ctypes.CDLL(_build.build_shared("dc_occupancy", key, command))
+        lib.gsdf_dc_occupancy.argtypes = [ctypes.c_void_p]
+        lib.gsdf_dc_occupancy.restype = ctypes.c_int
+        _DC_OCCUPANCY[key] = lib
+    out = (ctypes.c_int * (4 * len(names)))()
+    if _DC_OCCUPANCY[key].gsdf_dc_occupancy(out):
+        raise RuntimeError("occupancy query of K5's kernels failed")
+    return {n: dict(zip(("registers", "threads", "blocks_per_sm", "local_bytes"),
+                        out[4 * i:4 * i + 4])) for i, n in enumerate(names)}
+
+
+def dc_wall_split(dcr, parametric, reps=7):
+    """One DualContourRenderer's K5 stage, split: per K5 call (one a chunk)
+    the host's work before the first launch, the count passes (device ms,
+    CUDA events around the first C call), the gap at the count read (host
+    clock from the first C call's return to the second's start: the wait
+    for the counts, the read, the outputs' allocation), the emit (the
+    second C call to the wrapper's return on the host, and its passes'
+    device ms), then the fetch. Through render/dual_contour.mesh_chunks,
+    as a render runs it: kernels.launch is wrapped for the run to time each
+    C call. Median over reps after two warm-ups; each part summed over the
+    calls of a render."""
+    import statistics
+
+    import torch
+    from gsdf_tpu_torch import kernels
+    from gsdf_tpu_torch.render import dual_contour
+
+    real = kernels.launch
+    chunks, space = dcr.chunks()
+    runs = []
+    for _ in range(reps + 2):
+        marks, laps = [], [("start", time.perf_counter())]
+
+        def timed(*args, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            t0 = time.perf_counter()
+            ev[0].record()
+            real(*args, **kw)
+            ev[1].record()
+            marks.append((t0, time.perf_counter(), ev))
+
+        kernels.launch = timed
+        try:
+            dual_contour.mesh_chunks(dcr.s, dcr.res, dcr.contourer, dcr.device, parametric,
+                                     chunks, space, lambda s: laps.append((s, time.perf_counter())))
+        finally:
+            kernels.launch = real
+        torch.cuda.synchronize()
+        if len(marks) != 2 * len(chunks):
+            raise RuntimeError(f"expected two C calls a K5 call, saw {len(marks)}")
+        part = {"host before launch": 0.0, "count passes (device)": 0.0,
+                "gap at count read": 0.0, "emit host": 0.0, "emit (device)": 0.0, "fetch": 0.0}
+        for c in range(len(chunks)):
+            (a0, a1, ea), (b0, _, eb) = marks[2 * c], marks[2 * c + 1]
+            start, k5, fetched = laps[2 * c][1], laps[2 * c + 1][1], laps[2 * c + 2][1]
+            part["host before launch"] += (a0 - start) * 1e3
+            part["count passes (device)"] += ea[0].elapsed_time(ea[1])
+            part["gap at count read"] += (b0 - a1) * 1e3
+            part["emit host"] += (k5 - b0) * 1e3
+            part["emit (device)"] += eb[0].elapsed_time(eb[1])
+            part["fetch"] += (fetched - k5) * 1e3
+        runs.append(part)
+    return {k: statistics.median(r[k] for r in runs[2:]) for k in runs[0]}
+
+
+def dc_sdf_to_stl_ms(dcr, parametric, reps=7) -> dict:
+    """The DC render's SDF->STL wall ms as a user runs it: a new
+    DualContourRenderer like dcr, render(), its binary STL in memory; host
+    clock from a synchronised start to the STL's last byte, `reps` runs
+    after two warm-ups, and their median."""
+    import io
+    import statistics
+
+    import torch
+    from gsdf_tpu_torch import render
+    from gsdf_tpu_torch.render.dual_contour import DualContourRenderer
+
+    runs = []
+    for _ in range(reps + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        buf = io.BytesIO()
+        render.write_binary_stl(buf, DualContourRenderer(dcr.s, dcr.res, dcr.contourer,
+                                                         dcr.device).render(parametric))
+        runs.append(round((time.perf_counter() - t0) * 1e3, 3))
+    return {"median": statistics.median(runs[2:]), "runs": runs[2:]}
+
+
+def dc_digest(*tensors) -> str:
+    """sha256 of the tensors' bytes, in order: two runs' outputs equal bit
+    for bit where their digests are."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def dc_study(dev, card) -> int:
+    """`chip_smoke.py --dc`: only the dual contouring kernel rows. Builds
+    the bolt's K5 and K5p and their occupancy probes (dc_occupancy) in
+    parallel; holds K5 and K5p against plain on the explicit small grids
+    (dc_grid_cases) and on the bolt at resdiv 256 (dc_compare); then for
+    each K5 call of the bolt's renders at resdiv 256, 384 and 512 (one a
+    chunk there), K5 and K5p: the wrapper's ms (CUDA events, mean of 20
+    calls) and the plain version's, the device us of each pass
+    (torch.profiler, stages.device_us) beside its bound (dc_pass_bounds),
+    the digests of its outputs (edge ids, flips, vertices; dc_edges' t and
+    normals on the whole grids; the render's triangles), the K5 stage's
+    wall split (dc_wall_split) and the render's SDF->STL ms
+    (dc_sdf_to_stl_ms); each pass's registers, block size and resident
+    blocks per SM. Runs against whichever gsdf_tpu_torch the script's
+    folder holds, so that a copy of it beside an older checkout measures
+    that checkout's K5. Prints one JSON line, the card, and the contract's
+    last line."""
+    import torch
+    from gsdf_tpu_torch import bounds, flagships, stages
+    from gsdf_tpu_torch.eval import grid_kernels as gk
+    from gsdf_tpu_torch.ops import dc_emit
+    from gsdf_tpu_torch.render.dual_contour import DualContourRenderer
+
+    bolt = flagships.build_bolt()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        futs = [pool.submit(gk.build, bolt, dc_emit.TEMPLATES, p) for p in (False, True)]
+        futs.append(pool.submit(gk.build, bolt))  # K2, which K5's grid is held to
+        occ = {p: pool.submit(dc_occupancy, bolt, p) for p in (False, True)}
+        for fut in futs:
+            fut.result()
+        occ = {("K5p" if p else "K5"): f.result() for p, f in occ.items()}
+    log(f"dc study: 5 libraries in {time.perf_counter() - t0:.1f} s")
+    for form, p in (("K5", False), ("K5p", True)):
+        text = gk.build_log(bolt, dc_emit.TEMPLATES, p)
+        for kernel, row in occ[form].items():
+            row.update({k: v for k, v in ptxas_usage(text, kernel).items() if k != "registers"})
+        log(f"  {form} per pass (registers, threads a block, blocks per SM, spills): "
+            f"{json.dumps(occ[form])}  [{card}]")
+    checked = 0
+    for label, res, slab, grid in dc_grid_cases(bolt) + [("bolt@256", None, None, None)]:
+        if res is None:
+            res = bolt.bounds().diagonal() / 256
+        for chiseled in (False, True):
+            _, n_e, n_v, _ = dc_compare(label, bolt, res, dev, slab, chiseled, grid)
+            if n_e == 0 or n_v == 0:
+                raise RuntimeError(f"K5 {label}: nothing to compare")
+            checked += 1
+    log(f"dc study: K5 and K5p equal to plain on {checked} grids and modes")
+    tree_ops = bounds.tree_ops_per_point(bolt)
+    out = {"card": card, "occupancy": occ, "tree_ops": tree_ops, "renders": {}}
+    for resdiv in (256, 384, 512):
+        dcr = DualContourRenderer(bolt, bolt.bounds().diagonal() / resdiv, device=dev)
+        cont = dcr.contourer
+        calls, _ = dcr.chunks()
+        row = {"calls": []}
+        for n, (origin, shape, k0, n_own) in enumerate(calls):
+            args = (bolt, origin, dcr.res, shape, dev, cont.norm_step, cont.sqrt_lambda, k0, n_own)
+            mesh, ops = bounds.count_ops(lambda: dc_emit.dc_mesh_plain(*args))
+            nk, nj, ni = shape
+            sizes = {"corners": nk * nj * ni, "words": -(-(nk - 1) * (nj - 1) * (ni - 1) // 32),
+                     "edges": len(mesh.eids), "voxels": len(mesh.verts)}
+            del mesh
+            call = {"shape": list(shape), "k0": k0, "n_own": n_own, **sizes,
+                    "plain_ms": cuda_ms(lambda: dc_emit.dc_mesh_plain(*args), 2)}
+            for form, p in (("K5", False), ("K5p", True)):
+                m = dc_emit.dc_mesh(*args, parametric=p)
+                call[f"{form} digest"] = dc_digest(m.eids, m.flips, m.verts)
+                call[f"{form} ms"] = cuda_ms(lambda p=p: dc_emit.dc_mesh(*args, parametric=p), 20)
+                us = stages.device_us(lambda p=p: dc_emit.dc_mesh(*args, parametric=p))
+                passes = {}
+                for kernel, t in us.items():
+                    b = dc_pass_bounds(kernel, **sizes, tree_ops=tree_ops, total_ops=ops,
+                                       ranked=any("live" in k for k in us))
+                    passes[kernel] = {"us": t, **({"bound_us": b["bound_ms"] * 1e3,
+                                                   "bound_by": b["bound_by"]} if b else {})}
+                total = sum(v["us"] for v in passes.values())
+                call[form] = {"passes": passes, "total_us": total,
+                              "bound_us": bounds.bound(ops, bounds.kernel_bytes(
+                                  "dc_mesh", edges=sizes["edges"],
+                                  voxels=sizes["voxels"]))["bound_ms"] * 1e3}
+                log(f"  {form} bolt@{resdiv} call {n} {tuple(shape)} k0={k0}: {sizes['edges']} "
+                    f"edges, {sizes['voxels']} voxels; device us by pass "
+                    + ", ".join(f"{k} {v['us']:.1f}"
+                                + (f" (bound {v['bound_us']:.1f} by {v['bound_by']})"
+                                   if "bound_us" in v else "") for k, v in passes.items())
+                    + f"; total {total:.1f}, K5's bound {call[form]['bound_us']:.1f}; wrapper "
+                    f"{call[f'{form} ms']:.4f} ms (events), plain {call['plain_ms']:.3f} ms  "
+                    f"[{card}]")
+            if k0 == 0 and n_own is None:
+                e = dc_emit.dc_edges(bolt, origin, dcr.res, shape, dev, cont.norm_step)
+                call["dc_edges digest"] = dc_digest(e.eids, e.flips, e.t, e.normals)
+            row["calls"].append(call)
+            torch.cuda.empty_cache()
+        for form, p in (("K5", False), ("K5p", True)):
+            row[f"{form} render digest"] = dc_digest(torch.from_numpy(dcr.render(parametric=p)))
+            row[f"{form} wall split ms"] = split = dc_wall_split(dcr, p)
+            row[f"{form} SDF->STL ms"] = stl_ms = dc_sdf_to_stl_ms(dcr, p)
+            log(f"  {form} bolt@{resdiv} K5 stage over {len(calls)} call(s), ms: "
+                + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+                + f"; SDF->STL median {stl_ms['median']:.3f} ms (runs {stl_ms['runs']})  [{card}]")
+        out["renders"][f"bolt@{resdiv}"] = row
+    log(json.dumps({"dc_kernels": out}))
+    finish(card)
+    return 0
+
+
+def finish(card) -> None:
+    """The contract's last two lines: the card, then the result."""
+    import torch
+
+    log(card)
+    log(json.dumps({
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    }))
 
 
 def device_launches(fn) -> dict:
@@ -1716,6 +2072,8 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
     if sys.argv[1:] == ["--raymarch"]:
         return raymarch_study(dev, card)
+    if sys.argv[1:] == ["--dc"]:
+        return dc_study(dev, card)
 
     # --- phase 2: build, compare, time ---------------------------------
     trees = {
@@ -1863,20 +2221,25 @@ def main() -> int:
     # K5 and K5p: every 3D tree and ten random ones at diag/64, both modes;
     # the bolt at resdiv 256 (the main path's grid) and a slab of it
     bolt_res = trees["bolt"].bounds().diagonal() / 256
-    dc_cases = [(name, tree, tree.bounds().diagonal() / 64, None)
+    dc_cases = [(name, tree, tree.bounds().diagonal() / 64, None, None)
                 for name, tree in dc_trees.items()]
-    dc_cases.append(("bolt@256", trees["bolt"], bolt_res, None))
+    dc_cases.append(("bolt@256", trees["bolt"], bolt_res, None, None))
     nz256 = DualContourRenderer(trees["bolt"], bolt_res, device=dev).nz
-    dc_cases.append((f"bolt@256 slab k0={nz256 // 2}", trees["bolt"], bolt_res, (nz256 // 2, 24)))
+    dc_cases.append((f"bolt@256 slab k0={nz256 // 2}", trees["bolt"], bolt_res, (nz256 // 2, 24),
+                     None))
+    # rows below, at and one past a 32-voxel word: the word and row ends
+    # of K5's word-level passes (tests/test_torch_dc_words.py on the CPU)
+    dc_cases += [(f"bolt {label}", trees["bolt"], res, slab, grid)
+                 for label, res, slab, grid in dc_grid_cases(trees["bolt"])]
     n_random = sum(1 for name, *_ in dc_cases if name.startswith("fuzz"))
     if n_random < 10:
         raise RuntimeError(f"K5 needs ten random trees, has {n_random}")
     dc_err = {"dc_mesh": 0.0, "dc_mesh_param": 0.0}  # max |d| / res
     dc_grid_differing = 0
     dc_edges_grids = 0
-    for name, tree, res, slab in dc_cases:
+    for name, tree, res, slab, grid in dc_cases:
         for chiseled in (False, True):
-            out, n_e, _, edges_differing = dc_compare(name, tree, res, dev, slab, chiseled)
+            out, n_e, _, edges_differing = dc_compare(name, tree, res, dev, slab, chiseled, grid)
             if n_e == 0:
                 raise RuntimeError(f"K5 {name}: no active edge, nothing compared")
             for k, (err, rel, n_grid) in out.items():
@@ -2154,6 +2517,28 @@ def main() -> int:
                 f"[{card}]")
         times[f"DC bolt@{resdiv}"] = row
     torch.cuda.empty_cache()
+
+    # what one K5 call runs on the card (torch.profiler sees the device here,
+    # not late in the run): the bolt's whole grid at 256, a chunk of its 512
+    # render, and K5p at 256; phase 3's launches_per_render rows carry them
+    bolt = trees["bolt"]
+    dcr = DualContourRenderer(bolt, bolt_res, device=dev)
+    dcr512 = DualContourRenderer(bolt, bolt.bounds().diagonal() / 512, device=dev)
+    origin, shape, k0, n_own = dcr512.chunks()[0][1]
+
+    def k5_call(r, origin, shape, k0=0, n_own=None, parametric=False):
+        return lambda: dc_emit.dc_mesh(bolt, origin, r.res, shape, dev, r.contourer.norm_step,
+                                       r.contourer.sqrt_lambda, k0, n_own, parametric)
+
+    dc_card = {
+        "dc bolt@256": dc_on_card("K5 bolt@256", k5_call(dcr, dcr.origin, dcr.shape())),
+        "dc bolt@512": dc_on_card("K5 bolt@512, a chunk",
+                                  k5_call(dcr512, origin, shape, k0, n_own)),
+        "dc parametric edit": dc_on_card("K5p bolt@256", k5_call(dcr, dcr.origin, dcr.shape(),
+                                                                 parametric=True)),
+    }
+    log(f"phase 2: what one K5 call runs on the card (at most {DC_KERNELS_PER_CALL} kernels, "
+        f"no memset): {dc_card}")
 
     # K5p's parameter argument by value against the pointer form, bolt@256
     gk.PARAMS_BY_VALUE = False
@@ -2694,11 +3079,16 @@ def main() -> int:
             raise RuntimeError(f"DC bolt@{resdiv}: {len(tris)} triangles, golden {golden}")
         dc_tris[resdiv] = tris
         origin, shape, k0, n_own = calls[-1]
-        _, before_fetch = synchronising(lambda: dc_emit.dc_mesh(
-            bolt, origin, dcr.res, shape, dev, cont.norm_step, cont.sqrt_lambda, k0, n_own))
+
+        def k5_call(origin=origin, shape=shape, k0=k0, n_own=n_own, res=dcr.res, cont=cont):
+            return dc_emit.dc_mesh(bolt, origin, res, shape, dev, cont.norm_step,
+                                   cont.sqrt_lambda, k0, n_own)
+
+        _, before_fetch = synchronising(k5_call)
         if len(before_fetch) != 1:
             raise RuntimeError(f"DC bolt@{resdiv}: a K5 call should synchronise once, at its "
                                f"count read: {before_fetch}")
+        on_card = dc_card.get(f"dc bolt@{resdiv}")
 
         def sdf_to_stl(res=res):
             buf = io.BytesIO()
@@ -2711,6 +3101,8 @@ def main() -> int:
                              golden, 7)
         e2e[f"dc bolt@{resdiv}"] = ms
         per_render[f"dc bolt@{resdiv}"] = {"dc_mesh": len(calls)}
+        if on_card is not None:
+            per_render[f"dc bolt@{resdiv}"]["on_the_card_per_k5_call"] = on_card
         dc_slice[f"bolt@{resdiv}"] = {"sdf_to_stl_ms": ms, "stl_bytes": nbytes,
                                       "k5_launches": len(calls),
                                       "synchronising_before_fetch": len(before_fetch), **row}
@@ -2773,7 +3165,8 @@ def main() -> int:
         sizes.append(len(tris))
     if len(set(sizes)) != len(sizes):
         raise RuntimeError(f"DC edit loop: an edit did not change the mesh: {sizes}")
-    per_render["dc parametric edit"] = {"dc_mesh_param": 1}
+    per_render["dc parametric edit"] = {"dc_mesh_param": 1, "on_the_card_per_k5_call":
+                                        dc_card["dc parametric edit"]}
     dc_slice["edit loop"] = {"edit_to_mesh_ms": edit_ms, "triangles": sizes}
     log(f"phase 3: DC edit loop: 3 rebinds, 0 compiler runs and 0 libraries loaded by the "
         f"parametric renders, triangles {sizes}, each mesh equal to the baked render of the "
@@ -2997,15 +3390,7 @@ def main() -> int:
                     "raymarch_kernels": rm_times, "raymarch_slice": rm_slice,
                     "raymarch_pixels_differing_from_plain": rm_differing}))
     log(json.dumps({"kernels": line}))
-    log(card)
-    log(json.dumps({
-        "ok": True,
-        "device": {
-            "platform": "gpu",
-            "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count(),
-        },
-    }))
+    finish(card)
     return 0
 
 

@@ -75,7 +75,7 @@ PRUNE_TEMPLATES = ("tile_prune.cu", "tile_atlas.cu")
 PARAMS_HEADER = "gsdf_params.cuh"
 #: further headers a template includes: from csrc/, and generated beside
 #: gsdf_tree.cuh (name -> the function that writes its text)
-INCLUDES = {"dc_mesh.cu": ("gsdf_scan.cuh", "gsdf_qef.cuh"),
+INCLUDES = {"dc_mesh.cu": ("gsdf_scan.cuh", "gsdf_qef.cuh", "gsdf_dc_words.cuh"),
             "classified_grid.cu": ("gsdf_case.cuh",), "tile_atlas.cu": ("gsdf_case.cuh",),
             "raymarch.cu": ("gsdf_raymarch.cuh",)}
 GENERATED = {"dc_mesh.cu": {"gsdf_dc_tables.cuh": dc_tables.header}}

@@ -14,6 +14,11 @@ Two wrappers, each beside its plain torch version:
 - `dc_edges`: the edge ids, flips, t and the raw central differences: what
   the float64 host oracle (DualContourRenderer(host_qef=True)) reads.
 
+K5's scratch (the corner grid, its work words, the ballot words, the edge
+ranks, the live voxel ids) lives in a `K5Scratch`, made per call unless
+the caller passes one to keep across calls of one shape, as the chunk
+route does (render/dual_contour.py::mesh_chunks).
+
 On a CPU tensor device a wrapper runs the plain version; on a CUDA device
 it launches K5 (csrc/dc_mesh.cu; K5p, its parametric form, with
 parametric=True) or raises. Sizes are exact: the kernel's count pass
@@ -227,6 +232,25 @@ def dc_mesh_plain(tree, origin, res, shape, device, norm_step, sqrt_lambda, k0=0
     return DCMesh(eid.to(torch.int32), flips, verts)
 
 
+def live_voxels_plain(eid, shape, n_own):
+    """The live voxels of the corner grid `shape`, ascending: the owned
+    voxels (layers [0, n_own)) that an active edge (`eid`: ids axis * nvox
+    + voxel) gives a row to."""
+    nk, nj, ni, n_own = check_shape(shape, n_own)
+    nx, ny = ni - 1, nj - 1
+    nvox = (nk - 1) * ny * nx
+    eax = eid // nvox
+    ei, ej, ek = _voxel_coords(eid % nvox, nx, ny)
+    cand = []
+    for a in range(3):
+        sel = eax == a
+        for di, dj, dk in OFF5[a]:
+            ii, jj, kk = ei[sel] + di, ej[sel] + dj, ek[sel] + dk
+            ok = (ii >= 0) & (ii < nx) & (jj >= 0) & (jj < ny) & (kk >= 0) & (kk < n_own)
+            cand.append(((kk * ny + jj) * nx + ii)[ok])
+    return torch.unique(torch.cat(cand))  # ascending
+
+
 def voxel_sums_plain(tree, origin, res, shape, device, norm_step, sqrt_lambda, k0=0,
                      n_own=None):
     """dc_mesh_plain up to the solve: (eids int64, flips, origin (3,),
@@ -237,17 +261,7 @@ def voxel_sums_plain(tree, origin, res, shape, device, norm_step, sqrt_lambda, k
     half, inv_step, l2 = qef_constants(norm_step, sqrt_lambda)
     eid, flips, _, pt, nrm = _edges_plain(tree, origin, res, shape, device, half, inv_step,
                                           k0)
-    # the live voxels: the owned voxels that an active edge gives a row to
-    eax = eid // nvox
-    ei, ej, ek = _voxel_coords(eid % nvox, nx, ny)
-    cand = []
-    for a in range(3):
-        sel = eax == a
-        for di, dj, dk in OFF5[a]:
-            ii, jj, kk = ei[sel] + di, ej[sel] + dj, ek[sel] + dk
-            ok = (ii >= 0) & (ii < nx) & (jj >= 0) & (jj < ny) & (kk >= 0) & (kk < n_own)
-            cand.append(((kk * ny + jj) * nx + ii)[ok])
-    uvox = torch.unique(torch.cat(cand))  # ascending
+    uvox = live_voxels_plain(eid, (nk, nj, ni), n_own)
     # each live voxel's rows in summation order, by slot; a voxel adds a
     # row only where that edge is active (adding none leaves the bits of a
     # sum that started at +0.0 as adding a zero row would)
@@ -272,23 +286,48 @@ def voxel_sums_plain(tree, origin, res, shape, device, norm_step, sqrt_lambda, k
 TEMPLATES = ("dc_mesh.cu",)
 
 
+class K5Scratch:
+    """K5's scratch buffers for one corner shape and owned-layer count:
+    the work words (counts, the scan's status words and ticket, zeroed by
+    K5's grid pass), the corner grid, the ballot words and edge ranks (3
+    words per 32 voxels each) and the live voxel ids (one int32 per owned
+    voxel). Allocated at the first call of a shape and kept for the next
+    calls of the same shape; K5 launches on one stream, so a call reuses
+    them only after the one before it is done with them."""
+
+    def __init__(self):
+        self._key = self._bufs = None
+
+    def buffers(self, lib, nk, nj, ni, n_own, device):
+        """(work, dist, ebits, edir, uvox) for this shape on `device`."""
+        key = (nk, nj, ni, n_own, device)
+        if key != self._key:
+            owned = n_own * (nj - 1) * (ni - 1)
+            words = -(-(nk - 1) * (nj - 1) * (ni - 1) // 32)
+            self._bufs = (
+                torch.empty(lib.gsdf_dc_work(nk, nj, ni, n_own), dtype=torch.int64,
+                            device=device),
+                torch.empty((nk, nj, ni), dtype=torch.float32, device=device),
+                torch.empty(3 * words, dtype=torch.int32, device=device),
+                torch.empty(3 * words, dtype=torch.int32, device=device),
+                torch.empty(owned, dtype=torch.int32, device=device),
+            )
+            self._key = key
+        return self._bufs
+
+
 def _launch_k5(tree, origin, res, shape, device, n_own, k0, parametric, half, scale, l2,
-               with_t, with_verts):
+               with_t, with_verts, scratch=None):
     """Both K5 calls with the one count read between them: (eids, flips,
-    t or None, normals, verts or None, the corner grid)."""
+    t or None, normals, verts or None, the corner grid). `scratch`, a
+    K5Scratch, keeps K5's scratch for later calls of this shape."""
     from ..eval import grid_kernels as gk
 
     nk, nj, ni, n_own = check_shape(shape, n_own)
     device = kernels.cuda_device(device)
     lib = gk.build(tree, TEMPLATES, parametric)
-    nx, ny = ni - 1, nj - 1
-    nvox = (nk - 1) * ny * nx
-    chunks = -(-nvox // 32)
-    work = torch.empty(lib.gsdf_dc_work(nk, nj, ni, n_own), dtype=torch.int64, device=device)
-    dist = torch.empty((nk, nj, ni), dtype=torch.float32, device=device)
-    ebits = torch.empty(3 * chunks, dtype=torch.int32, device=device)
-    edir = torch.empty(3 * chunks, dtype=torch.int32, device=device)
-    uvox = torch.empty(n_own * ny * nx, dtype=torch.int32, device=device)
+    work, dist, ebits, edir, uvox = (scratch or K5Scratch()).buffers(lib, nk, nj, ni, n_own,
+                                                                     device)
     grid_args = (*kernels.float_args(origin, res), int(k0), nk, nj, ni, n_own)
     extra = ()
     if parametric:
@@ -317,18 +356,20 @@ def _launch_k5(tree, origin, res, shape, device, n_own, k0, parametric, half, sc
 
 
 def dc_mesh(tree, origin, res, shape, device, norm_step, sqrt_lambda, k0=0, n_own=None,
-            parametric=False) -> DCMesh:
+            parametric=False, scratch=None) -> DCMesh:
     """K5: the active edges and the live voxels' vertices of the corner
     grid `shape` (nk, nj, ni) at origin + (i, j, k0 + k) * res. Voxels of
     layers [0, n_own) are owned (all by default); the edges of the layers
     above give rows to them and have ids too. parametric=True runs K5p:
-    the library of the tree's structure, with its current parameters."""
+    the library of the tree's structure, with its current parameters.
+    `scratch` (a K5Scratch) keeps K5's scratch across calls of one shape;
+    the plain version has none."""
     if torch.device(device).type == "cpu":
         return dc_mesh_plain(tree, origin, res, shape, device, norm_step, sqrt_lambda, k0,
                              n_own)
     half, inv_step, l2 = qef_constants(norm_step, sqrt_lambda)
     eids, flips, _, _, verts, _ = _launch_k5(tree, origin, res, shape, device, n_own, k0,
-                                          parametric, half, inv_step, l2, False, True)
+                                          parametric, half, inv_step, l2, False, True, scratch)
     return DCMesh(eids, flips, verts)
 
 

@@ -37,7 +37,7 @@ from ..core.node import Shader3D
 from ..eval.grid_kernels import evaluate_grid
 from ..kernels import entry_device
 from ..native import dc_finish
-from ..ops.dc_emit import dc_edges, dc_mesh
+from ..ops.dc_emit import K5Scratch, dc_edges, dc_mesh
 from ..ops.dc_tables import OFF5 as _OFF5  # noqa: F401  (re-exported)
 from ..ops.dc_tables import OFFS as _OFFS
 
@@ -198,17 +198,23 @@ def mesh_chunks(s: Shader3D, res32, contourer, device, parametric, chunks, space
     plane = ny * nx
     parts, verts = [], []
     n_edges = nbytes = 0
+    scratch = K5Scratch()  # the chunks share one shape
     for origin, shape, k0, n_own in chunks:
         mesh = dc_mesh(s, origin, res32, shape, device, contourer.norm_step,
-                       contourer.sqrt_lambda, k0, n_own, parametric)
+                       contourer.sqrt_lambda, k0, n_own, parametric, scratch)
         lap("K5")
         eids, flips, v = _fetch(mesh)
         lap("fetch")
         layers = shape[0] - 1
         nvox = layers * plane
-        rem = eids % nvox
-        own = (rem // plane) < (layers if n_own is None else n_own)
-        parts.append(((eids // nvox)[own], rem[own] + k0 * plane, flips[own]))
+        owned = (layers if n_own is None else n_own) * plane
+        # the ids ascend by axis, then voxel: each axis's owned edges are
+        # one run of them (the halo's belong to the next chunk)
+        ends = np.searchsorted(eids, [a * nvox + b for a in range(3) for b in (0, owned)])
+        runs = [(a, ends[2 * a], ends[2 * a + 1]) for a in range(3)]
+        parts.append((np.concatenate([np.full(hi - lo, a, np.int64) for a, lo, hi in runs]),
+                      np.concatenate([eids[lo:hi] - (a * nvox - k0 * plane) for a, lo, hi in runs]),
+                      np.concatenate([flips[lo:hi] for _, lo, hi in runs])))
         verts.append(v)
         n_edges += len(eids)
         nbytes += sum(t.nbytes for t in mesh)

@@ -141,6 +141,68 @@ def test_on_card_ms_takes_the_fullest_trace(monkeypatch):
     assert chip_smoke.on_card_ms("a", "b") == (0.1805, None)
 
 
+def test_dc_pass_bounds_by_kernel_name():
+    """chip_smoke.py --dc's bound of each K5 pass: the tree's ops at every
+    corner for eval, 6 evaluations and 24 ops an edge for the normals, the
+    rest of the plain version's ops for the QEF; bytes for the integer
+    passes (the earlier flag pass also wrote the ranks); none for a memset or
+    the count read."""
+    import chip_smoke
+
+    sizes = {"corners": 1000, "words": 30, "edges": 50, "voxels": 40, "tree_ops": 7}
+    total = 7 * 1000 + 6 * 50 * 7 + 24 * 50 + 5000
+
+    def bound(name, **kw):
+        return chip_smoke.dc_pass_bounds(name, **sizes, total_ops=total, **kw)
+
+    assert bound("eval_kernel")["ops"] == 7000
+    assert bound("normals_kernel")["ops"] == 6 * 50 * 7 + 24 * 50
+    assert bound("qef_kernel")["ops"] == 5000
+    assert bound("flags_kernel")["bytes"] == 4 * 1000 + 12 * 30
+    assert bound("flags_kernel", ranked=True)["bytes"] == 4 * 1000 + 24 * 30
+    assert bound("scan_kernel")["bytes"] == 24 * 30 + 4 * 40
+    assert bound("live_kernel")["bytes"] == 12 * 30 + 4 * 40
+    assert bound("edges_kernel")["bytes"] == 24 * 30 + 25 * 50
+    assert bound("scan_kernel")["bound_by"] == "bytes"
+    assert bound("Memset") is None and bound("Memcpy DtoH") is None
+
+
+@pytest.mark.parametrize("nx", [7, 32, 33, 65])
+def test_dc_word_grids_have_their_rows(nx):
+    """chip_smoke's explicit K5 grids: rows of exactly nx voxels, cubic
+    voxels, the bolt's bounds inside the grid."""
+    import chip_smoke
+
+    bolt = flagships.build_bolt()
+    res, (origin, shape) = chip_smoke.dc_word_grid(bolt, nx)
+    bb = bolt.bounds()
+    assert shape[2] == nx + 1 and min(shape) >= 3
+    far = np.asarray(origin) + (np.asarray(shape[::-1]) - 1) * res
+    assert np.all(np.asarray(origin) <= np.asarray(bb.min)) and np.all(far >= np.asarray(bb.max))
+
+
+def test_dc_on_card_holds_the_launch_count(monkeypatch):
+    """A K5 call on the card: at most six kernels and no memset, as the
+    profiler sees it (a trace that missed the call is None)."""
+    import chip_smoke
+
+    seen = iter([{"kernels": 6, "memsets": 0, "copies": 1, "device_ms": 0.2},
+                 {"kernels": 6, "memsets": 1, "copies": 1, "device_ms": 0.2},
+                 {"kernels": 7, "memsets": 0, "copies": 1, "device_ms": 0.2}])
+    monkeypatch.setattr(chip_smoke, "device_launches", lambda fn: next(seen))
+    assert chip_smoke.dc_on_card("a", None) == {"kernels": 6, "memsets": 0, "copies": 1}
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="expected at most 6 kernels"):
+            chip_smoke.dc_on_card("b", None)
+
+    def missed(fn):
+        raise RuntimeError("torch.profiler saw no kernel")
+
+    monkeypatch.setattr(chip_smoke, "device_launches", missed)
+    monkeypatch.setattr(chip_smoke, "log", lambda msg: None)
+    assert chip_smoke.dc_on_card("c", None) is None
+
+
 def test_tile_prune_bytes_and_ops():
     """K6c writes a byte a tile and the count; its plain version runs the
     tree at every tile centre, |d| and the compare there, and 3 operations
