@@ -47,7 +47,7 @@ import os
 import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, spans
 from ..codegen.cuda import tree_source
 from .parametric import kernel_params, structural_hash
 from ..kernels import (
@@ -230,11 +230,12 @@ def param_args(tree, lib, device):
     copies it into the kernel's parameter space), else uploaded from
     pinned memory with a copy that does not synchronise. The kernel checks
     the length against the structure's."""
-    p = kernel_params(tree)
-    if lib.gsdf_params_by_value():
-        return p.ctypes.data, len(p), p
-    t = torch.from_numpy(p).pin_memory().to(device, non_blocking=True)
-    return t.data_ptr(), len(p), t
+    with spans.span("params.pack"):
+        p = kernel_params(tree)
+        if lib.gsdf_params_by_value():
+            return p.ctypes.data, len(p), p
+        t = torch.from_numpy(p).pin_memory().to(device, non_blocking=True)
+        return t.data_ptr(), len(p), t
 
 
 def evaluate_grid(tree, origin, res, shape, device, k0: int = 0):

@@ -47,7 +47,7 @@ import shutil
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, spans
 from .ops import mc_tables
 
 #: launches per kernel; each wrapper adds one where it launches its kernel
@@ -182,11 +182,12 @@ def launch(name: str, device: torch.device, entry, *args, count: bool = True) ->
     the stream comes from torch's raw getter and the device is switched
     only where it is not current already."""
     raw = torch._C._cuda_getCurrentRawStream(device.index)
-    if device.index == torch.cuda.current_device():
-        rc = entry(*args, raw)
-    else:
-        with torch.cuda.device(device):
+    with spans.span("launch." + name):
+        if device.index == torch.cuda.current_device():
             rc = entry(*args, raw)
+        else:
+            with torch.cuda.device(device):
+                rc = entry(*args, raw)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     if count:

@@ -18,7 +18,7 @@ import os
 
 import numpy as np
 
-from .. import _build
+from .. import _build, spans
 from ..ops import mc_emit
 from ..ops.mc_tables import MC_TRI_COUNT, MC_TRI_TABLE
 
@@ -211,18 +211,19 @@ def mc_decode(ids, cases, tvals, nx, ny, nz, origin, res):
     if ids.shape != cases.shape:
         raise ValueError("ids and cases differ in length")
     lib = get_lib()
-    total = int(_TRI_COUNT[cases].astype(np.int64).sum())
-    verts = np.empty((len(tvals), 3), _f32)
-    tri_idx = np.empty((total, 3), np.int32)
-    origin32 = np.ascontiguousarray(origin, _f32)
-    got = lib.gsdf_mc_decode(
-        _ptr(ids, ctypes.c_uint32), _ptr(cases, ctypes.c_uint8), len(ids),
-        _ptr(tvals, ctypes.c_float), len(tvals), nx, ny, nz,
-        _ptr(origin32, ctypes.c_float), ctypes.c_float(res),
-        _ptr(_TRI_TABLE, ctypes.c_int8), _ptr(_TRI_COUNT, ctypes.c_uint8),
-        _ptr(_EDGE_AXIS, ctypes.c_uint8), _ptr(_EDGE_LOW, ctypes.c_int8),
-        _ptr(verts, ctypes.c_float), _ptr(tri_idx, ctypes.c_int32),
-    )
+    with spans.span("native.decode"):
+        total = int(_TRI_COUNT[cases].astype(np.int64).sum())
+        verts = np.empty((len(tvals), 3), _f32)
+        tri_idx = np.empty((total, 3), np.int32)
+        origin32 = np.ascontiguousarray(origin, _f32)
+        got = lib.gsdf_mc_decode(
+            _ptr(ids, ctypes.c_uint32), _ptr(cases, ctypes.c_uint8), len(ids),
+            _ptr(tvals, ctypes.c_float), len(tvals), nx, ny, nz,
+            _ptr(origin32, ctypes.c_float), ctypes.c_float(res),
+            _ptr(_TRI_TABLE, ctypes.c_int8), _ptr(_TRI_COUNT, ctypes.c_uint8),
+            _ptr(_EDGE_AXIS, ctypes.c_uint8), _ptr(_EDGE_LOW, ctypes.c_int8),
+            _ptr(verts, ctypes.c_float), _ptr(tri_idx, ctypes.c_int32),
+        )
     if got != total:
         raise ValueError(
             f"mc_decode failed (got {got}, expected {total}): "

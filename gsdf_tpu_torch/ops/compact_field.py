@@ -24,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import kernels
+from .. import kernels, spans
 from ..eval.grid_kernels import classified_grid
 from .mc_emit import (  # noqa: F401  (crossing re-exported)
     EMIT_BLOCK,
@@ -105,7 +105,8 @@ def compact_field_render(tree, origin, res, shape, device, k0: int = 0,
     comp = compact_active(cases)  # the one count read before the fetch
     ids = comp.ids
     idx8, tvals = compact_emit(dist, cases, ids, comp.n_t, comp.offsets)
-    return ids.cpu().numpy().view(np.uint32), idx8.cpu().numpy(), tvals.cpu().numpy()
+    with spans.span("compact.fetch"):
+        return ids.cpu().numpy().view(np.uint32), idx8.cpu().numpy(), tvals.cpu().numpy()
 
 
 def compact_field_render_slabbed(tree, origin, res, shape, device, max_points,

@@ -24,7 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .. import kernels
+from .. import kernels, spans
 from ..core import mathx as mx
 from .mc_tables import (  # noqa: F401  (CORNER_OFFSETS .. LOW_EDGE_FAR re-exported)
     CORNER_OFFSETS,
@@ -259,7 +259,8 @@ def compact_active(cases, edge_ranks: bool = False) -> Compaction:
     ids = torch.empty(n, dtype=torch.int32, device=device)
     kernels.launch("compact_active", device, lib.gsdf_compact_active, cases.data_ptr(), n,
                    work.data_ptr(), ids.data_ptr(), None if ranks is None else ranks.data_ptr())
-    n_active, n_t, n_tris = work[:3].tolist()  # the one read of the device counts
+    with spans.span("mc.count_read"):
+        n_active, n_t, n_tris = work[:3].tolist()  # the one read of the device counts
     blocks, stride = -(-n_active // EMIT_BLOCK), n // EMIT_BLOCK + 1
     return Compaction(ids[:n_active], n_t, work[4 : 4 + blocks],
                       n_tris, work[4 + stride : 4 + stride + blocks],

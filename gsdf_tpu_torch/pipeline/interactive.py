@@ -22,11 +22,11 @@ from __future__ import annotations
 
 import math
 import statistics
-import time
 
 import numpy as np
 import torch
 
+from .. import spans
 from ..core.node import Shader3D
 from ..kernels import entry_device
 
@@ -92,8 +92,9 @@ class InteractiveViewer:
         #: frame is box-filtered on the card so the fetched payload stays
         #: W x H regardless.
         self.aa = int(aa)
-        #: per-frame wall latency log, keyed 'drag'/'full' — the viewer's
-        #: observability (frame_stats; the card's numbers in PERF.md)
+        #: per-frame wall latency log, keyed 'drag'/'full', from the
+        #: `viewer.frame` span's clock (frame_stats; the card's numbers in
+        #: PERF.md)
         self._frame_ms: dict = {"drag": [], "full": []}
         self.verbose = bool(verbose)
         #: drag-frame pipelining: frame N-1's copy to pinned host memory
@@ -150,24 +151,27 @@ class InteractiveViewer:
         when pipelining is on, overlaps this frame's march with the
         previous drag frame's fetch (the returned image is then one
         event behind the view state)."""
-        t0 = time.monotonic()
-        if quality == "drag" and self.pipeline:
-            prev = None if self._pending is None else _start_fetch(self._pending)
-            dev = self._dispatch("drag")  # frame N, behind N-1's copy
-            self._pending = dev
-            if prev is None:  # nothing in flight yet: show frame N
-                img = dev.cpu().numpy()
-            else:  # wait for N-1's copy only
-                host, done = prev
-                if done is not None:
-                    done.synchronize()
-                img = host.numpy()
-        else:
-            self._pending = None  # rest frame: flush the pipeline
-            img = self._dispatch(quality).cpu().numpy()
-        if quality == "drag":
-            img = np.repeat(np.repeat(img, 2, axis=0), 2, axis=1)
-        dt = (time.monotonic() - t0) * 1e3
+        with spans.timed("viewer.frame") as frame:
+            if quality == "drag" and self.pipeline:
+                prev = None if self._pending is None else _start_fetch(self._pending)
+                dev = self._dispatch("drag")  # frame N, behind N-1's copy
+                self._pending = dev
+                with spans.span("viewer.fetch"):
+                    if prev is None:  # nothing in flight yet: show frame N
+                        img = dev.cpu().numpy()
+                    else:  # wait for N-1's copy only
+                        host, done = prev
+                        if done is not None:
+                            done.synchronize()
+                        img = host.numpy()
+            else:
+                self._pending = None  # rest frame: flush the pipeline
+                dev = self._dispatch(quality)
+                with spans.span("viewer.fetch"):
+                    img = dev.cpu().numpy()
+            if quality == "drag":
+                img = np.repeat(np.repeat(img, 2, axis=0), 2, axis=1)
+        dt = frame.seconds * 1e3
         key = "drag" if quality == "drag" else "full"
         self._frame_ms[key].append(dt)
         if self.verbose:

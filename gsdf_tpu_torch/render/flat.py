@@ -36,6 +36,7 @@ import math
 import numpy as np
 import torch
 
+from .. import spans
 from ..core.node import Shader3D
 from ..eval.grid_kernels import evaluate_grid
 from ..kernels import entry_device
@@ -193,24 +194,26 @@ class FlatRenderer:
         the payloads concatenate; past the int32 id space, or where the
         decoder finds an unresolved owner cube, it returns
         render_indexed()."""
-        nk, nj, ni = self.shape()
-        if self.nx * self.ny * self.nz >= MAX_CUBES:
-            return self.render_indexed(parametric)
-        if nk * nj * ni > self.compact_cubes:
-            ids, cases, tvals, n_pts = compact_field_render_slabbed(
-                self.s, self.origin, self.res, (nk, nj, ni), self.device, self.compact_cubes,
-                parametric,
-            )
-            self._evaluations += n_pts
-        else:
-            self._evaluations += nk * nj * ni
-            ids, cases, tvals = compact_field_render(
-                self.s, self.origin, self.res, (nk, nj, ni), self.device, 0, parametric
-            )
-        try:
-            return mc_decode(ids, cases, tvals, self.nx, self.ny, self.nz, self.origin, self.res)
-        except ValueError:
-            return self.render_indexed(parametric)
+        with spans.span("flat.render_compact"):
+            nk, nj, ni = self.shape()
+            if self.nx * self.ny * self.nz >= MAX_CUBES:
+                return self.render_indexed(parametric)
+            if nk * nj * ni > self.compact_cubes:
+                ids, cases, tvals, n_pts = compact_field_render_slabbed(
+                    self.s, self.origin, self.res, (nk, nj, ni), self.device, self.compact_cubes,
+                    parametric,
+                )
+                self._evaluations += n_pts
+            else:
+                self._evaluations += nk * nj * ni
+                ids, cases, tvals = compact_field_render(
+                    self.s, self.origin, self.res, (nk, nj, ni), self.device, 0, parametric
+                )
+            try:
+                return mc_decode(ids, cases, tvals, self.nx, self.ny, self.nz, self.origin,
+                                 self.res)
+            except ValueError:
+                return self.render_indexed(parametric)
 
 
 def render_flat(s: Shader3D, cube_resolution: float, device=None) -> np.ndarray:

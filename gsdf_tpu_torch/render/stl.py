@@ -9,6 +9,7 @@ import struct
 
 import numpy as np
 
+from .. import spans
 from ..native import STL_DTYPE as _STL_DTYPE
 from ..native import stl_encode, stl_encode_indexed
 
@@ -38,9 +39,10 @@ def write_binary_stl_indexed(w, verts: np.ndarray, tri_idx: np.ndarray) -> int:
     triangle soup (native gather+encode pass). Returns bytes written."""
     if len(tri_idx) == 0:
         raise ValueError("empty triangle slice")
-    n = w.write(stl_header(len(tri_idx)))
-    n += w.write(stl_encode_indexed(verts, tri_idx))
-    return n
+    with spans.span("stl.encode"):
+        header = stl_header(len(tri_idx))
+        body = stl_encode_indexed(verts, tri_idx)
+    return w.write(header) + w.write(body)
 
 
 def write_binary_stl(w, model: np.ndarray) -> int:

@@ -23,6 +23,7 @@ from typing import Optional
 
 import numpy as np
 
+from .. import spans
 from ..core.node import Shader3D
 from ..eval.ray_kernels import pack_camera, raymarch
 
@@ -113,9 +114,11 @@ def raymarch_image_device(
     frame N+1's launch with frame N's fetch (the interactive viewer's
     drag-frame pipelining). One K8 call (K8p with parametric=True: a
     tree.rebind edit re-renders through the same library, with no build)."""
-    relax = auto_relax(obj) if relax is None else relax
-    return raymarch(obj, camera(obj, yaw, pitch, cam_dist), width, height, steps, relax,
-                    int(aa), device, parametric=parametric)
+    with spans.span("raymarch.scene"):
+        relax = auto_relax(obj) if relax is None else relax
+        cam = camera(obj, yaw, pitch, cam_dist)
+    return raymarch(obj, cam, width, height, steps, relax, int(aa), device,
+                    parametric=parametric)
 
 
 def raymarch_image(

@@ -1167,6 +1167,35 @@ def test_viewer_on_card_builds_nothing_after_the_first_frame(cuda_device):
     np.testing.assert_array_equal(frames[1], cpu.render_current("full"))
 
 
+def test_spans_of_a_frame_and_a_compact_render_on_card(cuda_device):
+    """On the card each wrapper's C entry call is a `launch.<kernel>` span
+    under the request's root, beside the CPU's spans (test_torch_spans.py),
+    and the launch counts are what they are without spans."""
+    from gsdf_tpu_torch import spans
+    from gsdf_tpu_torch.pipeline import InteractiveViewer
+
+    v = InteractiveViewer(_solid(), width=32, height=24, steps=32)
+    v.render_current("full")
+    fr = FlatRenderer(_solid(), 0.05, cuda_device)
+    fr.render_compact()
+    before = dict(kernels.LAUNCHES)
+    spans.clear()
+    with spans.recording():
+        v.render_current("full")
+        fr.render_compact()
+    recs = spans.records()
+    frame = next(r for r in recs if r.name == "viewer.frame")
+    assert sorted(r.name for r in recs if r.parent == frame.seq) == [
+        "launch.raymarch", "raymarch.scene", "viewer.fetch"]
+    render = next(r for r in recs if r.name == "flat.render_compact")
+    assert sorted(r.name for r in recs if r.parent == render.seq) == [
+        "compact.fetch", "launch.classified_grid", "launch.compact_active",
+        "launch.compact_emit", "mc.count_read", "native.decode"]
+    moved = {k: kernels.LAUNCHES[k] - before[k] for k in before if kernels.LAUNCHES[k] != before[k]}
+    assert moved == {"raymarch": 1, "classified_grid": 1, "compact_active": 1, "compact_emit": 1}
+    spans.clear()
+
+
 def test_pipelined_drag_frames_on_card(cuda_device):
     """Drag pipelining on the card: frame N-1's copy is enqueued before
     frame N launches; each displayed frame equals the unpipelined viewer's
