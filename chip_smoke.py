@@ -186,6 +186,16 @@
    queue's counter, K8, and the box filter at aa 3: never more), and the
    lone-ray probe: the 512 x 512 aa 1 ray that evaluates most, alone in a
    1 x 1 frame, the floor of any design at that frame (rm_lone_ray).
+   On a tree whose code has short-circuit sites (a Difference that skips
+   a subtrahend which cannot change its result, codegen/cuda.py), K8's
+   counting form (ray_kernels.count_short_circuits) runs each frame too,
+   held to plain like K8, and each row gives the share of lane
+   evaluations and of warp turns that skipped at each site, and a second
+   bound and device share on the work K8 runs: the counted work less
+   each site's lane skips times its subtrahend's ops (rm_site_ops). The
+   shares are also read over the view mix of the benchmark's viewer cell
+   (torch_bench/traffic/view.json), one frame a stratum at 512 x 512 aa 3
+   (rm_short_circuits).
    `python3 chip_smoke.py --raymarch` runs these raymarch kernel rows
    alone; a copy of this script beside another checkout measures that
    checkout's K8.
@@ -1196,6 +1206,62 @@ def rm_slider(tree):
     raise RuntimeError("no radius to slide")
 
 
+def rm_view_mix() -> tuple:
+    """The view mix of the benchmark's viewer cell, as its traffic file
+    (torch_bench/traffic/view.json) gives it: the yaw and the pitch
+    strata, each (low, high, strata), and cam_dist."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_bench", "traffic",
+                        "view.json")
+    with open(path) as f:
+        mix = json.load(f)
+    draws = mix["draws"]
+    return (tuple(draws["yaw"]["uniform"]) + (draws["yaw"]["strata"],),
+            tuple(draws["pitch"]["uniform"]) + (draws["pitch"]["strata"],),
+            mix["start"]["cam_dist"])
+
+
+def rm_site_ops(tree) -> dict:
+    """Each short-circuit site's subtrahend's ops a point
+    (bounds.tree_ops_per_point), by the Difference's function name: the
+    work a lane that skips there does not do."""
+    from gsdf_tpu_torch import bounds
+    from gsdf_tpu_torch.codegen.cuda import Codegen
+
+    cg = Codegen()
+    cg.emit(tree)
+    sites, nodes, stack = list(cg.sites), {}, [tree]
+    while stack:
+        node = stack.pop()
+        nodes.setdefault(cg.emit(node), node)
+        stack.extend(node.children())
+    return {site: bounds.tree_ops_per_point(nodes[sub]) for site, sub, _ in sites}
+
+
+def rm_short_circuits(tree, dev, w=512, h=512, steps=196, aa=3):
+    """The short-circuit shares (ray_kernels.short_circuit_shares) of K8's
+    counting form (ray_kernels.count_short_circuits) over the view mix's
+    frames (rm_view_mix), one at the centre of each yaw x pitch stratum,
+    512 x 512 aa 3 (the viewer's rest frame), and the frames'
+    evaluations. None on a tree with no site."""
+    from gsdf_tpu_torch.eval import ray_kernels as rk
+    from gsdf_tpu_torch.visual import raymarch as vrm
+
+    if not hasattr(rk, "count_short_circuits") or not rk.sites(tree):
+        return None  # (a checkout before short circuits, or no site)
+    (ylo, yhi, n_yaw), (plo, phi, n_pitch), cam_dist = rm_view_mix()
+    relax = vrm.auto_relax(tree)
+    rk.SHORT_CIRCUITS.clear()
+    evaluations = 0
+    for i in range(n_yaw):
+        for j in range(n_pitch):
+            cam = vrm.camera(tree, ylo + (i + 0.5) / n_yaw * (yhi - ylo),
+                             plo + (j + 0.5) / n_pitch * (phi - plo), cam_dist)
+            evaluations += int(rk.count_short_circuits(tree, cam, w, h, steps, relax, aa,
+                                                       dev)[1].sum())
+    return {"frames": n_yaw * n_pitch, "evaluations": evaluations,
+            "shares": rk.short_circuit_shares()}
+
+
 def raymarch_kernel_times(parts, dev, card):
     """K8 on each part at each frame of RM_FRAMES: K8's and K8p's images
     and every ray's evaluation count against raymarch_plain's (raises
@@ -1209,7 +1275,12 @@ def raymarch_kernel_times(parts, dev, card):
     resident 128-thread blocks per SM (rm_occupancy) and, per frame, the
     waves a launch of one such block per 16 x 8 rays would take; at 512 x
     512 aa 1 also K8p in turns against K8 and the lone-ray probe
-    (rm_lone_ray). Returns ({part: {frame: row, "forms": ...}}, {part:
+    (rm_lone_ray). On a part with short-circuit sites K8's counting form
+    is held to plain too, and each row also gives the shares it read at
+    that frame and the bound on the work K8 runs (run_bound_ms: the
+    counted work less the skipped subtrahends' ops; run_device_share),
+    and the part those shares over the view mix (rm_short_circuits). Returns
+    ({part: {frame: row, "forms": ..., "short_circuits": ...}}, {part:
     {frame: plain's image on the host}})."""
     import torch
     from gsdf_tpu_torch import bounds
@@ -1225,6 +1296,9 @@ def raymarch_kernel_times(parts, dev, card):
             forms[form] = {**ptxas_usage(gk.build_log(tree, rk.TEMPLATES, p)),
                            "blocks_per_sm": rm_occupancy(tree, p), "sms": sms}
         out[name], refs[name] = {"forms": forms}, {}
+        # each site's skipped ops a lane ({} on a tree with none, or on a
+        # checkout before short circuits)
+        site_ops = rm_site_ops(tree) if hasattr(rk, "count_short_circuits") else {}
         for label, w, h, steps, aa in RM_FRAMES:
             args = rm_args(tree, w, h, steps, aa, dev)
             img, evals = rk.raymarch(tree, *args, evals=True)
@@ -1236,10 +1310,20 @@ def raymarch_kernel_times(parts, dev, card):
             end.synchronize()
             differing = {"raymarch": rm_levels(img, ref), "raymarch_param": rm_levels(pimg, ref)}
             ev_diff = int((evals != ref_evals).sum()) + int((pevals != ref_evals).sum())
+            shorts, skipped = None, 0
+            if site_ops:
+                rk.SHORT_CIRCUITS.clear()
+                cimg, cevals = rk.count_short_circuits(tree, *args)
+                differing["raymarch_sites"] = rm_levels(cimg, ref)
+                ev_diff += int((cevals != ref_evals).sum())
+                shorts = rk.short_circuit_shares()
+                skipped = sum(c["lane_skips"] * site_ops[site]
+                              for site, c in rk.SHORT_CIRCUITS.items())
+                del cimg, cevals
             if ev_diff or any(n for n, _ in differing.values()):
                 raise RuntimeError(f"raymarch {name} {label} ({w}x{h}, {steps} steps, aa {aa}): "
-                                   f"K8 / K8p differ from plain: pixels (max levels) "
-                                   f"{differing}, evaluations {ev_diff}")
+                                   f"K8 / K8p / K8's counting form differ from plain: pixels "
+                                   f"(max levels) {differing}, evaluations {ev_diff}")
             refs[name][label] = ref.cpu().numpy()
             n, rays = int(evals.sum()), evals.numel()
             host_evals = evals.cpu().numpy()
@@ -1252,8 +1336,12 @@ def raymarch_kernel_times(parts, dev, card):
                 return rk.raymarch(tree, *args, parametric=True)
 
             ms, dev_ms = cuda_ms(kernel, 10), graph_ms(kernel, 10)
-            b = bounds.bound(bounds.raymarch_ops(tree, n, rays),
-                             bounds.kernel_bytes("raymarch", pixels=w * h))
+            ops, nbytes = bounds.raymarch_ops(tree, n, rays), bounds.kernel_bytes("raymarch",
+                                                                                   pixels=w * h)
+            b = bounds.bound(ops, nbytes)
+            # the bound on the work K8 runs: the counted work less each
+            # skipped subtrahend's ops (its lane skips, the counting form's)
+            run_ms = bounds.bound(ops - skipped, nbytes)["bound_ms"]
             tiles = -(-w * aa // 16) * -(-h * aa // 8)
             row = {"ms": ms, "graph_ms": dev_ms, "plain_ms": start.elapsed_time(end),
                    "pixels_differing_from_plain": {k: v[0] for k, v in differing.items()},
@@ -1266,7 +1354,9 @@ def raymarch_kernel_times(parts, dev, card):
                    "lanes": lane_efficiency(host_evals),
                    "tile_waves": {form: tiles / (v["blocks_per_sm"] * sms)
                                   for form, v in forms.items()},
-                   "param_ms": cuda_ms(param, 10), "param_graph_ms": graph_ms(param, 10)}
+                   "param_ms": cuda_ms(param, 10), "param_graph_ms": graph_ms(param, 10),
+                   "short_circuits": shorts, "run_bound_ms": run_ms,
+                   "run_device_share": dev_ms and run_ms / dev_ms}
             row["param_device_share"] = row["param_graph_ms"] and (
                 b["bound_ms"] / row["param_graph_ms"])
             if label.startswith("image"):
@@ -1285,20 +1375,26 @@ def raymarch_kernel_times(parts, dev, card):
             out[name][label] = row
             del evals
             torch.cuda.empty_cache()
+        out[name]["short_circuits"] = rm_short_circuits(tree, dev)
         log(f"  device ms raymarch {name}, K8 and K8p equal to plain in every pixel and "
             f"evaluation at every frame; forms {json.dumps(forms)}: "
             + ", ".join(f"{k} {v['ms']:.4f} (graph {v['graph_ms'] and round(v['graph_ms'], 4)}, "
                         f"bound {v['bound_ms']:.4f} by {v['bound_by']}, device share "
-                        f"{v['device_share'] and round(v['device_share'], 3)}, steps per ray mean "
+                        f"{v['device_share'] and round(v['device_share'], 3)}, on the work run "
+                        f"{v['run_bound_ms']:.4f}, "
+                        f"{v['run_device_share'] and round(v['run_device_share'], 3)}, "
+                        f"steps per ray mean "
                         f"{v['mean_steps']:.2f} max {v['max_steps']}, plain {v['plain_ms']:.3f}, "
                         f"K8p {v['param_ms']:.4f} graph "
                         f"{v['param_graph_ms'] and round(v['param_graph_ms'], 4)}, lanes "
                         + json.dumps({x: round(y, 3) for x, y in v["lanes"].items()})
                         + f", 16x8 tile waves {json.dumps(v['tile_waves'])}"
+                        + f", short circuits {json.dumps(v['short_circuits'])}"
                         + (f", K8p / K8 in turns {v['param_ms']:.4f} / {v['baked_ms']:.4f}, "
                            f"lone ray {json.dumps(v['lone_ray'])}" if "baked_ms" in v else "")
                         + ")"
-                        for k, v in out[name].items() if k != "forms")
+                        for k, v in out[name].items() if k not in ("forms", "short_circuits"))
+            + f"; short circuits over the view mix {json.dumps(out[name]['short_circuits'])}"
             + f"  [{card}]")
     return out, refs
 
@@ -1947,24 +2043,35 @@ def device_launches(fn) -> dict:
     holds the host's launch calls and no device event (about 1 in 500 on
     an idle host, several in a row on a busy one), so a trace without a
     kernel is taken again, after a growing pause, at most twelve times
-    before it counts as a fault."""
+    before it counts as a fault. The device events are read by their
+    category in the trace (kernel, memset, copy), as torch_bench/trace.py
+    reads them: a profiler may also put a synchronisation on the device's
+    timeline, which is none of the call's work."""
+    import tempfile
+
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    kinds = {"kernel": "kernels", "gpu_memset": "memsets", "gpu_memcpy": "copies"}
     for attempt in range(12):
         time.sleep(0.1 * attempt)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
+        fd, path = tempfile.mkstemp(suffix=".json")
+        os.close(fd)
+        try:
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        finally:
+            os.remove(path)
         out = {"kernels": 0, "memsets": 0, "copies": 0, "device_ms": 0.0}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                kind = ("memsets" if "memset" in e.name.lower()
-                        else "copies" if "memcpy" in e.name.lower() else "kernels")
-                out[kind] += 1
-                out["device_ms"] += e.time_range.elapsed_us() / 1e3
+        for e in events:
+            if e.get("ph") == "X" and e.get("cat") in kinds:
+                out[kinds[e["cat"]]] += 1
+                out["device_ms"] += float(e.get("dur", 0)) / 1e3
         if out["kernels"]:
             return out
     raise RuntimeError("torch.profiler saw no kernel inside a wrapper call in twelve traces")

@@ -17,6 +17,20 @@ node, the counterpart of the reference's GLSL Programmer
   builds it into the grid kernels (csrc/), and g++ builds the very same
   text for the CPU test of the emitters.
 
+Short circuits (baked mode). A Difference is fmaxf(a, -b). Where its
+subtrahend's class states a finite lower bound lo (`Shader.lower_bound`,
+derived beside each class from its own float32 operations), -b <= -lo,
+so wherever a > -lo the result is a bit for bit, and the function returns
+a before it evaluates b: the showerhead's 131 hole cylinders (lo = -0.8)
+run only where the plate's distance is 0.8 or less. The test is strict,
+so a tie, a signed zero and a NaN a take the full path, and so does a
+point with a NaN coordinate (lo holds at non-NaN points). Each such test
+is a site, numbered in emission order and wrapped as GSDF_SITE(k, skip);
+the source defines GSDF_NSITES and GSDF_SITE(k, skip) as `(skip)` unless
+the includer has defined it (csrc/raymarch_sites.cu counts each site's
+skips). A tree with no Difference over a bounded subtrahend, and every
+parametric source, has no site and no such lines.
+
 `tree_source(tree)` ends with the root function the kernel templates call,
 `gsdf_tree(px, py, pz)` for a 3D tree and `gsdf_tree(px, py)` for a 2D one,
 and defines GSDF_NDIM (3 or 2) so that a template can tell which it got.
@@ -123,6 +137,9 @@ class Codegen:
         self._n_arrays: dict = {}  # function name -> arrays emitted
         self._stack: list = []  # nodes whose bodies are being emitted
         self._sizes: dict = {}  # id(node) -> floats in its subtree's slice
+        #: the short-circuit sites, in their GSDF_SITE order: (the
+        #: Difference's function, its subtrahend's function, the bound)
+        self.sites: list = []
 
     @staticmethod
     def lit(x) -> str:
@@ -212,6 +229,21 @@ class Codegen:
         the C expression `params` points to."""
         return f"{self.emit(node)}({', '.join((params,) + args)})"
 
+    def short_circuit(self, node: Shader, sub: Shader, args) -> str:
+        """The line of a Difference `node`'s body, after its minuend's value
+        `a`, that returns `a` where its subtrahend `sub` cannot change the
+        result: baked mode and a finite `sub.lower_bound()` (the module
+        note); else "". `args` are the function's coordinates."""
+        if self.parametric:
+            return ""
+        lo = np.float32(sub.lower_bound())
+        if not np.isfinite(lo):
+            return ""
+        k = len(self.sites)
+        self.sites.append((self.name(node), self.emit(sub), lo))
+        ordered = f"!isnan({' + '.join(args)})"
+        return f"if (GSDF_SITE({k}, a > {lit(-lo)} && {ordered})) return a;\n"
+
     def emit(self, node: Shader) -> str:
         key = self._key(node)
         name = self._names.get(key)
@@ -232,13 +264,28 @@ class Codegen:
         return name
 
     def source(self) -> str:
-        return PRELUDE + "\n" + "\n\n".join(self._chunks) + "\n"
+        sites = ""
+        if self.sites:
+            sites = (
+                f"#undef GSDF_NSITES\n#define GSDF_NSITES {len(self.sites)}\n"
+                "#ifndef GSDF_SITE\n#define GSDF_SITE(k, skip) (skip)\n#endif\n"
+            )
+        return PRELUDE + sites + "\n" + "\n\n".join(self._chunks) + "\n"
 
 
 #: floats of a parameter vector that the templates still take by value, as
 #: a kernel parameter: with the kernels' other arguments it stays inside
 #: the 4 KB of kernel parameters that every CUDA version allows
 PARAMS_BY_VALUE_MAX = 1000
+
+
+def tree_sites(tree: Shader) -> list:
+    """The short-circuit sites of `tree`'s baked source, in GSDF_SITE
+    order: (the Difference's function, its subtrahend's function, the
+    subtrahend's lower bound)."""
+    cg = Codegen()
+    cg.emit(tree)
+    return cg.sites
 
 
 def tree_source(tree: Shader, parametric: bool = False, by_value: bool | None = None) -> str:

@@ -29,6 +29,15 @@ import numpy as np
 
 from ..geometry.boxes import Box
 
+#: Shader.lower_bound's "unknown"
+NO_BOUND = np.float32(-np.inf)
+
+
+def finite(*values) -> bool:
+    """True where every value (a scalar or an array) is a finite float32:
+    what a node's bound and its nan_free need of the literals it emits."""
+    return all(bool(np.all(np.isfinite(np.asarray(v, np.float32)))) for v in values)
+
 
 def _param_bytes(v) -> bytes:
     if isinstance(v, np.ndarray):
@@ -173,6 +182,24 @@ class Shader:
         for n in self.visit_bfs():
             object.__setattr__(n, "_tree_hash_cache", None)
         return self
+
+    def lower_bound(self) -> np.float32:
+        """A float32 that this node's baked function (emit_cuda) never
+        returns less than at a point none of whose coordinates is NaN (a
+        NaN result exempt); -inf where unknown. A class states a bound
+        only with its derivation from its own emitted float32 operations
+        beside it: IEEE rounding is monotone, so x >= x0 and y >= y0 give
+        fl(x + y) >= fl(x0 + y0), and likewise for a subtraction of a
+        constant, sqrtf, fabsf, fmaxf and fminf of non-NaN values. The
+        codegen's Difference skips its subtrahend where the minuend
+        exceeds minus this (codegen/cuda.py, Codegen.short_circuit)."""
+        return NO_BOUND
+
+    def nan_free(self) -> bool:
+        """True where this node's baked function provably returns no NaN at
+        a point none of whose coordinates is NaN: what a bound through
+        fmaxf needs (fmaxf(NaN, y) is y). False where unknown."""
+        return False
 
     def emit_cuda(self, cg) -> str:
         """CUDA C body of this node's distance function. The arguments are

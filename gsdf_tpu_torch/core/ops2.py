@@ -15,14 +15,16 @@ import torch
 
 from ..geometry.boxes import Box, rotation_mat2
 from . import mathx as mx
-from .node import Shader2D, Shader3D
+from .node import NO_BOUND, Shader2D, Shader3D, finite
 from .ops3 import (
     _array_distance,
     _Binary,
     _Circular,
+    _Difference,
     _elongate_distance,
     _emit_array,
     _emit_elongate,
+    _Intersection,
 )
 
 _f32 = np.float32
@@ -51,6 +53,15 @@ class OpUnion2D(Shader2D):
         lines.append("return d;")
         return "\n".join(lines)
 
+    # fminf(x, NaN) is x: the result is NaN or a child's value, so >= the
+    # least of the children's bounds, and no NaN where one child is
+    # NaN-free
+    def lower_bound(self):
+        return min(s.lower_bound() for s in self.joined)
+
+    def nan_free(self):
+        return any(s.nan_free() for s in self.joined)
+
     def bounds(self) -> Box:
         bb = self.joined[0].bounds()
         for s in self.joined[1:]:
@@ -58,24 +69,12 @@ class OpUnion2D(Shader2D):
         return bb
 
 
-class Difference2D(_Binary, Shader2D):
-    _C = "fmaxf(a, -b)"
-
-    def distance(self, p):
-        return torch.maximum(self.s1.distance(p), -self.s2.distance(p))
-
-    def bounds(self) -> Box:
-        return self.s1.bounds()
+class Difference2D(_Difference, Shader2D):
+    pass
 
 
-class Intersection2D(_Binary, Shader2D):
-    _C = "fmaxf(a, b)"
-
-    def distance(self, p):
-        return torch.maximum(self.s1.distance(p), self.s2.distance(p))
-
-    def bounds(self) -> Box:
-        return self.s1.bounds().intersect(self.s2.bounds())
+class Intersection2D(_Intersection, Shader2D):
+    pass
 
 
 class Xor2D(_Binary, Shader2D):
@@ -217,6 +216,13 @@ class Translate2D(Shader2D):
     def emit_cuda(self, cg) -> str:
         x, y = cg.p(self, "p_")
         return f"return {cg.call(self.s, f'px - {x}', f'py - {y}')};"
+
+    # as Translate's (ops3)
+    def lower_bound(self):
+        return self.s.lower_bound() if finite(self.p_) else NO_BOUND
+
+    def nan_free(self):
+        return finite(self.p_) and self.s.nan_free()
 
     def bounds(self) -> Box:
         return self.s.bounds().add(self.p_)

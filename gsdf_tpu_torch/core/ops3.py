@@ -21,7 +21,7 @@ import torch
 
 from ..geometry.boxes import Box, mul_box3, rotation_mat2, rotation_mat4
 from . import mathx as mx
-from .node import Shader3D
+from .node import NO_BOUND, Shader3D, finite
 
 _f32 = np.float32
 
@@ -146,6 +146,22 @@ class OpUnion(Shader3D):
         lines.append("return d;")
         return "\n".join(lines)
 
+    # fminf(x, NaN) is x, so the result is NaN or one of its terms: a
+    # group's loop (LARGENUM or a member at p - offset, whose bound is
+    # its Translate's) or a child. So it is >= the least of LARGENUM and
+    # the children's bounds, and is no NaN where a group runs (LARGENUM
+    # first) or one child is NaN-free
+    def lower_bound(self):
+        looped, ordered = self._groups()
+        terms = [c for c, _ in looped] + list(ordered)
+        if not all(finite(o) for _, o in looped):
+            return NO_BOUND
+        return min([_f32(mx.LARGENUM)] * bool(looped) + [c.lower_bound() for c in terms])
+
+    def nan_free(self):
+        looped, ordered = self._groups()
+        return bool(looped) or any(c.nan_free() for c in ordered)
+
     def bounds(self) -> Box:
         bb = self.joined[0].bounds()
         for s in self.joined[1:]:
@@ -172,28 +188,66 @@ class _Binary:
         )
 
 
-class Difference(_Binary, Shader3D):
-    """s1 - s2 (cpu_evaluators.go:168, operations.go:117)."""
+class _Difference(_Binary):
+    """s1 - s2, 3D and 2D: fmaxf(a, -b). Where the subtrahend has a
+    finite lower bound lo, -b <= -lo, so wherever a > -lo the result is a
+    bit for bit and the baked function returns it before it evaluates
+    the subtrahend (Codegen.short_circuit)."""
 
     _C = "fmaxf(a, -b)"
 
+    def emit_cuda(self, cg) -> str:
+        args = ("px", "py", "pz")[: self.NDIM]
+        return (
+            f"float a = {cg.call(self.s1, *args)};\n"
+            + cg.short_circuit(self, self.s2, args)
+            + f"float b = {cg.call(self.s2, *args)};\n"
+            f"return {self._C};"
+        )
+
     def distance(self, p):
         return torch.maximum(self.s1.distance(p), -self.s2.distance(p))
+
+    # fmaxf(a, -b) >= a where a is no NaN: the minuend's bound, where the
+    # minuend is NaN-free (else a NaN a gives -b, which has no bound)
+    def lower_bound(self):
+        return self.s1.lower_bound() if self.s1.nan_free() else NO_BOUND
+
+    def nan_free(self):
+        return self.s1.nan_free() or self.s2.nan_free()
 
     def bounds(self) -> Box:
         return self.s1.bounds()
 
 
-class Intersection(_Binary, Shader3D):
-    """s1 ^ s2 (cpu_evaluators.go:146, operations.go:160)."""
+class _Intersection(_Binary):
+    """s1 ^ s2, 3D and 2D: fmaxf(a, b)."""
 
     _C = "fmaxf(a, b)"
 
     def distance(self, p):
         return torch.maximum(self.s1.distance(p), self.s2.distance(p))
 
+    # fmaxf(a, b) >= a where a is no NaN, and likewise b: the greater bound
+    # of the NaN-free children; with neither NaN-free the result is a, b or
+    # their max, so the lesser bound
+    def lower_bound(self):
+        free = [c.lower_bound() for c in self.children() if c.nan_free()]
+        return max(free) if free else min(c.lower_bound() for c in self.children())
+
+    def nan_free(self):
+        return self.s1.nan_free() or self.s2.nan_free()
+
     def bounds(self) -> Box:
         return self.s1.bounds().intersect(self.s2.bounds())
+
+
+class Difference(_Difference, Shader3D):
+    """s1 - s2 (cpu_evaluators.go:168, operations.go:117)."""
+
+
+class Intersection(_Intersection, Shader3D):
+    """s1 ^ s2 (cpu_evaluators.go:146, operations.go:160)."""
 
 
 class Xor(_Binary, Shader3D):
@@ -408,6 +462,14 @@ class Translate(Shader3D):
     def emit_cuda(self, cg) -> str:
         x, y, z = cg.p(self, "p_")
         return f"return {cg.call(self.s, f'px - {x}', f'py - {y}', f'pz - {z}')};"
+
+    # p - offset is no NaN at a non-NaN p where the offset is finite: the
+    # child's bound and NaN-freeness carry over
+    def lower_bound(self):
+        return self.s.lower_bound() if finite(self.p_) else NO_BOUND
+
+    def nan_free(self):
+        return finite(self.p_) and self.s.nan_free()
 
     def bounds(self) -> Box:
         return self.s.bounds().add(self.p_)

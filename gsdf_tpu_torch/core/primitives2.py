@@ -16,7 +16,7 @@ import torch
 
 from ..geometry.boxes import Box
 from . import mathx as mx
-from .node import Shader2D
+from .node import NO_BOUND, Shader2D, finite
 
 _f32 = np.float32
 
@@ -35,6 +35,13 @@ class Circle(Shader2D):
 
     def emit_cuda(self, cg) -> str:
         return f"return sqrtf(px * px + py * py) - {cg.p(self, 'r')};"
+
+    # sqrtf(...) >= 0, so the result >= fl(0 - r) = -r (as Sphere's)
+    def lower_bound(self):
+        return -self.r if finite(self.r) else NO_BOUND
+
+    def nan_free(self):
+        return finite(self.r)
 
     def bounds(self) -> Box:
         r = self.r
@@ -252,6 +259,16 @@ class Rectangle(Shader2D):
             "float ox = fmaxf(dx, 0.0f), oy = fmaxf(dy, 0.0f);\n"
             "return sqrtf(ox * ox + oy * oy) + fminf(0.0f, fmaxf(dx, dy));"
         )
+
+    # dx = fabsf(px) - bx >= fl(0 - bx) = -bx, likewise dy, so fminf(0,
+    # fmaxf(dx, dy)) >= min(0, max(-bx, -by)) = L and L + sqrtf(...) >= L
+    def lower_bound(self):
+        if not finite(self.d):
+            return NO_BOUND
+        return np.minimum(_f32(0.0), (_f32(0.0) - self.d * _f32(0.5)).max())
+
+    def nan_free(self):
+        return finite(self.d)
 
     def bounds(self) -> Box:
         h = self.d * _f32(0.5)

@@ -15,7 +15,7 @@ import torch
 
 from ..geometry.boxes import Box
 from . import mathx as mx
-from .node import Shader3D
+from .node import NO_BOUND, Shader3D, finite
 
 _f32 = np.float32
 
@@ -34,6 +34,14 @@ class Sphere(Shader3D):
 
     def emit_cuda(self, cg) -> str:
         return f"return sqrtf(px * px + py * py + pz * pz) - {cg.p(self, 'r')};"
+
+    # sqrtf(...) >= 0 (or +inf, never NaN at a non-NaN point), so
+    # sqrtf(...) - r >= fl(0 - r) = -r exactly
+    def lower_bound(self):
+        return -self.r if finite(self.r) else NO_BOUND
+
+    def nan_free(self):
+        return finite(self.r)
 
     def bounds(self) -> Box:
         r = self.r
@@ -72,6 +80,20 @@ class BoxShape(Shader3D):
             "float inside = fminf(fmaxf(qx, fmaxf(qy, qz)), 0.0f);\n"
             f"return outside + inside - {r};"
         )
+
+    # q = (fabsf(p) - d) + r >= fl(fl(0 - d) + r) = fl(r - d) per axis, d
+    # the half size; inside = fminf(fmaxf(qx, fmaxf(qy, qz)), 0) >=
+    # min(max over the axes of fl(r - d), 0) = L; outside >= 0, so
+    # outside + inside >= fl(0 + L) = L and the result >= fl(L - r). No
+    # step makes a NaN at a non-NaN point (inf - d, sqrtf(inf) are not)
+    def lower_bound(self):
+        if not finite(self.dims, self.round):
+            return NO_BOUND
+        q = (_f32(0.0) - self.dims * _f32(0.5)) + self.round
+        return np.minimum(q.max(), _f32(0.0)) - self.round
+
+    def nan_free(self):
+        return finite(self.dims, self.round)
 
     def bounds(self) -> Box:
         return Box.centered(np.zeros(3, _f32), self.dims)
@@ -219,6 +241,24 @@ class Cylinder(Shader3D):
             + "return fminf(fmaxf(dx, dy), 0.0f) + sqrtf(qx * qx + qy * qy)"
             + f" - {rnd};"
         )
+
+    # d_axis = sqrtf(...) >= 0, dy = fabsf(pz) - h >= fl(0 - h) = -h.
+    # Unrounded: dx = d_axis - r >= -r, so fminf(0, fmaxf(dx, dy)) >=
+    # min(0, max(-r, -h)) = L, and L + sqrtf(...) >= L: the bound
+    # -min(r, h) (h the half height), the radius for the showerhead's
+    # holes. Rounded: dx = (d_axis - r) + rnd >= fl(fl(0 - r) + rnd), the
+    # same L from it, and the result >= fl(L - rnd). No step makes a NaN
+    # at a non-NaN point
+    def lower_bound(self):
+        r, h, rnd = self._args()
+        if not finite(r, h, rnd):
+            return NO_BOUND
+        if float(self.round) == 0:
+            return np.minimum(_f32(0.0), np.maximum(_f32(0.0) - r, _f32(0.0) - h))
+        return np.minimum(np.maximum((_f32(0.0) - r) + rnd, _f32(0.0) - h), _f32(0.0)) - rnd
+
+    def nan_free(self):
+        return finite(*self._args())
 
     def bounds(self) -> Box:
         r, h = self.r, self.h

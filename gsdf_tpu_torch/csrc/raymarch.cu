@@ -66,11 +66,32 @@
 // viewer's slider edits re-render with no build. Counterpart of
 // `_raymarch_fn(parametric=True)` (raymarch.py:150-169).
 //
+// The counting form (raymarch_sites.cu, GSDF_RM_COUNT_SITES): the same
+// kernel, with each short-circuit site of the tree's code (a Difference
+// that returns its minuend before it evaluates a subtrahend that cannot
+// change the result, codegen/cuda.py) counted: per site, the lane
+// evaluations that reached it, of them those that skipped, the warp turns
+// in which a lane reached it, and of them those in which every lane that
+// reached it skipped (the turns whose warp ran no subtrahend there). A
+// library of its own behind `eval/ray_kernels.py::count_short_circuits`;
+// this form, which `raymarch` runs with or without evals, carries none of
+// it.
+//
 // gsdf_tree.cuh is generated per tree by gsdf_tpu_torch/codegen/cuda.py.
 #include <atomic>
 #include <cstdint>
 #include <cstring>
 #include <cuda_runtime.h>
+
+#ifdef GSDF_RM_COUNT_SITES
+static __device__ __forceinline__ bool gsdf_site_note(int site, bool skip);
+#define GSDF_SITE(site, skip) gsdf_site_note(site, skip)
+#define GSDF_RM_SITES_DECL , unsigned long long* __restrict__ sites
+#define GSDF_RM_SITES_ARG , sites
+#else
+#define GSDF_RM_SITES_DECL
+#define GSDF_RM_SITES_ARG
+#endif
 
 #include "gsdf_tree.cuh"
 #include "gsdf_params.cuh"
@@ -83,6 +104,58 @@ constexpr int kWarps = kThreads / 32;
 constexpr unsigned kAll = 0xffffffffu;
 constexpr int kBX = 16, kBY = 8;  // the box filter's blocks
 constexpr int kMaxDevices = 64;
+
+#ifdef GSDF_RM_COUNT_SITES
+static_assert(GSDF_NSITES > 0, "the counting form is built for trees with short-circuit sites");
+
+// Each thread's visits ([0]) and skips ([1]) of each site in the current
+// tree evaluation, as gsdf_site_note counts them.
+__shared__ uint32_t site_hits[GSDF_NSITES][2][kThreads];
+
+// A thread's tally over its warp's turns: per site [0] lane evaluations
+// that reached it, [1] of them skipped; lane 0 also [2] warp turns in
+// which a lane reached it, [3] of them with every such lane skipping.
+struct SiteTally {
+    unsigned long long n[GSDF_NSITES][4];
+
+    __device__ void start() {
+#pragma unroll
+        for (int k = 0; k < GSDF_NSITES; ++k) {
+            site_hits[k][0][threadIdx.x] = site_hits[k][1][threadIdx.x] = 0;
+            n[k][0] = n[k][1] = n[k][2] = n[k][3] = 0;
+        }
+    }
+
+    // After a turn's evaluation, with every lane of the warp here.
+    __device__ void turn(int lane) {
+#pragma unroll
+        for (int k = 0; k < GSDF_NSITES; ++k) {
+            const uint32_t seen = site_hits[k][0][threadIdx.x];
+            const uint32_t skipped = site_hits[k][1][threadIdx.x];
+            site_hits[k][0][threadIdx.x] = site_hits[k][1][threadIdx.x] = 0;
+            n[k][0] += seen;
+            n[k][1] += skipped;
+            const bool reached = __any_sync(kAll, seen != 0);
+            const bool all = __all_sync(kAll, skipped == seen);
+            if (lane == 0) {
+                n[k][2] += reached;
+                n[k][3] += reached && all;
+            }
+        }
+    }
+
+    // The warp's sums into sites (GSDF_NSITES x 4), once per warp.
+    __device__ void flush(unsigned long long* sites, int lane) {
+#pragma unroll
+        for (int k = 0; k < GSDF_NSITES; ++k) {
+            for (int j = 0; j < 2; ++j)
+                for (int o = 16; o > 0; o /= 2) n[k][j] += __shfl_down_sync(kAll, n[k][j], o);
+            if (lane == 0)
+                for (int j = 0; j < 4; ++j) atomicAdd(&sites[4 * k + j], n[k][j]);
+        }
+    }
+};
+#endif
 
 // One warp's rays on their way in (the next batch, set up) and between
 // march and shading (at most 31 left over and 32 more at a refill), as
@@ -97,7 +170,7 @@ struct WarpStage {
 __global__ void __launch_bounds__(kThreads)
 raymarch_kernel(uint8_t* __restrict__ samples, int* __restrict__ evals, int* __restrict__ queue,
                 int rw, int rh, int n_ids, int steps, float relax,
-                const __grid_constant__ gsdf_rm::Camera cam GSDF_PARAMS_DECL) {
+                const __grid_constant__ gsdf_rm::Camera cam GSDF_PARAMS_DECL GSDF_RM_SITES_DECL) {
     __shared__ WarpStage stage[kWarps];
     WarpStage& w = stage[threadIdx.x / 32];
     const int lane = threadIdx.x & 31;
@@ -115,6 +188,10 @@ raymarch_kernel(uint8_t* __restrict__ samples, int* __restrict__ evals, int* __r
     // whether the queue has run out
     int n_busy = 0, taken = 32, n_marched = 0, q = -1;
     bool drained = false;
+#ifdef GSDF_RM_COUNT_SITES
+    SiteTally tally;
+    tally.start();
+#endif
 #pragma unroll 1
     for (;;) {
         if (q < 0 && (n_busy == 0 || (!drained && n_busy < 32))) {
@@ -206,6 +283,9 @@ raymarch_kernel(uint8_t* __restrict__ samples, int* __restrict__ evals, int* __r
         }
         float d = 0.0f;
         if (live) d = gsdf_rm::scene_at(scene, cam, p);  // the one call site
+#ifdef GSDF_RM_COUNT_SITES
+        tally.turn(lane);
+#endif
         if (q >= 0) {
             gsdf_rm::shade_step(q, d, &d0, n);
             if (++q == 5) {
@@ -227,6 +307,9 @@ raymarch_kernel(uint8_t* __restrict__ samples, int* __restrict__ evals, int* __r
             n_busy -= __popc(__ballot_sync(kAll, over));
         }
     }
+#ifdef GSDF_RM_COUNT_SITES
+    tally.flush(sites, lane);
+#endif
 }
 
 __global__ void __launch_bounds__(kBX * kBY)
@@ -263,6 +346,14 @@ int resident_blocks(int* blocks) {
 
 }  // namespace
 
+#ifdef GSDF_RM_COUNT_SITES
+static __device__ __forceinline__ bool gsdf_site_note(int site, bool skip) {
+    site_hits[site][0][threadIdx.x] += 1u;
+    site_hits[site][1][threadIdx.x] += skip;
+    return skip;
+}
+#endif
+
 // samples (aa*height, aa*width, 3) u8; out (height, width, 3) u8, the
 // samples themselves where aa == 1; evals (aa*height, aa*width) int32
 // tree evaluations per supersample, or null; queue one int32 of device
@@ -271,8 +362,16 @@ int resident_blocks(int* blocks) {
 // kernel and, at aa > 1, the box filter; returns the first CUDA error (0
 // = launched). The parametric entry point also takes the parameter vector
 // (a host pointer where it goes by value, else a device pointer) and its
-// length, which must be the structure's.
-#ifdef GSDF_PARAMETRIC
+// length, which must be the structure's. The counting entry point also
+// takes `sites`, GSDF_NSITES x 4 uint64 of device memory set here to the
+// counts of the kernel's note above.
+#if defined(GSDF_RM_COUNT_SITES)
+extern "C" int gsdf_raymarch_sites(uint8_t* samples, uint8_t* out, int* evals, int* queue,
+                                   const float* cam, int width, int height, int steps,
+                                   float relax, int aa, unsigned long long* sites,
+                                   void* stream) {
+    if (sites == nullptr) return (int)cudaErrorInvalidValue;
+#elif defined(GSDF_PARAMETRIC)
 extern "C" int gsdf_raymarch_param(uint8_t* samples, uint8_t* out, int* evals, int* queue,
                                    const float* cam, int width, int height, int steps,
                                    float relax, int aa, const float* params, int n_params,
@@ -305,8 +404,12 @@ extern "C" int gsdf_raymarch(uint8_t* samples, uint8_t* out, int* evals, int* qu
     const cudaStream_t s = (cudaStream_t)stream;
     rc = (int)cudaMemsetAsync(queue, 0, sizeof(int), s);
     if (rc != 0) return rc;
+#ifdef GSDF_RM_COUNT_SITES
+    rc = (int)cudaMemsetAsync(sites, 0, GSDF_NSITES * 4 * sizeof(unsigned long long), s);
+    if (rc != 0) return rc;
+#endif
     raymarch_kernel<<<blocks, kThreads, 0, s>>>(samples, evals, queue, rw, rh, (int)n_ids, steps,
-                                                relax, c GSDF_PARAMS_ARG);
+                                                relax, c GSDF_PARAMS_ARG GSDF_RM_SITES_ARG);
     if (aa > 1) {
         rc = (int)cudaGetLastError();
         if (rc != 0) return rc;

@@ -1,0 +1,7 @@
+// K8's counting form: raymarch.cu around the tree's baked source, with
+// each short-circuit site of the tree's code counted (raymarch.cu's note
+// on GSDF_RM_COUNT_SITES). Built per tree that has sites, as a library of
+// its own, behind `eval/ray_kernels.py::count_short_circuits`: the image
+// and the evaluation counts are K8's, from the same generated code.
+#define GSDF_RM_COUNT_SITES 1
+#include "raymarch.cu"

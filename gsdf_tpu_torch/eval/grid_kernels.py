@@ -77,7 +77,8 @@ PARAMS_HEADER = "gsdf_params.cuh"
 #: gsdf_tree.cuh (name -> the function that writes its text)
 INCLUDES = {"dc_mesh.cu": ("gsdf_scan.cuh", "gsdf_qef.cuh", "gsdf_dc_words.cuh"),
             "classified_grid.cu": ("gsdf_case.cuh",), "tile_atlas.cu": ("gsdf_case.cuh",),
-            "raymarch.cu": ("gsdf_raymarch.cuh",)}
+            "raymarch.cu": ("gsdf_raymarch.cuh",),
+            "raymarch_sites.cu": ("raymarch.cu", "gsdf_raymarch.cuh")}
 GENERATED = {"dc_mesh.cu": {"gsdf_dc_tables.cuh": dc_tables.header}}
 
 _V, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -90,6 +91,7 @@ _SIGNATURES = {
     "tile_prune.cu": {"gsdf_tile_prune": (_I, [_V] * 2 + [_F] * 6 + [_I] * 3 + [_V])},
     "tile_atlas.cu": {"gsdf_tile_atlas": (_I, [_V] * 3 + [_I] * 5 + [_F] * 5 + [_V])},
     "raymarch.cu": {"gsdf_raymarch": (_I, [_V] * 5 + [_I] * 3 + [_F, _I] + [_V])},
+    "raymarch_sites.cu": {"gsdf_raymarch_sites": (_I, [_V] * 5 + [_I] * 3 + [_F, _I] + [_V, _V])},
     "dc_mesh.cu": {
         "gsdf_dc_work": (ctypes.c_int64, [_I] * 4),
         "gsdf_dc_count": (_I, [_V] + [_F] * 4 + [_I] * 5 + [_V] * 4 + [_V]),

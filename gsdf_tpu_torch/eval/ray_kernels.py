@@ -23,6 +23,14 @@ structure, the tree's continuous parameters a launch argument
 (grid_kernels.param_args). Counterpart of `_raymarch_fn(parametric=True)`
 (raymarch.py:150-169).
 
+Short circuits. A tree's baked source may return a Difference's minuend
+before it evaluates a subtrahend that cannot change the result
+(codegen/cuda.py). `count_short_circuits` runs K8's counting form on
+such a tree (csrc/raymarch_sites.cu, a library of its own around the
+same generated code): the same image and evaluations, and per site how
+often the skip engaged, added to SHORT_CIRCUITS. `raymarch`, with or
+without evals, runs K8 itself, which counts nothing.
+
 The camera is 20 float32 numbers made once a frame on the host
 (`pack_camera`, visual/raymarch.py::camera): the kernel and the plain
 version take the same numbers.
@@ -32,6 +40,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..codegen.cuda import tree_sites
 from ..core import mathx as mx
 from ..kernels import check_out, entry_device, launch
 from .grid_kernels import build, param_args
@@ -39,6 +48,17 @@ from .grid_kernels import build, param_args
 _f32 = np.float32
 
 TEMPLATES = ("raymarch.cu",)
+#: K8's counting form, built only for a tree with short-circuit sites
+SITES_TEMPLATES = ("raymarch_sites.cu",)
+#: what K8's counting launches (count_short_circuits) saw at each short-circuit site,
+#: summed over calls since the last clear: the Difference's function name
+#: -> {"subtrahend": its function, "bound": its lower bound, "lanes": lane
+#: evaluations that reached the site, "lane_skips": of them those that
+#: skipped the subtrahend, "turns": warp turns in which a lane reached it,
+#: "turn_skips": of them those in which every such lane skipped}
+SHORT_CIRCUITS: dict = {}
+_SITE_COUNTS = ("lanes", "lane_skips", "turns", "turn_skips")
+_sites: dict = {}  # tree hash -> tree_sites(tree)
 #: gsdf_rm::Camera's fields in order, and their lengths
 CAMERA_FIELDS = (("ro", 3), ("uu", 3), ("vv", 3), ("ww", 3), ("center", 3), ("light", 3),
                  ("scale", 1), ("far_plane", 1))
@@ -187,6 +207,26 @@ def raymarch_plain(tree, camera, width, height, steps, relax, aa, device, evals=
 
 
 # --- kernel wrapper ----------------------------------------------------------
+def sites(tree) -> list:
+    """The short-circuit sites of the 3D tree's baked source
+    (codegen.cuda.tree_sites), kept per tree hash."""
+    key = tree.tree_hash()
+    if key not in _sites:
+        _sites[key] = tree_sites(tree)
+    return _sites[key]
+
+
+def short_circuit_shares() -> dict:
+    """{site: {"subtrahend", "lane_share", "warp_share"}} from
+    SHORT_CIRCUITS: the share of lane evaluations reaching the site that
+    skipped its subtrahend, and of warp turns reaching it in which the
+    whole warp skipped it (None where none reached it)."""
+    return {site: {"subtrahend": c["subtrahend"],
+                   "lane_share": c["lane_skips"] / c["lanes"] if c["lanes"] else None,
+                   "warp_share": c["turn_skips"] / c["turns"] if c["turns"] else None}
+            for site, c in SHORT_CIRCUITS.items()}
+
+
 def raymarch(tree, camera, width, height, steps, relax, aa, device, parametric=False,
              evals=False):
     """The shaded (height, width, 3) u8 image of the 3D `tree` under
@@ -196,6 +236,24 @@ def raymarch(tree, camera, width, height, steps, relax, aa, device, parametric=F
     counter and one launch (and the box filter's where aa > 1). With
     evals=True also the (aa*height, aa*width) int32 tree evaluations of
     each supersample."""
+    return _raymarch(tree, camera, width, height, steps, relax, aa, device, parametric, evals,
+                     count=False)
+
+
+def count_short_circuits(tree, camera, width, height, steps, relax, aa, device):
+    """K8's counting form on the 3D `tree`'s short-circuit sites: the
+    image and evaluations of raymarch(..., evals=True), and per site the
+    lane evaluations and warp turns that reached it and that skipped its
+    subtrahend, added to SHORT_CIRCUITS (one synchronisation). On a tree
+    with no site, K8 itself and nothing counted. A card's: the plain
+    version has no warps."""
+    if entry_device(device).type == "cpu":
+        raise ValueError("the short-circuit counter is K8's: it needs a CUDA device")
+    return _raymarch(tree, camera, width, height, steps, relax, aa, device, False, True,
+                     count=True)
+
+
+def _raymarch(tree, camera, width, height, steps, relax, aa, device, parametric, evals, count):
     width, height, steps, aa = _frame(width, height, steps, aa)
     if tree.NDIM != 3:
         raise TypeError(f"the raymarcher draws 3D trees, got a {tree.NDIM}D one")
@@ -205,7 +263,8 @@ def raymarch(tree, camera, width, height, steps, relax, aa, device, parametric=F
         raise ValueError(f"a camera is {CAMERA_FLOATS} floats, got {cam.size}")
     if device.type == "cpu":
         return raymarch_plain(tree, cam, width, height, steps, relax, aa, device, evals)
-    lib = build(tree, TEMPLATES, parametric)
+    counted = sites(tree) if count else []
+    lib = build(tree, SITES_TEMPLATES if counted else TEMPLATES, parametric)
     out = torch.empty((height, width, 3), dtype=torch.uint8, device=device)
     samples = out if aa == 1 else torch.empty((height * aa, width * aa, 3), dtype=torch.uint8,
                                               device=device)
@@ -218,6 +277,15 @@ def raymarch(tree, camera, width, height, steps, relax, aa, device, parametric=F
     if parametric:
         ptr, n_params, _keep = param_args(tree, lib, device)
         launch("raymarch_param", device, lib.gsdf_raymarch_param, *args, ptr, n_params)
+    elif counted:
+        counts = torch.empty((len(counted), len(_SITE_COUNTS)), dtype=torch.int64,
+                             device=device)
+        launch("raymarch", device, lib.gsdf_raymarch_sites, *args, counts.data_ptr())
+        for (site, sub, lo), row in zip(counted, counts.tolist()):
+            total = SHORT_CIRCUITS.setdefault(
+                site, {"subtrahend": sub, "bound": float(lo), **dict.fromkeys(_SITE_COUNTS, 0)})
+            for k, v in zip(_SITE_COUNTS, row):
+                total[k] += v
     else:
         launch("raymarch", device, lib.gsdf_raymarch, *args)
     return (out, n_evals) if evals else out

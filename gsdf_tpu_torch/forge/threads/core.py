@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ...core import mathx as mx
-from ...core.node import Shader2D, Shader3D
+from ...core.node import NO_BOUND, Shader2D, Shader3D, finite
 from ...geometry.boxes import Box
 
 _f32 = np.float32
@@ -114,6 +114,17 @@ class ScrewNode(Shader3D):
             f"return fmaxf({cg.call(self.thread, 'x', 'y')}, "
             f"fabsf(pz) - {cg.p(self, 'length_div2')});"
         )
+
+    # fmaxf(profile, fabsf(pz) - half) >= fabsf(pz) - half >= fl(0 - half)
+    # = -half: the second operand is no NaN at a non-NaN point, so fmaxf
+    # returns at least it whatever the profile gives. The profile's own
+    # bound does not carry over: its point (x, y) is NaN where z is huge
+    # (the sawtooth's t - floorf(t) at t = inf, pz * 0 at pz = inf)
+    def lower_bound(self):
+        return -self.length_div2 if finite(self.length_div2) else NO_BOUND
+
+    def nan_free(self):
+        return finite(self.length_div2)
 
     def bounds(self) -> Box:
         # reference threads.go:184-196, float32 steps like the Go original

@@ -29,7 +29,9 @@ launches per batch, the flange's golden, the soup and the edit loop.
 Last, the raymarcher: K8 and K8p against their plain version on every
 tree at aa 1 and 2 (every pixel and every ray's evaluation count), K8p
 with another tree's values through one library, one library across
-frame sizes, steps and aa, the launch's argument checks, the entry
+frame sizes, steps and aa, the showerhead's short-circuit sites (K8 and
+its counting form at the viewer's rest frame, the counter),
+the launch's argument checks, the entry
 points' default device, the viewer's frames with no build after the
 first, and pipelined drag frames one view behind.
 
@@ -1094,6 +1096,50 @@ def test_raymarch_matches_plain(name, aa, cuda_device):
     oimg = rk.raymarch(other, *oargs, parametric=True)
     assert len(gk._libs) == libs and dict(_build.COUNTS) == counts  # the same library
     assert torch.equal(oimg, rk.raymarch_plain(other, *oargs))
+
+
+def test_raymarch_short_circuits(cuda_device):
+    """The showerhead's code returns a Difference's minuend where its
+    subtrahend cannot change the result: the 131 hole cylinders (above
+    0.8) and the buttress screw (above 2.75), two sites. At the viewer's
+    rest frame (512 x 512, aa 3) K8, with and without its evaluation
+    counts, and its counting form (count_short_circuits) equal the plain
+    version in every pixel and every ray's evaluation count; every
+    evaluation reaches both sites, and the counter reads skips at each, by
+    lane and by whole warp turn, while K8 itself counts nothing. A sphere
+    has no site: its code and its K8 are as before, and nothing is
+    counted."""
+    from gsdf_tpu_torch.eval import ray_kernels as rk
+
+    tree = flagships.build_showerhead()
+    args = _frame_args(tree, 512, 512, 3, 196, cuda_device)
+    rk.SHORT_CIRCUITS.clear()
+    img = rk.raymarch(tree, *args)
+    eimg, eevals = rk.raymarch(tree, *args, evals=True)
+    torch.cuda.synchronize()
+    assert rk.SHORT_CIRCUITS == {}
+    cimg, evals = rk.count_short_circuits(tree, *args)
+    ref, ref_evals = rk.raymarch_plain(tree, *args, evals=True)
+    torch.cuda.synchronize()
+    assert torch.equal(img, ref) and torch.equal(eimg, ref) and torch.equal(cimg, ref)
+    assert torch.equal(eevals, ref_evals) and torch.equal(evals, ref_evals)
+    sites = rk.sites(tree)
+    assert [sub for _, sub, _ in sites] == ["screwnode_80e066040afe", "opunion_47f303063cec"]
+    assert set(rk.SHORT_CIRCUITS) == {site for site, _, _ in sites}
+    for site, c in rk.SHORT_CIRCUITS.items():
+        assert c["lanes"] == int(evals.sum()), site
+        assert 0 < c["lane_skips"] < c["lanes"] and 0 < c["turn_skips"] < c["turns"], (site, c)
+    for share in rk.short_circuit_shares().values():
+        assert 0 < share["warp_share"] < 1 and 0 < share["lane_share"] < 1, share
+
+    sphere = Builder().new_sphere(1.0)
+    assert rk.sites(sphere) == []
+    rk.SHORT_CIRCUITS.clear()
+    sargs = _frame_args(sphere, 64, 48, 1, 196, cuda_device)
+    simg, sevals = rk.count_short_circuits(sphere, *sargs)
+    sref, sref_evals = rk.raymarch_plain(sphere, *sargs, evals=True)
+    assert torch.equal(simg, sref) and torch.equal(sevals, sref_evals)
+    assert rk.SHORT_CIRCUITS == {}
 
 
 def test_raymarch_one_library_per_tree(cuda_device):

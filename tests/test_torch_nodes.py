@@ -17,7 +17,9 @@ and the CUDA codegen's emitted C, built by g++, matches the plain torch
 version.
 """
 import ctypes
+import hashlib
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -37,7 +39,7 @@ from gsdf_tpu.forge import threads as jax_threads
 from gsdf_tpu.geometry.boxes import Box as JaxBox
 from gsdf_tpu_torch import Builder as TorchBuilder
 from gsdf_tpu_torch import flagships as torch_flagships
-from gsdf_tpu_torch.codegen.cuda import lit, tree_source
+from gsdf_tpu_torch.codegen.cuda import lit, tree_sites, tree_source
 from gsdf_tpu_torch.convert import NODE_TYPES, from_reference_tree
 from gsdf_tpu_torch.core import mathx as mx
 from gsdf_tpu_torch.core.wrappers import with_bounds as torch_with_bounds
@@ -436,25 +438,57 @@ def _codegen_trees():
     return trees
 
 
-@pytest.fixture(scope="module")
-def host_kernels(tmp_path_factory):
-    """One g++ build of every tree's generated source, each in its own
-    namespace: {name: (tree, eval(p) -> distances)}."""
-    if shutil.which("g++") is None:
-        pytest.skip("g++ not installed")
-    d = tmp_path_factory.mktemp("codegen")
-    trees = _codegen_trees()
-    shim = ["#include <math.h>", "#include <stdint.h>", "#include <string.h>"]
-    for i, tree in enumerate(trees.values()):
-        (d / f"tree{i}.cuh").write_text(tree_source(tree))
-        point = ", ".join(f"p[{tree.NDIM} * k + {c}]" for c in range(tree.NDIM))
-        shim.append(
-            f'namespace tree{i} {{\n#include "tree{i}.cuh"\n}}\n'
-            f"static_assert(GSDF_NDIM == {tree.NDIM}, \"the source states its tree's NDIM\");\n"
-            f'extern "C" void eval{i}(const float* p, float* out, long n) {{\n'
-            f"    for (long k = 0; k < n; ++k)\n"
-            f"        out[k] = tree{i}::gsdf_tree({point});\n}}"
-        )
+#: how a g++ build below takes each tree's short-circuit sites: as the
+#: source defines them, all off (every Difference evaluates its subtrahend,
+#: the arithmetic of a source without sites), or off and recording each
+#: site's minuend `a` (the macro expands inside the Difference's function)
+#: and subtrahend `b` (a line the build adds after b's)
+SITE_MODES = {
+    "on": "",
+    "off": "#define GSDF_SITE(k, skip) false\n",
+    "record": "#define GSDF_SITE(k, skip) (gsdf_seen[2 * (k)] = a, false)\n",
+}
+
+
+def _recording(src):
+    """A baked source whose site functions also store their b."""
+    return re.sub(r"(if \(GSDF_SITE\((\d+), [^\n]*\)\) return a;\n( *)float b = [^\n]*\n)",
+                  r"\1\3gsdf_seen[2 * \2 + 1] = b;\n", src)
+
+
+def _host_build(d, trees, modes=("on",)):
+    """One g++ build of each tree's generated source in each of `modes`
+    (SITE_MODES), each in its own namespace: {(name, mode): eval(p) ->
+    distances}; "record" gives (n, sites, 2) minuends and subtrahends
+    instead, NaN where a point did not reach a site."""
+    shim = ["#include <math.h>", "#include <stdint.h>", "#include <string.h>",
+            "static float gsdf_seen[128];"]
+    names = []
+    for i, (name, tree) in enumerate(trees.items()):
+        for mode in modes:
+            j = len(names)
+            names.append((name, mode))
+            # a first line of its own: g++ takes two files of the same text
+            # for one under #pragma once
+            src = tree_source(tree)
+            (d / f"tree{j}.cuh").write_text(f"// {name}, sites {mode}\n"
+                                            + (_recording(src) if mode == "record" else src))
+            point = ", ".join(f"p[{tree.NDIM} * k + {c}]" for c in range(tree.NDIM))
+            n_sites = 2 * len(tree_sites(tree))
+            if mode == "record":
+                body = (f"for (int s = 0; s < {n_sites}; ++s) gsdf_seen[s] = NAN;\n"
+                        f"        tree{j}::gsdf_tree({point});\n"
+                        f"        for (int s = 0; s < {n_sites}; ++s) "
+                        f"out[{n_sites} * k + s] = gsdf_seen[s];")
+            else:
+                body = f"out[k] = tree{j}::gsdf_tree({point});"
+            shim.append(
+                f"#undef GSDF_SITE\n{SITE_MODES[mode]}"
+                f'namespace tree{j} {{\n#include "tree{j}.cuh"\n}}\n'
+                f"static_assert(GSDF_NDIM == {tree.NDIM}, \"the source states its tree's NDIM\");\n"
+                f'extern "C" void eval{j}(const float* p, float* out, long n) {{\n'
+                f"    for (long k = 0; k < n; ++k) {{\n        {body}\n    }}\n}}"
+            )
     (d / "shim.cpp").write_text("\n".join(shim) + "\n")
     so = d / "libshim.so"
     subprocess.run(
@@ -464,20 +498,32 @@ def host_kernels(tmp_path_factory):
     )
     lib = ctypes.CDLL(str(so))
 
-    def evaluator(i):
-        fn = getattr(lib, f"eval{i}")
+    def evaluator(j, width):
+        fn = getattr(lib, f"eval{j}")
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long]
         fn.restype = None
 
         def run(p):
             p = np.ascontiguousarray(p, np.float32)
-            out = np.empty(len(p), np.float32)
+            out = np.empty((len(p), width, 2) if width else len(p), np.float32)
             fn(p.ctypes.data, out.ctypes.data, len(p))
             return out
 
         return run
 
-    return {name: (tree, evaluator(i)) for i, (name, tree) in enumerate(trees.items())}
+    return {(name, mode): evaluator(j, len(tree_sites(trees[name])) if mode == "record" else 0)
+            for j, (name, mode) in enumerate(names)}
+
+
+@pytest.fixture(scope="module")
+def host_kernels(tmp_path_factory):
+    """One g++ build of every tree's generated source, each in its own
+    namespace: {name: (tree, eval(p) -> distances)}."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ not installed")
+    trees = _codegen_trees()
+    runs = _host_build(tmp_path_factory.mktemp("codegen"), trees)
+    return {name: (tree, runs[name, "on"]) for name, tree in trees.items()}
 
 
 @pytest.mark.parametrize("name", list(NODE_CASES) + PARTS + ["nine-types", "every-type"])
@@ -519,6 +565,358 @@ def test_tree_source_states_ndim():
         src = tree_source(tree)
         assert f"#define GSDF_NDIM {ndim}" in src
         assert ("float pz" in src.split("gsdf_tree(")[1].split(")")[0]) == (ndim == 3)
+
+
+# --- short circuits: a Difference skips a subtrahend that cannot change it
+#: sha256 (first 16 hex digits) of each codegen tree's source (baked,
+#: parametric) as it was before short circuits. A baked source with sites
+#: must read so with its site lines taken out; every other source as it is.
+SOURCE_HASHES = {
+    "Cylinder": ("10f03a176ff868ed", "0ac1f57f098c1cfb"),
+    "Cylinder-rounded": ("581c0ba9ce743605", "212b7271e9dbcb2e"),
+    "Translate": ("6ddeceb1529f7646", "027c79dcda555e4c"),
+    "Scale": ("eea162617730c004", "226927bd42fc949e"),
+    "Difference": ("2dda975da557b026", "601dcf18c2fe1fb4"),
+    "Intersection": ("52b7af794499bc82", "ba5dd21fcd1750ee"),
+    "SmoothUnion": ("2595fa82a8dc58cf", "e9106160bc2f1089"),
+    "OpUnion": ("83beae3e616087d3", "f553600a12c91738"),
+    "Polygon2D-broadcast": ("5efb84a3055c5e90", "b8813c5ea154903e"),
+    "Polygon2D-broadcast/2d": ("e0b636e2cab04022", "f2168c438ab78257"),
+    "Polygon2D-scan": ("ad9fc95c219c1d45", "013effcd17484222"),
+    "Polygon2D-scan/2d": ("ce221994cc9b036c", "8a217d76fbbe4e6e"),
+    "ScrewNode": ("191cf7400db9036a", "acc98ca85ddb47b2"),
+    "ScrewNode-tapered": ("27ff3e2ab622a891", "f2b1b0045ee3b294"),
+    "Sphere": ("561b08d40fa6e5dd", "02be0c2b6d03c1ec"),
+    "BoxShape": ("706b113d82a8d86f", "20d16226157d0066"),
+    "BoxShape-rounded": ("6c5127a733c1123a", "20d16226157d0066"),
+    "BoxFrame": ("ff31fd21bf0f7794", "0a2a021e8e6c2bc9"),
+    "Torus": ("ed0fdd87d50aa39d", "1c6935cf8f9b1fec"),
+    "HexagonalPrism": ("75679a206deae8bf", "aea1164040e1aba2"),
+    "TriangularPrism": ("92f829f70f079fd8", "a2f8b2ee3f8fc805"),
+    "Circle": ("2ad6ff16d759c26e", "dcf6f50923802bcd"),
+    "Circle/2d": ("b80a1b8e99afe037", "cab531aed5d1e33f"),
+    "Line2D": ("fa82b9948fa14236", "8e72c1264c977889"),
+    "Line2D/2d": ("b02154a1a6329e3d", "635d4c113b96f740"),
+    "Lines2D": ("99bcda60860b812d", "6a506523c069e5e7"),
+    "Lines2D/2d": ("83945deedc1c9a0e", "d79317835f99a570"),
+    "Arc2D": ("579b2726efc84157", "ff56f789e70c9899"),
+    "Arc2D/2d": ("b79daf86f1df7600", "cc9102ef17067966"),
+    "EquilateralTriangle": ("5510ef7685affe77", "a2f8b2ee3f8fc805"),
+    "EquilateralTriangle/2d": ("39c565020b81f9ae", "b8a69da244193e48"),
+    "Rectangle": ("ba72d1523556be99", "29780d8e1b6264db"),
+    "Rectangle/2d": ("267f9652d30c7dfa", "5ea0c324ae0544d2"),
+    "Hexagon2D": ("cb007235d3b74d44", "dd39a00096bd21c1"),
+    "Hexagon2D/2d": ("40d89fb469c68f9a", "1564599cc7565df5"),
+    "Octagon2D": ("b85dcb95b63850cf", "9c081e01a160d65d"),
+    "Octagon2D/2d": ("35823dfba8e30d2a", "3fc4e95be902ddfe"),
+    "Ellipse2D": ("094f3d1f3e4d0502", "5caaaa12e4599ccd"),
+    "Ellipse2D/2d": ("f017dce0dbf450ab", "6cf5b282d1c43df8"),
+    "Diamond2D": ("8b77c858a0a24b45", "724ee43cff814af2"),
+    "Diamond2D/2d": ("ca5bb3e35bda1c54", "3a0a8e6b348cd6f8"),
+    "RoundedX2D": ("daaa112e45ac9956", "3e9821d1259c8775"),
+    "RoundedX2D/2d": ("dbdd918b4c8be839", "a9485cc538af703d"),
+    "QuadraticBezier2D": ("3eb56ca6da9e081d", "a50e40d8e7cf5307"),
+    "QuadraticBezier2D/2d": ("eaa92dcd8aec71f1", "b4ebc2c141609595"),
+    "Xor": ("6b22bb995f2d20e5", "15153e35af3ba7c5"),
+    "SmoothDifference": ("f93b5956573c9928", "2836912ae9ea7c88"),
+    "SmoothIntersect": ("26f5ff82d02b276d", "cb39a206c8174afc"),
+    "Symmetry": ("240d799d0e2490a6", "12a7cc23cf40e3b0"),
+    "Transform": ("7401c421b65aac58", "ca4f01d3850789cd"),
+    "Offset": ("0327f397fc9b3444", "775aa846ac31bb13"),
+    "Array": ("9196a1e884add69d", "e99dc7161e66342b"),
+    "Elongate": ("fbefbb1124076363", "fcdd45b1b4bd19ec"),
+    "Shell": ("7dcabb3a44c5742e", "521a9ef1baa05bfa"),
+    "CircularArray": ("56fa02999b000a46", "8707866dc26e412a"),
+    "Twist": ("1f63f8f6835704ec", "4f6582eece876664"),
+    "OpUnion2D": ("3aebef064acd1d19", "d1767e23b7121083"),
+    "OpUnion2D/2d": ("1c78c8dcc0e380df", "8c866350f4f4d934"),
+    "Difference2D": ("872e9ee194daac5b", "009cf1d0c15b3b5e"),
+    "Difference2D/2d": ("808aa67c7f9a9cd3", "d2251ee1236c6ea1"),
+    "Intersection2D": ("e1f44766f1b27488", "807963c88d5ce9bc"),
+    "Intersection2D/2d": ("f4eae5c0c89da232", "9c4795cf5b81ec4e"),
+    "Xor2D": ("fcce3df6b6da2c44", "72619499923b1378"),
+    "Xor2D/2d": ("5a225c2e735dbc68", "015a0d66b7ca8b1f"),
+    "Extrusion": ("916b62dbdd2fea46", "dd39a00096bd21c1"),
+    "Revolution": ("f9e19d9bf7f9b894", "a03ab30ec7b54fae"),
+    "Array2D": ("7adf64facff9c95f", "879e4aa89f78c64a"),
+    "Array2D/2d": ("37c390e2a133e49b", "b335b5ea0e3bc4b9"),
+    "Offset2D": ("b12c341c85577566", "39b94b82dada0514"),
+    "Offset2D/2d": ("7e985b31bd96d079", "50abe48b53017a57"),
+    "Translate2D": ("5a538a712dd072b7", "483256383f683034"),
+    "Translate2D/2d": ("26ca0a776d702692", "6896ff4ef09224e2"),
+    "Rotation2D": ("f85cef30532b9271", "baad40d25e6553e4"),
+    "Rotation2D/2d": ("c878496be90239d5", "d55ff847964ef5a4"),
+    "Symmetry2D": ("ad09eaad457315cc", "bb9fdbaef4553da5"),
+    "Symmetry2D/2d": ("e6794e7057236115", "2bb65a776ecd5bbb"),
+    "Annulus2D": ("852a0cf0ac9258fb", "dc1cb120628eab50"),
+    "Annulus2D/2d": ("ca1f82dc0844b77f", "78edd2892a332d55"),
+    "CircularArray2D": ("3594676cea57f97d", "c5f30fdabcb96ca0"),
+    "CircularArray2D/2d": ("8ce17a7a2cd3a325", "ac6cd8516dff68ef"),
+    "Scale2D": ("e4cc3a297b832418", "3ec82fe68775e5ba"),
+    "Scale2D/2d": ("be47e30b08e9a0d8", "53e5a5432224fb0e"),
+    "TranslateMulti2D": ("a1ea15bd9e1b08e1", "a1e4c5258bc94947"),
+    "TranslateMulti2D/2d": ("8fe1bde947c09c78", "653ee9d8021e9b75"),
+    "Elongate2D": ("fe45f9c18fec754d", "b6bb45bf72d36efd"),
+    "Elongate2D/2d": ("4c3e5ced39c3acc6", "33c411c1c42f7022"),
+    "BoundsOverride3": ("80212f680c140e8c", "07352b39e1a796f0"),
+    "BoundsOverride2": ("2bb67452fdaecd74", "0969c1ad56e02e49"),
+    "BoundsOverride2/2d": ("a8ec44fd267b0aa3", "cc0843b3a009585d"),
+    "flange": ("d63a7184aab939ea", "ed705940a69c8174"),
+    "showerhead": ("8fa0c8b449602bcd", "0fc4cae09fd54662"),
+    "bolt": ("cca51a5a82f33a38", "278f62f80189703e"),
+    "knurled": ("be0af495114e2bb7", "3b9ff7918baa2964"),
+    "nine-types": ("d907d8e881c26278", "ee7f337c7fe46d4d"),
+    "every-type": ("97f575bfd40c6d68", "f02c74e35ab23b17"),
+}
+
+
+def _without_sites(src):
+    """A baked source with its short-circuit lines taken out: the site
+    macros after the prelude and each Difference's early return."""
+    src = re.sub(r"#undef GSDF_NSITES\n#define GSDF_NSITES \d+\n#ifndef GSDF_SITE\n"
+                 r"#define GSDF_SITE\(k, skip\) \(skip\)\n#endif\n", "", src)
+    return re.sub(r" *if \(GSDF_SITE\(\d+, a > [^\n]*\)\) return a;\n", "", src)
+
+
+def _digest(text):
+    return hashlib.sha256(text.encode()).hexdigest()[:16]
+
+
+@pytest.fixture(scope="module")
+def codegen_trees():
+    return _codegen_trees()
+
+
+@pytest.mark.parametrize("name", list(SOURCE_HASHES))
+def test_source_unchanged_but_for_sites(name, codegen_trees):
+    """A tree with no Difference over a bounded subtrahend emits the same
+    text as before, and so does every tree in parametric mode (its bounds
+    would depend on the parameter vector); a tree with sites differs only
+    by its site lines."""
+    tree = codegen_trees[name]
+    baked, parametric = SOURCE_HASHES[name]
+    src = tree_source(tree)
+    assert _digest(tree_source(tree, parametric=True)) == parametric
+    assert "GSDF_SITE" not in tree_source(tree, parametric=True)
+    assert _digest(_without_sites(src)) == baked
+    sites = tree_sites(tree)
+    assert ("GSDF_SITE" in src) == bool(sites)
+    assert src.count("if (GSDF_SITE(") == len(sites)
+    if sites:
+        assert f"#define GSDF_NSITES {len(sites)}\n" in src
+
+
+#: trees whose root declares a finite lower bound beyond NODE_CASES' own:
+#: a 2D union and translate of bounded children, a hole plate
+BOUND_CASES = {
+    "OpUnion2D-bounded": lambda b, t: b.union2d(
+        b.new_circle(0.4), b.translate2d(_sq(b), 0.3, 0.1), b.new_circle(0.2)
+    ),
+    "Translate2D-bounded": lambda b, t: b.translate2d(b.new_circle(0.4), 0.2, -0.3),
+    "Intersection-screw": lambda b, t: b.intersection(_screw(b, t), b.new_sphere(1.0)),
+}
+
+
+def _bound_trees():
+    """name -> tree for every recipe whose root has a finite lower bound."""
+    trees = {}
+    for name, recipe in {**NODE_CASES, **BOUND_CASES}.items():
+        tree = recipe(TorchBuilder(), TORCH_KIT)
+        if np.isfinite(tree.lower_bound()):
+            trees[name] = tree
+    return trees
+
+
+BOUND_TREES = list(_bound_trees())
+
+
+@pytest.fixture(scope="module")
+def bound_kernels(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("g++ not installed")
+    trees = _bound_trees()
+    runs = _host_build(tmp_path_factory.mktemp("bounds"), trees)
+    return {name: (tree, runs[name, "on"]) for name, tree in trees.items()}
+
+
+def _bound_points(tree):
+    """Random points in the tree's bounds grown by 20%, and every point of
+    a grid whose axis values are the bounds' faces, the centre, 0, points
+    between, and huge and infinite values: the solid's inside, its axes,
+    faces and deepest point, and far outside."""
+    bb = tree.bounds()
+    lo, hi = bb.min.astype(np.float32), bb.max.astype(np.float32)
+    mid = (lo + hi) / np.float32(2)
+    big = np.float32(3.4e38)
+    axes = [np.array([lo[i], hi[i], mid[i], 0.0, (lo[i] + mid[i]) / 2, (hi[i] + mid[i]) / 2,
+                      np.nextafter(lo[i], np.float32(0)), 1e-7, -1e30, big, -np.inf, np.inf],
+                     np.float32) for i in range(tree.NDIM)]
+    grid = np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(-1, tree.NDIM)
+    return np.concatenate([points(tree, seed=5), grid]).astype(np.float32)
+
+
+def test_every_bounded_class_has_a_case():
+    """Each class that states a lower bound is the root of a case below."""
+    from gsdf_tpu_torch.core.node import Shader
+
+    classes = {type(t) for t in _bound_trees().values()}
+    stated = set()
+    todo = [Shader]
+    while todo:
+        c = todo.pop()
+        todo.extend(c.__subclasses__())
+        if "lower_bound" in vars(c) and c is not Shader:
+            stated.add(c)
+    concrete = {c for c in map(type, _codegen_trees().values())} | classes
+    for c in list(stated):  # the shared 3D/2D bases count through their classes
+        if c.__name__.startswith("_"):
+            stated.discard(c)
+            stated |= {k for k in c.__subclasses__()}
+    assert stated <= classes, stated - classes
+    assert classes <= concrete
+
+
+@pytest.mark.parametrize("name", BOUND_TREES)
+def test_lower_bound_holds(name, bound_kernels):
+    """The g++-built emitted function never returns less than its root's
+    lower_bound() at a non-NaN point: random points, the axes, faces and
+    centre, huge and infinite coordinates. A primitive centred at the
+    origin reaches its bound at its centre."""
+    tree, run = bound_kernels[name]
+    lo = tree.lower_bound()
+    got = run(_bound_points(tree))
+    real = got[~np.isnan(got)]
+    assert real.size and real.min() >= lo, (float(real.min()), float(lo))
+    if type(tree).__name__ in ("Sphere", "BoxShape", "Cylinder", "Circle", "Rectangle"):
+        assert run(np.zeros((1, tree.NDIM), np.float32))[0] == lo
+
+
+#: trees whose short circuits are held to the arithmetic without them: the
+#: parts, the recipes with a site, and a plate whose minuend (a sphere) is
+#: NaN wherever a coordinate is
+def _exact_trees():
+    b = TorchBuilder()
+    hole = b.new_cylinder(0.1, 3.0)
+    holes = b.union(*[b.translate(hole, 0.5 * np.cos(a), 0.5 * np.sin(a), 0)
+                      for a in np.linspace(0, 6, 9)])
+    trees = {name: _parts(name)[1] for name in PARTS}
+    trees["sphere-holes"] = b.difference(b.new_sphere(1.0), holes)
+    for name in ("Difference", "Difference2D", "nine-types"):
+        trees[name] = _codegen_trees()[name]
+    trees["Difference2D/2d"] = NODE_CASES["Difference2D"](TorchBuilder(), TORCH_KIT)
+    return trees
+
+
+EXACT_TREES = list(_exact_trees())
+
+
+@pytest.fixture(scope="module")
+def exact_kernels(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("g++ not installed")
+    trees = _exact_trees()
+    return trees, _host_build(tmp_path_factory.mktemp("exact"), trees, tuple(SITE_MODES))
+
+
+def _site_points(tree, record, seed=7):
+    """Points that test each short-circuit site: random ones; a dense band
+    whose minuend a lies within 1 of the site's threshold; lines along each
+    axis from band points and from the 16 points deepest in the subtrahend
+    (the least b, where a wrong bound would show), keeping their
+    points with a near the threshold and, bisected, the float32 steps
+    where a crosses it with 16 ulps on either side (a tie and its
+    neighbours); band points with one coordinate NaN, huge or infinite (a
+    NaN minuend, a minuend near infinity). `record` gives each point's a
+    and b at each site."""
+    rng = np.random.default_rng(seed)
+    nd = tree.NDIM
+    base = points(tree, n=100_000, seed=seed)
+    out = [base[:4096]]
+    ab = record(base)
+    reach = np.float32(tree.bounds().diagonal() / 2)
+    for k, (_, _, lo) in enumerate(tree_sites(tree)):
+        threshold = -np.float32(lo)
+        band = base[np.abs(ab[:, k, 0] - threshold) <= 1]
+        band = band[rng.permutation(len(band))[:4096]]
+        deep = base[np.argsort(ab[:, k, 1])[:16]]
+        assert len(band) > 100, (k, len(band))
+        out.append(band)
+        starts = [(p, j % nd) for j, p in enumerate(band[:24])]
+        starts += [(p, ax) for p in deep for ax in range(nd)]
+        for p, ax in starts:
+            line = np.repeat(p[None], 4001, 0)
+            line[:, ax] = p[ax] + np.linspace(-reach, reach, 4001, dtype=np.float32)
+            a = record(line)[:, k, 0]
+            out.append(line[np.abs(a - threshold) <= np.abs(lo)])
+            above = a > threshold
+            for i in np.nonzero(above[1:] != above[:-1])[0][:4]:
+                lo_z, hi_z = line[i, ax], line[i + 1, ax]  # bisect to adjacent floats
+                q = p.copy()
+                for _ in range(64):
+                    q[ax] = (lo_z + hi_z) / np.float32(2)
+                    if q[ax] in (lo_z, hi_z):
+                        break
+                    if (record(q[None])[0, k, 0] > threshold) == above[i]:
+                        lo_z = q[ax]
+                    else:
+                        hi_z = q[ax]
+                steps = [lo_z]
+                for direction in (np.float32(np.inf), np.float32(-np.inf)):
+                    w = lo_z
+                    for _ in range(16):
+                        w = np.nextafter(w, direction)
+                        steps.append(w)
+                q = np.repeat(p[None], len(steps), 0)
+                q[:, ax] = steps
+                out.append(q)
+        specials = np.float32([np.nan, np.inf, -np.inf, 3.4e38, -3.4e38, 1e38])
+        for p in band[:64]:
+            for c in range(nd):
+                q = np.repeat(p[None], len(specials), 0)
+                q[:, c] = specials
+                out.append(q)
+    out.append(np.full((1, nd), np.nan, np.float32))
+    return np.concatenate(out).astype(np.float32)
+
+
+@pytest.mark.parametrize("name", EXACT_TREES)
+def test_short_circuits_exact(name, exact_kernels):
+    """The baked source with its short circuits equals, bit for bit, the
+    same source with every site off (the arithmetic of a source without
+    them) at random points, in a dense band around each site's threshold,
+    at the float32 steps across it, and at band points with a NaN, huge or
+    infinite coordinate, and equals the plain torch version wherever a
+    finite result is finite there; the skips engage on each site."""
+    trees, runs = exact_kernels
+    tree = trees[name]
+    sites = tree_sites(tree)
+    if not sites:
+        assert "GSDF_SITE" not in tree_source(tree)
+        p = points(tree, seed=7)
+        assert np.array_equal(runs[name, "on"](p).view(np.uint32),
+                              runs[name, "off"](p).view(np.uint32))
+        return
+    record = runs[name, "record"]
+    p = _site_points(tree, record)
+    on, off = runs[name, "on"](p), runs[name, "off"](p)
+    assert np.array_equal(on.view(np.uint32), off.view(np.uint32))
+    ab = record(p)
+    for k, (_, _, lo) in enumerate(sites):
+        a, b = ab[:, k, 0], ab[:, k, 1]
+        reached = ~np.isnan(a)
+        skipped = reached & (a > -lo) & ~np.isnan(p).any(axis=1)
+        assert skipped.any() and (reached & ~skipped).any()
+        # the steps across the threshold reach it within a few ulps
+        assert (np.abs(a + lo) <= 8 * np.spacing(-lo)).any(), sites[k]
+        assert (skipped & (a <= -lo * np.float32(1.1))).any()
+        if name == "showerhead" and k == 1:  # on a hole's axis just above the plate
+            assert (skipped & (a <= -lo * np.float32(1.1)) & (b <= lo * np.float32(0.9))).any()
+    if name == "sphere-holes":
+        assert np.isnan(ab[:, 0, 0]).any()
+    near = (np.abs(p) < 1e6).all(axis=1)  # huge ones overflow differently in torch
+    ref = torch_distance(tree, p[near])
+    np.testing.assert_allclose(on[near], ref, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(on[near] < 0, ref < 0)
 
 
 def test_every_type_tree_matches_jax():

@@ -240,6 +240,17 @@ def test_raymarch_without_a_device_needs_the_card():
         trm.raymarch_image(_scene(Builder()), 16, 16, steps=4)
 
 
+def test_short_circuit_counter_needs_the_card():
+    """The short-circuit counter is K8's counting form: on the CPU it
+    raises, and counts nothing."""
+    tree = _scene(Builder())
+    cam = trm.camera(tree, 0.6, 0.5, 2.4)
+    rk.SHORT_CIRCUITS.clear()
+    with pytest.raises(ValueError, match="CUDA device"):
+        rk.count_short_circuits(tree, cam, 16, 16, 4, 0.8, 1, "cpu")
+    assert rk.SHORT_CIRCUITS == {}
+
+
 def test_turntable_and_ui_write_a_gif(tmp_path):
     """ui (a turntable of UIConfig's frames) writes an animated GIF whose
     frames are raymarch_image's at the orbit's yaws."""
