@@ -152,18 +152,19 @@
    0 libraries loaded, each mesh equal to the dense parametric render);
    each pruned kernel timed at flange 400 against its plain version.
    Then the raymarcher (visual/raymarch.py, pipeline/interactive.py): K8
-   and K8p (csrc/raymarch.cu, built in phase 2 for the five parts and
-   three random trees) were held in phase 2 against raymarch_plain at
-   128 x 128, aa 2, 196 steps: every pixel and every ray's evaluation
-   count, K8p against K8, and K8p's library with a structurally equal
-   tree's values. K8 and K8p are then held to raymarch_plain, in every
+   and K8p (csrc/raymarch.cu, built in phase 2 for the six parts and
+   three random trees; the sixth, the GEB sculpture, is built inside
+   spans.recording() and its textsdf.* spans and counters printed) were
+   held in phase 2 against raymarch_plain at 128 x 128, aa 2, 196 steps:
+   every pixel and every ray's evaluation count, K8p against K8, and
+   K8p's library with a structurally equal tree's values. K8 and K8p are then held to raymarch_plain, in every
    pixel and every ray's evaluation count, at each frame the path below
    makes at the default view: 512 x 512 at aa 1 and at aa 3 (1536^2
    supersamples, box-filtered), the drag frame (256 x 256, 72 steps) and
    the ui frame (800 x 600), on the flange, showerhead, bolt, knurled
-   cylinder and the sphere. Then on those parts, on the default device:
-   raymarch_image with the JAX package's defaults (512 x 512, 196 steps,
-   auto_relax, aa 1) and at aa 3 (one launch a frame, one synchronising
+   cylinder, the sphere and the GEB sculpture. Then on those parts, on the
+   default device: raymarch_image with the JAX package's defaults (512 x
+   512, 196 steps, auto_relax, aa 1) and at aa 3 (one launch a frame, one synchronising
    call: the fetch; the image equal to plain's); the InteractiveViewer
    driven by on_press / on_move / on_scroll / on_release (drag frames 256
    x 256 at 72 steps, full frames 512 x 512 at aa 3, counted apart; no
@@ -186,12 +187,13 @@
    queue's counter, K8, and the box filter at aa 3: never more), and the
    lone-ray probe: the 512 x 512 aa 1 ray that evaluates most, alone in a
    1 x 1 frame, the floor of any design at that frame (rm_lone_ray).
-   On a tree whose code has short-circuit sites (a Difference that skips
-   a subtrahend which cannot change its result, codegen/cuda.py), K8's
-   counting form (ray_kernels.count_short_circuits) runs each frame too,
-   held to plain like K8, and each row gives the share of lane
-   evaluations and of warp turns that skipped at each site, and a second
-   bound and device share on the work K8 runs: the counted work less
+   K8's counting form (ray_kernels.count_short_circuits) runs each frame
+   too, held to plain like K8 (on a tree with no short-circuit site it is
+   K8 itself). On a tree whose code has sites (a Difference that skips a
+   subtrahend which cannot change its result, codegen/cuda.py) each row
+   also gives the share of lane evaluations and of warp turns that
+   skipped at each site, and a second bound and device share on the work
+   K8 runs: the counted work less
    each site's lane skips times its subtrahend's ops (rm_site_ops). The
    shares are also read over the view mix of the benchmark's viewer cell
    (torch_bench/traffic/view.json), one frame a stratum at 512 x 512 aa 3
@@ -1021,8 +1023,9 @@ def pruned_kernel_times(tree, resdiv, dev, gk, n_params, card):
     return row
 
 
-#: the raymarcher's parts: the five that the MC phases render
-RM_PARTS = ("flange", "showerhead", "bolt", "knurled", "sphere")
+#: the raymarcher's parts: the five that the MC phases render, and the GEB
+#: sculpture of the ui-geb viewer (the benchmark's geb.view cell)
+RM_PARTS = ("flange", "showerhead", "bolt", "knurled", "sphere", "geb")
 #: and the random trees K8 and K8p are held to plain on
 RM_FUZZ = ("fuzz0", "fuzz3", "fuzz4")
 #: the path's frames at full width, (label, width, height, steps, aa): raymarch_image's
@@ -1030,6 +1033,28 @@ RM_FUZZ = ("fuzz0", "fuzz3", "fuzz4")
 #: frame, a frame of ui(UIConfig())
 RM_FRAMES = (("image aa1", 512, 512, 196, 1), ("image aa3", 512, 512, 196, 3),
              ("drag", 256, 256, 72, 1), ("ui", 800, 600, 196, 1))
+
+
+def rm_geb():
+    """flagships.build_geb(), built inside spans.recording(); logs its
+    build's `textsdf.*` spans (spans.summary()) and textsdf.COUNTS. None
+    in a checkout without it."""
+    from gsdf_tpu_torch import flagships, spans
+
+    if not hasattr(flagships, "build_geb"):
+        return None
+    from gsdf_tpu_torch.forge import textsdf
+
+    spans.clear()
+    t0 = time.perf_counter()
+    with spans.recording():
+        tree = flagships.build_geb()
+    ms = (time.perf_counter() - t0) * 1e3
+    text = {k: v for k, v in spans.summary().items() if k.startswith("textsdf.")}
+    log(f"geb built in {ms:.3f} ms: spans {json.dumps(text)}, counters "
+        f"{json.dumps(textsdf.COUNTS)}")
+    spans.clear()
+    return tree
 
 
 def rm_args(tree, width, height, steps, aa, dev):
@@ -1197,13 +1222,15 @@ def raymarch_compare(name, tree, other, dev, w=128, h=128, aa=2, steps=196):
 
 def rm_slider(tree):
     """(node, name) of the continuous parameter a slider edits: the first
-    cylinder's or sphere's radius in BFS order."""
+    cylinder's or sphere's radius in BFS order; on a tree with neither, the
+    first 3D offset's amount."""
     from gsdf_tpu_torch.eval.parametric import param_spec
 
-    for node, name, _ in param_spec(tree):
-        if (type(node).__name__, name) in (("Cylinder", "r"), ("Sphere", "r")):
-            return node, name
-    raise RuntimeError("no radius to slide")
+    for wanted in ((("Cylinder", "r"), ("Sphere", "r")), (("Offset", "off"),)):
+        for node, name, _ in param_spec(tree):
+            if (type(node).__name__, name) in wanted:
+                return node, name
+    raise RuntimeError("no radius or offset to slide")
 
 
 def rm_view_mix() -> tuple:
@@ -1296,9 +1323,9 @@ def raymarch_kernel_times(parts, dev, card):
             forms[form] = {**ptxas_usage(gk.build_log(tree, rk.TEMPLATES, p)),
                            "blocks_per_sm": rm_occupancy(tree, p), "sms": sms}
         out[name], refs[name] = {"forms": forms}, {}
-        # each site's skipped ops a lane ({} on a tree with none, or on a
-        # checkout before short circuits)
-        site_ops = rm_site_ops(tree) if hasattr(rk, "count_short_circuits") else {}
+        # each site's skipped ops a lane ({} on a tree with none); None on
+        # a checkout before short circuits
+        site_ops = rm_site_ops(tree) if hasattr(rk, "count_short_circuits") else None
         for label, w, h, steps, aa in RM_FRAMES:
             args = rm_args(tree, w, h, steps, aa, dev)
             img, evals = rk.raymarch(tree, *args, evals=True)
@@ -1311,7 +1338,7 @@ def raymarch_kernel_times(parts, dev, card):
             differing = {"raymarch": rm_levels(img, ref), "raymarch_param": rm_levels(pimg, ref)}
             ev_diff = int((evals != ref_evals).sum()) + int((pevals != ref_evals).sum())
             shorts, skipped = None, 0
-            if site_ops:
+            if site_ops is not None:
                 rk.SHORT_CIRCUITS.clear()
                 cimg, cevals = rk.count_short_circuits(tree, *args)
                 differing["raymarch_sites"] = rm_levels(cimg, ref)
@@ -1411,6 +1438,9 @@ def raymarch_study(dev, card) -> int:
 
     parts = {name: getattr(flagships, f"build_{name}")() for name in RM_PARTS[:4]}
     parts["sphere"] = Builder().new_sphere(1.0)
+    geb = rm_geb()
+    if geb is not None:
+        parts["geb"] = geb
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=32) as pool:
         futs = [pool.submit(gk.build, tree, rk.TEMPLATES, p)
@@ -2212,9 +2242,10 @@ def main() -> int:
     # a structurally equal tree with other values, for each parametric library
     others = {name: perturbed(tree) for name, tree in point_trees.items()}
     golden_parts = ("flange", "showerhead", "bolt", "knurled")
-    # the raymarcher's trees: the five parts and three random trees
+    # the raymarcher's trees: the six parts and three random trees
     rm_parts = {name: trees[name] for name in RM_PARTS if name in trees}
     rm_parts["sphere"] = Builder().new_sphere(1.0)
+    rm_parts["geb"] = rm_geb()
     rm_trees = {**rm_parts, **{name: trees[name] for name in RM_FUZZ if name in trees}}
     t0 = time.perf_counter()
     # one nvcc per library, all queued together; 32 at a time keep the

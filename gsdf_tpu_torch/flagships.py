@@ -6,6 +6,9 @@ package builds them, so both packages hash and render the same part:
 - ISO M3 bolt          (reference examples/bolt/main.go:27-40)
 - knurled cylinder     (reference examples/knurled-cylinder/knurled-cyl.go:57-110)
 
+the GEB sculpture of the ui-geb viewer (reference
+examples/ui-geb/uigeb.go:22-89), which the benchmark's viewer cell renders,
+
 and the 2D scenes that the example programs render to PNG:
 
 - the plant pot's revolved profile (reference examples/plantpot/main.go:33-64)
@@ -15,6 +18,8 @@ and the 2D scenes that the example programs render to PNG:
 from __future__ import annotations
 
 import math
+
+import numpy as np
 
 from .core import Builder
 from .forge import threads
@@ -161,6 +166,74 @@ def knurled_scene(bld: Builder, diameter=20.0, hole_diam=0.0, length=0.0,
     return bld.smooth_difference(sk, obj, bld.translate(vent, 0, 0, length / 2))
 
 
+def _scaling_mat4(sx, sy, sz):
+    m = np.eye(4, dtype=np.float32)
+    m[0, 0], m[1, 1], m[2, 2] = sx, sy, sz
+    return m
+
+
+def geb_scene(bld: Builder):
+    """The GEB cover sculpture: the glyphs G, E and B extruded, scaled to a
+    square section and intersected at right angles, two ways (reference
+    examples/ui-geb/uigeb.go:22-89). The font is the port's embedded one;
+    textsdf is imported here, not with this module."""
+    from .forge.textsdf import Font, FontConfig
+
+    f = Font()
+    f.configure(FontConfig(relative_glyph_tolerance=0.01, builder=bld))
+    f.load_default()
+    G = f.glyph("G")
+    E = f.glyph("E")
+    B = f.glyph("B")
+
+    szG = G.bounds().size()
+    szE = E.bounds().size()
+    szB = B.bounds().size()
+
+    # center letters
+    G = bld.translate2d(G, -float(G.bounds().min[0]) - szG[0] / 2,
+                        -float(G.bounds().min[1]) - szG[1] / 2)
+    E = bld.translate2d(E, -float(E.bounds().min[0]) - szE[0] / 2,
+                        -float(E.bounds().min[1]) - szE[1] / 2)
+    B = bld.translate2d(B, -float(B.bounds().min[0]) - szB[0] / 2,
+                        -float(B.bounds().min[1]) - szB[1] / 2)
+    round1 = 0.01
+    G = bld.offset2d(G, -round1)
+    E = bld.offset2d(E, -round1)
+    B = bld.offset2d(B, -round1)
+
+    szz = float(max(szG.max(), szE.max(), szB.max()))
+    sclG = (szz / szG[0], szz / szG[1])
+    sclE = (szz / szE[0], szz / szE[1])
+    sclB = (szz / szB[0], szz / szB[1])
+
+    L = szz
+    G3 = bld.extrude(G, L)
+    E3 = bld.extrude(E, L)
+    B3 = bld.extrude(B, L)
+
+    G3 = bld.transform(G3, _scaling_mat4(sclG[0], sclG[1], 1))
+    E3 = bld.transform(E3, _scaling_mat4(sclE[0], sclE[1], 1))
+    B3 = bld.transform(B3, _scaling_mat4(sclB[0], sclB[1], 1))
+
+    round2 = 0.025
+    G3 = bld.offset(G3, -round2)
+    E3 = bld.offset(E3, -round2)
+    B3 = bld.offset(B3, -round2)
+
+    deg90 = math.pi / 2
+    GEB1 = bld.intersection(G3, bld.rotate(E3, deg90, (0, 1, 0)))
+    GEB1 = bld.intersection(GEB1, bld.rotate(B3, -deg90, (1, 0, 0)))
+
+    GEB2 = bld.intersection(E3, bld.rotate(G3, deg90, (0, 1, 0)))
+    GEB2 = bld.intersection(GEB2, bld.rotate(B3, -deg90, (1, 0, 0)))
+
+    GEB2 = bld.translate(GEB2, 0, float(GEB2.bounds().size()[1]) * 1.5, 0)
+
+    shape = bld.union(GEB1, GEB2)
+    return bld.scale(shape, 0.3)
+
+
 def plantpot_profile(bld: Builder):
     """The plant pot base's polygon profile, which the example revolves
     about the axis and renders to a 1080 x 1080 PNG (reference
@@ -233,3 +306,8 @@ def build_bolt():
 def build_knurled():
     bld = Builder()
     return _checked(bld, knurled_scene(bld))
+
+
+def build_geb():
+    bld = Builder()
+    return _checked(bld, geb_scene(bld))

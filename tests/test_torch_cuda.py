@@ -32,8 +32,9 @@ with another tree's values through one library, one library across
 frame sizes, steps and aa, the showerhead's short-circuit sites (K8 and
 its counting form at the viewer's rest frame, the counter),
 the launch's argument checks, the entry
-points' default device, the viewer's frames with no build after the
-first, and pipelined drag frames one view behind.
+points' default device, the GEB sculpture's viewer frames against the
+CPU's, the viewer's frames with no build after the first, and pipelined
+drag frames one view behind.
 
 Tolerances: case grids, ids, counts, K3's block offsets and edge ranks and tri_idx exact; t, soup and welded
 vertices bit-identical (the kernels are built -fmad=false and fed the
@@ -1182,6 +1183,26 @@ def test_raymarch_entry_points_default_to_the_card(cuda_device):
     img = vrm.raymarch_image(tree, 32, 24, steps=32)
     np.testing.assert_array_equal(img, dev_img.cpu().numpy())
     np.testing.assert_array_equal(img, vrm.raymarch_image(tree, 32, 24, steps=32, device="cpu"))
+
+
+def test_geb_viewer_frames_match_plain(cuda_device):
+    """The GEB sculpture (text glyphs extruded, non-uniformly scaled and
+    intersected, a shared subtree under two parents) through the viewer's
+    rest frame on the card at aa 3, and after a drag, equal to the same
+    viewer's frames on the CPU in every pixel."""
+    from gsdf_tpu_torch.pipeline import InteractiveViewer
+
+    tree = flagships.build_geb()
+    frames = {}
+    for dev in (cuda_device, "cpu"):
+        v = InteractiveViewer(tree, width=48, height=40, aa=3, steps=196, device=dev)
+        frames[str(dev)] = [v.render_current("full")]
+        v.on_press(0, 0)
+        v.on_move(-17, 9)
+        v.on_release()
+        frames[str(dev)].append(v.render_current("full"))
+    for a, b in zip(frames[str(cuda_device)], frames["cpu"]):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_viewer_on_card_builds_nothing_after_the_first_frame(cuda_device):

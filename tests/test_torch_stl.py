@@ -59,9 +59,15 @@ def _docstrings(tree):
 def test_port_uses_nothing_of_the_jax_package():
     """No module of the port, nor chip_smoke.py, imports jax or gsdf_tpu,
     and none holds a string that names a path into gsdf_tpu/ (a citation
-    of the reference by file and line, "gsdf_tpu/x.py:12", is none)."""
+    of the reference by file and line, "gsdf_tpu/x.py:12", is none). The
+    text modules are among them, and the font they load is the port's own
+    file."""
     sources = _port_sources()
     assert len(sources) > 30
+    textsdf = os.path.join(REPO, "gsdf_tpu_torch", "forge", "textsdf")
+    assert {os.path.join(textsdf, f) for f in ("__init__.py", "font.py")} <= set(sources)
+    from gsdf_tpu_torch.forge.textsdf import font
+    assert os.path.commonpath([font.EMBEDDED_FONT_PATH, textsdf]) == textsdf
     citation = re.compile(r"^gsdf_tpu/[\w/.]+:\d+(-\d+)?$")
     bad = []
     for path in sources:
