@@ -190,14 +190,15 @@
    K8's counting form (ray_kernels.count_short_circuits) runs each frame
    too, held to plain like K8 (on a tree with no short-circuit site it is
    K8 itself). On a tree whose code has sites (a Difference that skips a
-   subtrahend which cannot change its result, codegen/cuda.py) each row
-   also gives the share of lane evaluations and of warp turns that
-   skipped at each site, and a second bound and device share on the work
-   K8 runs: the counted work less
-   each site's lane skips times its subtrahend's ops (rm_site_ops). The
-   shares are also read over the view mix of the benchmark's viewer cell
+   subtrahend which cannot change its result, a union that skips a member
+   whose point bound the members run before it undercut, codegen/cuda.py)
+   each row also gives the share of lane evaluations and of warp turns
+   that skipped at each site, and a second bound and device share on the
+   work K8 runs: the counted work less each site's lane skips times its
+   skipped function's ops (rm_site_ops). The shares are also read over
+   the view mix of the benchmark's viewer cell
    (torch_bench/traffic/view.json), one frame a stratum at 512 x 512 aa 3
-   (rm_short_circuits).
+   (rm_short_circuits), with each union's sites summed.
    `python3 chip_smoke.py --raymarch` runs these raymarch kernel rows
    alone; a copy of this script beside another checkout measures that
    checkout's K8.
@@ -1248,9 +1249,9 @@ def rm_view_mix() -> tuple:
 
 
 def rm_site_ops(tree) -> dict:
-    """Each short-circuit site's subtrahend's ops a point
-    (bounds.tree_ops_per_point), by the Difference's function name: the
-    work a lane that skips there does not do."""
+    """Each short-circuit site's skipped function's ops a point
+    (bounds.tree_ops_per_point), by the site's name: the work a lane that
+    skips there does not do."""
     from gsdf_tpu_torch import bounds
     from gsdf_tpu_torch.codegen.cuda import Codegen
 
@@ -1269,7 +1270,10 @@ def rm_short_circuits(tree, dev, w=512, h=512, steps=196, aa=3):
     counting form (ray_kernels.count_short_circuits) over the view mix's
     frames (rm_view_mix), one at the centre of each yaw x pitch stratum,
     512 x 512 aa 3 (the viewer's rest frame), and the frames'
-    evaluations. None on a tree with no site."""
+    evaluations; per union with sites ("<union>/<member>") its sites'
+    lane evaluations and warp turns summed, and their shares that skipped
+    a member (a warp turn counted once a site it reached). None on a
+    tree with no site."""
     from gsdf_tpu_torch.eval import ray_kernels as rk
     from gsdf_tpu_torch.visual import raymarch as vrm
 
@@ -1285,8 +1289,19 @@ def rm_short_circuits(tree, dev, w=512, h=512, steps=196, aa=3):
                              plo + (j + 0.5) / n_pitch * (phi - plo), cam_dist)
             evaluations += int(rk.count_short_circuits(tree, cam, w, h, steps, relax, aa,
                                                        dev)[1].sum())
+    counts = ("lanes", "lane_skips", "turns", "turn_skips")
+    unions = {}
+    for site, c in rk.SHORT_CIRCUITS.items():
+        if "member" in c:
+            u = unions.setdefault(site.split("/")[0], dict.fromkeys(counts, 0))
+            for k in counts:
+                u[k] += c[k]
     return {"frames": n_yaw * n_pitch, "evaluations": evaluations,
-            "shares": rk.short_circuit_shares()}
+            "shares": rk.short_circuit_shares(),
+            "unions": {name: {"lanes": u["lanes"], "turns": u["turns"],
+                              "lane_share": u["lanes"] and u["lane_skips"] / u["lanes"],
+                              "warp_share": u["turns"] and u["turn_skips"] / u["turns"]}
+                       for name, u in unions.items()}}
 
 
 def raymarch_kernel_times(parts, dev, card):

@@ -28,8 +28,25 @@ point with a NaN coordinate (lo holds at non-NaN points). Each such test
 is a site, numbered in emission order and wrapped as GSDF_SITE(k, skip);
 the source defines GSDF_NSITES and GSDF_SITE(k, skip) as `(skip)` unless
 the includer has defined it (csrc/raymarch_sites.cu counts each site's
-skips). A tree with no Difference over a bounded subtrahend, and every
-parametric source, has no site and no such lines.
+skips). A tree with no Difference over a bounded subtrahend and no union
+site (below), and every parametric source, has no site and no such lines.
+
+Union sites (baked mode). A union is fminf of its members in the tree's
+order. A class may state a point bound (`Shader.emit_point_bound`): a
+function lo(p) of its coordinates such that wherever lo(p) is no NaN the
+node's value is no NaN and >= lo(p). Where the members that ran already
+give a running minimum a < lo(p) of a bounded member, that member's value
+is > a or NaN, so the union's result cannot be it: the member is skipped
+and its term is NaN, which fminf drops. The fminf chain over the terms in
+the tree's order is then the same, bit for bit: until the first term
+below the skipped value both chains hold values no smaller than it (or
+NaN), and from that term on they are equal. Members without a bound (and
+OpUnion's translate-group loops) run first; of two members both bounded,
+the one whose bound is lower in most of a warp's lanes runs first, in
+all of them (a loop over the two positions, each member inlined once).
+Each bounded member is a site, named after the
+union's and the member's functions: a union of extruded letters (the GEB
+sculpture) skips the half that lies beyond the nearer half's value.
 
 `tree_source(tree)` ends with the root function the kernel templates call,
 `gsdf_tree(px, py, pz)` for a 3D tree and `gsdf_tree(px, py)` for a 2D one,
@@ -104,6 +121,27 @@ GSDF_HD float gsdf_cbrt(float x) {  // x >= 0
 """
 
 
+#: what a two-member union site needs (ops3.OpUnion._emit_either_first),
+#: in the sources that have one: a warp-uniform choice, and a value the
+#: compiler cannot see through (both the identity off the card)
+UNION_HELPERS = """\
+GSDF_HD bool gsdf_warp_majority(bool x) {
+#ifdef __CUDA_ARCH__
+    const unsigned m = __activemask();
+    return 2 * __popc(__ballot_sync(m, x)) > __popc(m);
+#else
+    return x;
+#endif
+}
+GSDF_HD float gsdf_opaque(float x) {
+#ifdef __CUDA_ARCH__
+    asm volatile("" : "+f"(x));
+#endif
+    return x;
+}
+"""
+
+
 def lit(x) -> str:
     """A C float literal that parses back to exactly float32(x)."""
     v = np.float32(x)
@@ -137,8 +175,13 @@ class Codegen:
         self._n_arrays: dict = {}  # function name -> arrays emitted
         self._stack: list = []  # nodes whose bodies are being emitted
         self._sizes: dict = {}  # id(node) -> floats in its subtree's slice
-        #: the short-circuit sites, in their GSDF_SITE order: (the
-        #: Difference's function, its subtrahend's function, the bound)
+        self._bounds: dict = {}  # tree hash -> point-bound function name or None
+        self.union_helpers = False  # the source needs UNION_HELPERS
+        #: the short-circuit sites, in their GSDF_SITE order: (the site's
+        #: name, the function it skips, the bound: the Difference's
+        #: subtrahend's lower bound, or None for a union member's point
+        #: bound). A Difference's site is named by its function, a union's
+        #: as "<union's function>/<member's function>"
         self.sites: list = []
 
     @staticmethod
@@ -244,24 +287,54 @@ class Codegen:
         ordered = f"!isnan({' + '.join(args)})"
         return f"if (GSDF_SITE({k}, a > {lit(-lo)} && {ordered})) return a;\n"
 
-    def emit(self, node: Shader) -> str:
-        key = self._key(node)
-        name = self._names.get(key)
-        if name is not None:
-            return name
-        name = self.name(node)
-        self._stack.append(node)
-        try:
-            body = node.emit_cuda(self)  # emits children and arrays first
-        finally:
-            self._stack.pop()
+    def point_bound(self, node: Shader) -> str | None:
+        """The name of `node`'s point-bound function (`emit_point_bound`,
+        `<function>_lo` of the node's coordinates), emitted on first use;
+        None where its class states none, and in parametric mode."""
+        if self.parametric:
+            return None
+        key = node.tree_hash()
+        if key not in self._bounds:
+            self._stack.append(node)
+            try:
+                body = node.emit_point_bound(self)  # emits the children's first
+            finally:
+                self._stack.pop()
+            self._bounds[key] = body and self._function(f"{self.name(node)}_lo", node, body)
+        return self._bounds[key]
+
+    def union_site(self, node: Shader, member: Shader) -> int:
+        """Number a site of union `node` that skips `member` where the
+        members run before it undercut the member's point bound (the
+        module note); returns its GSDF_SITE index."""
+        fn = self.emit(member)
+        name = f"{self.name(node)}/{fn}"
+        if any(site == name for site, _, _ in self.sites):  # a member twice
+            name += f"#{len(self.sites)}"
+        self.sites.append((name, fn, None))
+        return len(self.sites) - 1
+
+    def _function(self, name: str, node: Shader, body: str) -> str:
+        """Append the function `name` of `node`'s coordinates with `body`."""
         params = ("float px", "float py", "float pz")[: node.NDIM]
         if self.parametric:
             params = ("const float* P",) + params
         indented = "\n".join("    " + ln for ln in body.splitlines())
         self._chunks.append(f"GSDF_HD float {name}({', '.join(params)}) {{\n{indented}\n}}")
-        self._names[key] = name
         return name
+
+    def emit(self, node: Shader) -> str:
+        key = self._key(node)
+        name = self._names.get(key)
+        if name is not None:
+            return name
+        self._stack.append(node)
+        try:
+            body = node.emit_cuda(self)  # emits children and arrays first
+        finally:
+            self._stack.pop()
+        self._names[key] = self._function(self.name(node), node, body)
+        return self._names[key]
 
     def source(self) -> str:
         sites = ""
@@ -270,6 +343,8 @@ class Codegen:
                 f"#undef GSDF_NSITES\n#define GSDF_NSITES {len(self.sites)}\n"
                 "#ifndef GSDF_SITE\n#define GSDF_SITE(k, skip) (skip)\n#endif\n"
             )
+        if self.union_helpers:
+            sites += UNION_HELPERS
         return PRELUDE + sites + "\n" + "\n\n".join(self._chunks) + "\n"
 
 

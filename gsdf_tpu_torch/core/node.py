@@ -201,6 +201,22 @@ class Shader:
         fmaxf needs (fmaxf(NaN, y) is y). False where unknown."""
         return False
 
+    def emit_point_bound(self, cg) -> str | None:
+        """The body of a C function of this node's own coordinates (the
+        arguments of its baked function) that bounds the baked function
+        from below point by point, or None where the class states none.
+        The contract, at every point, NaN coordinates included: where the
+        bound's value is no NaN, the node's value is no NaN and no less
+        than it. A class states one only with its derivation from its own
+        emitted float32 operations beside it (lower_bound's rules); a
+        transform's bound is its child's at the very coordinates it passes
+        the child, so the child's contract covers them whatever they are.
+        `cg.point_bound(child)` names a child's bound function (None where
+        it has none). The codegen's OpUnion skips a member where the
+        members run before it already undercut its point bound
+        (codegen/cuda.py, the module note)."""
+        return None
+
     def emit_cuda(self, cg) -> str:
         """CUDA C body of this node's distance function. The arguments are
         `px, py, pz` (3D) or `px, py` (2D), after `const float* P` in

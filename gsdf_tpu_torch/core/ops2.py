@@ -115,6 +115,24 @@ class Extrusion(Shader3D):
             "return fminf(0.0f, fmaxf(d, wy)) + sqrtf(qd * qd + qw * qw);"
         )
 
+    # With h finite and pz no NaN, wy is no NaN and >= -h/2, whatever d
+    # (fmaxf drops a NaN d; qd and qw are then non-negative and no NaN), so
+    # the first term lies in [-h/2, 0] and the result is no NaN. Where
+    # wy <= 0 the first term is >= fminf(0, wy) = wy and the root >= 0, so
+    # the sum is >= wy. Where wy > 0 the first term is 0 and the result
+    # sqrtf(qd*qd + wy*wy) >= sqrtf(fl(wy*wy)), which is wy exactly in
+    # binary float32 wherever wy*wy is normal (wy >= 2^-63) or overflows
+    # (inf); only below 2^-63 does the square underflow, and the root may
+    # fall under wy there, but never under 0. So the result is >=
+    # fl(wy - 2^-63) everywhere: the point bound, NaN exactly where pz is
+    def emit_point_bound(self, cg):
+        if not finite(self.h / _f32(2)):
+            return None
+        return f"return fabsf(pz) - {cg.lit(self.h / _f32(2))} - {cg.lit(2.0 ** -63)};"
+
+    def nan_free(self):
+        return finite(self.h / _f32(2))
+
     def bounds(self) -> Box:
         b2 = self.s.bounds()
         hd2 = self.h / 2

@@ -140,10 +140,75 @@ class OpUnion(Shader3D):
                 "}"
             )
             terms.append(f"dg{gi}")
-        terms += [cg.call(s, "px", "py", "pz") for s in ordered]
+        los = [cg.point_bound(s) for s in ordered[1:]]
+        if ordered:  # with no loop and every other member bounded, it runs first unbounded
+            alone = not looped and len(ordered) > 2 and all(los)
+            los.insert(0, None if alone else cg.point_bound(ordered[0]))
+        if not any(los):
+            terms += [cg.call(s, "px", "py", "pz") for s in ordered]
+        elif not looped and len(ordered) == 2 and all(los):
+            lines.append(self._emit_either_first(cg, ordered, los))
+            terms += ["t0", "t1"]
+        else:
+            lines.append(self._emit_bounded_last(cg, terms, ordered, los))
+            terms += [f"t{i}" for i in range(len(ordered))]
         lines.append(f"float d = {terms[0]};")
         lines += [f"d = fminf(d, {t});" for t in terms[1:]]
         lines.append("return d;")
+        return "\n".join(lines)
+
+    def _emit_either_first(self, cg, ordered, los) -> str:
+        """Two members, both bounded: the one whose bound is lower runs
+        first, and the other unless the first's value undercuts its bound
+        (a site each). A warp takes the order most of its lanes would
+        (gsdf_warp_majority), so it runs each member at most once. One loop
+        over the two positions, so each member's function is inlined once;
+        its coordinates pass through gsdf_opaque, so that the compiler
+        hoists no part of either member out of the loop (nvcc for sm_90a
+        did, and K8 on the GEB sculpture took 122 registers, not 79). t0
+        and t1 hold the members' values in the tree's order, NaN where
+        skipped."""
+        k = cg.union_site(self, ordered[0])
+        cg.union_site(self, ordered[1])
+        cg.union_helpers = True
+        calls = [cg.call(s, "qx", "qy", "qz") for s in ordered]
+        return "\n".join([
+            f"const float l0 = {los[0]}(px, py, pz), l1 = {los[1]}(px, py, pz);",
+            "const bool ordered = !isnan(px + py + pz);",
+            "const int first = gsdf_warp_majority(l1 < l0);",
+            "float t0 = NAN, t1 = NAN, a = NAN;",
+            "#pragma unroll 1",
+            "for (int i = 0; i < 2; ++i) {",
+            "    const int j = i ^ first;",
+            "    const float lo = j ? l1 : l0;",
+            f"    if (i == 1 && GSDF_SITE({k} + j, a < lo && ordered)) break;",
+            "    const float qx = gsdf_opaque(px), qy = gsdf_opaque(py), qz = gsdf_opaque(pz);",
+            f"    a = j ? {calls[1]} : {calls[0]};",
+            "    if (j) t1 = a; else t0 = a;",
+            "}",
+        ])
+
+    def _emit_bounded_last(self, cg, terms, ordered, los) -> str:
+        """The groups' loops (`terms`) and the members without a bound
+        (`los`: the first member where all others have one) run first; then
+        each bounded member in the tree's order, unless the running minimum
+        `a` of what ran undercuts its bound (a site each). t<i> holds
+        member i's value, NaN where skipped."""
+        lines = [f"const float t{i} = {cg.call(s, 'px', 'py', 'pz')};"
+                 for i, (s, lo) in enumerate(zip(ordered, los)) if not lo]
+        ran = terms + [f"t{i}" for i, lo in enumerate(los) if not lo]
+        lines.append(f"float a = {ran[0]};")
+        lines += [f"a = fminf(a, {t});" for t in ran[1:]]
+        lines.append("const bool ordered = !isnan(px + py + pz);")
+        for i, (s, lo) in enumerate(zip(ordered, los)):
+            if lo:
+                k = cg.union_site(self, s)
+                lines += [f"float t{i} = NAN;",
+                          f"const float lo{i} = {lo}(px, py, pz);",
+                          f"if (!GSDF_SITE({k}, a < lo{i} && ordered)) {{",
+                          f"    t{i} = {cg.call(s, 'px', 'py', 'pz')};",
+                          f"    a = fminf(a, t{i});",
+                          "}"]
         return "\n".join(lines)
 
     # fminf(x, NaN) is x, so the result is NaN or one of its terms: a
@@ -237,6 +302,18 @@ class _Intersection(_Binary):
 
     def nan_free(self):
         return self.s1.nan_free() or self.s2.nan_free()
+
+    # fmaxf(a, b) >= a where a is no NaN, and likewise b. A child's point
+    # bound, where it is no NaN, holds a NaN-free child there: so the
+    # greater of the children's bounds (fmaxf drops a NaN one) is one, and
+    # NaN only where each child's is
+    def emit_point_bound(self, cg):
+        args = ", ".join(("px", "py", "pz")[: self.NDIM])
+        los = [lo for lo in map(cg.point_bound, self.children()) if lo]
+        if not los:
+            return None
+        terms = [f"{lo}({args})" for lo in los]
+        return f"return {terms[0]};" if len(terms) == 1 else f"return fmaxf({', '.join(terms)});"
 
     def bounds(self) -> Box:
         return self.s1.bounds().intersect(self.s2.bounds())
@@ -432,14 +509,24 @@ class Transform(Shader3D):
         )
         return self.s.distance(q)
 
-    def emit_cuda(self, cg) -> str:
+    def _q(self, cg) -> list:
+        """The lines that map p into the child's frame, qx, qy, qz."""
         lines = []
         t_inv = cg.p(self, "t_inv")
         for i, q in enumerate(("qx", "qy", "qz")):
             r0, r1, r2, t = t_inv[4 * i : 4 * i + 4]
             lines.append(f"float {q} = px * {r0} + py * {r1} + pz * {r2} + {t};")
-        lines.append(f"return {cg.call(self.s, 'qx', 'qy', 'qz')};")
-        return "\n".join(lines)
+        return lines
+
+    def emit_cuda(self, cg) -> str:
+        return "\n".join(self._q(cg) + [f"return {cg.call(self.s, 'qx', 'qy', 'qz')};"])
+
+    # the child's bound at the q the function computes, by the same
+    # operations: the child's contract holds at any q. No nan_free: at a
+    # non-NaN p with an infinite coordinate q can be NaN (inf * 0, inf - inf)
+    def emit_point_bound(self, cg):
+        lo = cg.point_bound(self.s)
+        return lo and "\n".join(self._q(cg) + [f"return {lo}(qx, qy, qz);"])
 
     def bounds(self) -> Box:
         return mul_box3(self.t, self.s.bounds())
@@ -459,9 +546,17 @@ class Translate(Shader3D):
     def distance(self, p):
         return self.s.distance(p - mx.const(self.p_, p))
 
-    def emit_cuda(self, cg) -> str:
+    def _args(self, cg) -> tuple:
         x, y, z = cg.p(self, "p_")
-        return f"return {cg.call(self.s, f'px - {x}', f'py - {y}', f'pz - {z}')};"
+        return f"px - {x}", f"py - {y}", f"pz - {z}"
+
+    def emit_cuda(self, cg) -> str:
+        return f"return {cg.call(self.s, *self._args(cg))};"
+
+    # the child's bound at the p - offset the function computes
+    def emit_point_bound(self, cg):
+        lo = cg.point_bound(self.s)
+        return lo and f"return {lo}({', '.join(self._args(cg))});"
 
     # p - offset is no NaN at a non-NaN p where the offset is finite: the
     # child's bound and NaN-freeness carry over
@@ -491,6 +586,20 @@ class Offset(Shader3D):
 
     def emit_cuda(self, cg) -> str:
         return f"return {cg.call(self.s, 'px', 'py', 'pz')} + {cg.p(self, 'off')};"
+
+    # With off finite: where the child's bound lo is no NaN, so is lo + off,
+    # and the child's value c >= lo is no NaN, so c + off is no NaN and
+    # >= fl(lo + off) (rounding is monotone); and lo + off is NaN where lo
+    # is. A NaN-free child stays NaN-free: c + off with c no NaN and off
+    # finite is no NaN
+    def emit_point_bound(self, cg):
+        lo = cg.point_bound(self.s)
+        if lo is None or not finite(self.off):
+            return None
+        return f"return {lo}(px, py, pz) + {cg.lit(self.off)};"
+
+    def nan_free(self):
+        return finite(self.off) and self.s.nan_free()
 
     def bounds(self) -> Box:
         bb = self.s.bounds()

@@ -2,6 +2,8 @@
 // each short-circuit site of the tree's code counted (raymarch.cu's note
 // on GSDF_RM_COUNT_SITES). Built per tree that has sites, as a library of
 // its own, behind `eval/ray_kernels.py::count_short_circuits`: the image
-// and the evaluation counts are K8's, from the same generated code.
+// and the evaluation counts are K8's, from the same generated code. A site
+// is a Difference's skipped subtrahend or a union's skipped member
+// (codegen/cuda.py): both count alike.
 #define GSDF_RM_COUNT_SITES 1
 #include "raymarch.cu"

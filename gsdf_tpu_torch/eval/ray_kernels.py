@@ -24,7 +24,8 @@ structure, the tree's continuous parameters a launch argument
 (raymarch.py:150-169).
 
 Short circuits. A tree's baked source may return a Difference's minuend
-before it evaluates a subtrahend that cannot change the result
+before it evaluates a subtrahend that cannot change the result, and skip a
+union's member whose point bound the members run before it undercut
 (codegen/cuda.py). `count_short_circuits` runs K8's counting form on
 such a tree (csrc/raymarch_sites.cu, a library of its own around the
 same generated code): the same image and evaluations, and per site how
@@ -51,11 +52,13 @@ TEMPLATES = ("raymarch.cu",)
 #: K8's counting form, built only for a tree with short-circuit sites
 SITES_TEMPLATES = ("raymarch_sites.cu",)
 #: what K8's counting launches (count_short_circuits) saw at each short-circuit site,
-#: summed over calls since the last clear: the Difference's function name
-#: -> {"subtrahend": its function, "bound": its lower bound, "lanes": lane
-#: evaluations that reached the site, "lane_skips": of them those that
-#: skipped the subtrahend, "turns": warp turns in which a lane reached it,
-#: "turn_skips": of them those in which every such lane skipped}
+#: summed over calls since the last clear: the site's name (codegen.cuda's
+#: Codegen.sites) -> {"subtrahend": a Difference's subtrahend's function and
+#: "bound": its lower bound, or "member": a union member's function and
+#: "bound": "point"; "lanes": lane evaluations that reached the site,
+#: "lane_skips": of them those that skipped the function, "turns": warp
+#: turns in which a lane reached it, "turn_skips": of them those in which
+#: every such lane skipped}
 SHORT_CIRCUITS: dict = {}
 _SITE_COUNTS = ("lanes", "lane_skips", "turns", "turn_skips")
 _sites: dict = {}  # tree hash -> tree_sites(tree)
@@ -217,11 +220,11 @@ def sites(tree) -> list:
 
 
 def short_circuit_shares() -> dict:
-    """{site: {"subtrahend", "lane_share", "warp_share"}} from
+    """{site: {"subtrahend" or "member", "lane_share", "warp_share"}} from
     SHORT_CIRCUITS: the share of lane evaluations reaching the site that
-    skipped its subtrahend, and of warp turns reaching it in which the
+    skipped its function, and of warp turns reaching it in which the
     whole warp skipped it (None where none reached it)."""
-    return {site: {"subtrahend": c["subtrahend"],
+    return {site: {**{k: c[k] for k in ("subtrahend", "member") if k in c},
                    "lane_share": c["lane_skips"] / c["lanes"] if c["lanes"] else None,
                    "warp_share": c["turn_skips"] / c["turns"] if c["turns"] else None}
             for site, c in SHORT_CIRCUITS.items()}
@@ -244,7 +247,7 @@ def count_short_circuits(tree, camera, width, height, steps, relax, aa, device):
     """K8's counting form on the 3D `tree`'s short-circuit sites: the
     image and evaluations of raymarch(..., evals=True), and per site the
     lane evaluations and warp turns that reached it and that skipped its
-    subtrahend, added to SHORT_CIRCUITS (one synchronisation). On a tree
+    function, added to SHORT_CIRCUITS (one synchronisation). On a tree
     with no site, K8 itself and nothing counted. A card's: the plain
     version has no warps."""
     if entry_device(device).type == "cpu":
@@ -282,8 +285,9 @@ def _raymarch(tree, camera, width, height, steps, relax, aa, device, parametric,
                              device=device)
         launch("raymarch", device, lib.gsdf_raymarch_sites, *args, counts.data_ptr())
         for (site, sub, lo), row in zip(counted, counts.tolist()):
-            total = SHORT_CIRCUITS.setdefault(
-                site, {"subtrahend": sub, "bound": float(lo), **dict.fromkeys(_SITE_COUNTS, 0)})
+            skips = ({"member": sub, "bound": "point"} if lo is None
+                     else {"subtrahend": sub, "bound": float(lo)})
+            total = SHORT_CIRCUITS.setdefault(site, {**skips, **dict.fromkeys(_SITE_COUNTS, 0)})
             for k, v in zip(_SITE_COUNTS, row):
                 total[k] += v
     else:

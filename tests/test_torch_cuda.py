@@ -94,6 +94,7 @@ TREES = {
     "bolt": flagships.build_bolt,
     "knurled": flagships.build_knurled,
     "every-type": _every_type,
+    "geb": flagships.build_geb,
 }
 
 
@@ -1107,8 +1108,12 @@ def test_raymarch_short_circuits(cuda_device):
     counts, and its counting form (count_short_circuits) equal the plain
     version in every pixel and every ray's evaluation count; every
     evaluation reaches both sites, and the counter reads skips at each, by
-    lane and by whole warp turn, while K8 itself counts nothing. A sphere
-    has no site: its code and its K8 are as before, and nothing is
+    lane and by whole warp turn, while K8 itself counts nothing. The GEB
+    sculpture's union skips the half whose point bound the other half's
+    value undercuts: the half with the lower bound runs first, so each
+    evaluation reaches one of the two union sites, and each reads skips
+    by lane and by warp turn; all three forms equal plain there too. A
+    sphere has no site: its code and its K8 are as before, and nothing is
     counted."""
     from gsdf_tpu_torch.eval import ray_kernels as rk
 
@@ -1132,6 +1137,26 @@ def test_raymarch_short_circuits(cuda_device):
         assert 0 < c["lane_skips"] < c["lanes"] and 0 < c["turn_skips"] < c["turns"], (site, c)
     for share in rk.short_circuit_shares().values():
         assert 0 < share["warp_share"] < 1 and 0 < share["lane_share"] < 1, share
+
+    geb = flagships.build_geb()
+    gargs = _frame_args(geb, 512, 512, 3, 196, cuda_device)
+    rk.SHORT_CIRCUITS.clear()
+    img = rk.raymarch(geb, *gargs)
+    eimg, eevals = rk.raymarch(geb, *gargs, evals=True)
+    torch.cuda.synchronize()
+    assert rk.SHORT_CIRCUITS == {}
+    cimg, evals = rk.count_short_circuits(geb, *gargs)
+    ref, ref_evals = rk.raymarch_plain(geb, *gargs, evals=True)
+    torch.cuda.synchronize()
+    assert torch.equal(img, ref) and torch.equal(eimg, ref) and torch.equal(cimg, ref)
+    assert torch.equal(eevals, ref_evals) and torch.equal(evals, ref_evals)
+    sites = rk.sites(geb)
+    assert len(sites) == 2 and all(lo is None for _, _, lo in sites)
+    assert set(rk.SHORT_CIRCUITS) == {site for site, _, _ in sites}
+    assert sum(c["lanes"] for c in rk.SHORT_CIRCUITS.values()) == int(evals.sum())
+    for site, c in rk.SHORT_CIRCUITS.items():
+        assert c["bound"] == "point" and c["member"] in site, (site, c)
+        assert 0 < c["lane_skips"] < c["lanes"] and 0 < c["turn_skips"] < c["turns"], (site, c)
 
     sphere = Builder().new_sphere(1.0)
     assert rk.sites(sphere) == []

@@ -39,7 +39,7 @@ from gsdf_tpu.forge import threads as jax_threads
 from gsdf_tpu.geometry.boxes import Box as JaxBox
 from gsdf_tpu_torch import Builder as TorchBuilder
 from gsdf_tpu_torch import flagships as torch_flagships
-from gsdf_tpu_torch.codegen.cuda import lit, tree_sites, tree_source
+from gsdf_tpu_torch.codegen.cuda import Codegen, lit, tree_sites, tree_source
 from gsdf_tpu_torch.convert import NODE_TYPES, from_reference_tree
 from gsdf_tpu_torch.core import mathx as mx
 from gsdf_tpu_torch.core.wrappers import with_bounds as torch_with_bounds
@@ -435,14 +435,17 @@ def _codegen_trees():
     trees["every-type"] = chip_smoke.every_type_tree(
         TorchBuilder(), torch_threads, torch_with_bounds, TorchBox
     )
+    trees["geb"] = torch_flagships.build_geb()
     return trees
 
 
 #: how a g++ build below takes each tree's short-circuit sites: as the
-#: source defines them, all off (every Difference evaluates its subtrahend,
-#: the arithmetic of a source without sites), or off and recording each
-#: site's minuend `a` (the macro expands inside the Difference's function)
-#: and subtrahend `b` (a line the build adds after b's)
+#: source defines them, all off (every Difference evaluates its subtrahend
+#: and every union each member, the arithmetic of a source without sites),
+#: or off and recording each site's `a` (the macro expands inside the
+#: site's function: a Difference's minuend, a union's running minimum) and
+#: a Difference's subtrahend `b` (a line the build adds after b's) or a
+#: union member's point bound (a line the build adds before the site)
 SITE_MODES = {
     "on": "",
     "off": "#define GSDF_SITE(k, skip) false\n",
@@ -451,9 +454,13 @@ SITE_MODES = {
 
 
 def _recording(src):
-    """A baked source whose site functions also store their b."""
-    return re.sub(r"(if \(GSDF_SITE\((\d+), [^\n]*\)\) return a;\n( *)float b = [^\n]*\n)",
-                  r"\1\3gsdf_seen[2 * \2 + 1] = b;\n", src)
+    """A baked source whose site functions also store their b, and whose
+    union sites their member's bound."""
+    src = re.sub(r"(if \(GSDF_SITE\((\d+), [^\n]*\)\) return a;\n( *)float b = [^\n]*\n)",
+                 r"\1\3gsdf_seen[2 * \2 + 1] = b;\n", src)
+    return re.sub(r"( *)if \((i == 1 && )?(!?)GSDF_SITE\(([^,]+), a < (lo\d*) && ",
+                  r"\1if (\2true) gsdf_seen[2 * (\4) + 1] = \5;\n\1if (\2\3GSDF_SITE(\4, a < \5 && ",
+                  src)
 
 
 def _host_build(d, trees, modes=("on",)):
@@ -667,6 +674,7 @@ SOURCE_HASHES = {
     "knurled": ("be0af495114e2bb7", "3b9ff7918baa2964"),
     "nine-types": ("d907d8e881c26278", "ee7f337c7fe46d4d"),
     "every-type": ("97f575bfd40c6d68", "f02c74e35ab23b17"),
+    "geb": ("b5ef4e9f45079856", "1338a43df52b676c"),
 }
 
 
@@ -688,22 +696,31 @@ def codegen_trees():
 
 
 @pytest.mark.parametrize("name", list(SOURCE_HASHES))
-def test_source_unchanged_but_for_sites(name, codegen_trees):
-    """A tree with no Difference over a bounded subtrahend emits the same
-    text as before, and so does every tree in parametric mode (its bounds
-    would depend on the parameter vector); a tree with sites differs only
-    by its site lines."""
+def test_source_unchanged_but_for_sites(name, codegen_trees, monkeypatch):
+    """A tree with no Difference over a bounded subtrahend and no union
+    member with a point bound emits the same text as before, and so does
+    every tree in parametric mode (its bounds would depend on the
+    parameter vector); a tree with Difference sites differs only by their
+    lines. A tree with union sites emits the text of before where no class
+    states a point bound."""
     tree = codegen_trees[name]
     baked, parametric = SOURCE_HASHES[name]
     src = tree_source(tree)
     assert _digest(tree_source(tree, parametric=True)) == parametric
     assert "GSDF_SITE" not in tree_source(tree, parametric=True)
-    assert _digest(_without_sites(src)) == baked
     sites = tree_sites(tree)
+    unions = [site for site, _, lo in sites if lo is None]
     assert ("GSDF_SITE" in src) == bool(sites)
-    assert src.count("if (GSDF_SITE(") == len(sites)
+    assert src.count("if (GSDF_SITE(") == len(sites) - len(unions)
     if sites:
         assert f"#define GSDF_NSITES {len(sites)}\n" in src
+    if unions:
+        assert src.count("_lo(float px, float py, float pz) {") >= 1
+        monkeypatch.setattr(Codegen, "point_bound", lambda self, node: None)
+        assert tree_sites(tree) == [site for site in sites if site[2] is not None]
+        src = tree_source(tree)
+    assert "_lo(" not in src
+    assert _digest(_without_sites(src)) == baked
 
 
 #: trees whose root declares a finite lower bound beyond NODE_CASES' own:
@@ -791,9 +808,126 @@ def test_lower_bound_holds(name, bound_kernels):
         assert run(np.zeros((1, tree.NDIM), np.float32))[0] == lo
 
 
+def _geb_half(i):
+    """The GEB sculpture's i-th union member: a triple intersection of
+    extruded letters (the second translated)."""
+    return torch_flagships.build_geb().s.joined[i]
+
+
+def _slab(b, h=0.8):
+    return b.extrude(b.new_hexagon(0.5), h)
+
+
+#: trees whose root states a point bound (Shader.emit_point_bound): each
+#: class that states one, an extrusion so thin (and one flat) that its
+#: height's square underflows, transforms that rotate and scale, an
+#: intersection with one unbounded child, and the GEB sculpture's halves
+POINT_BOUND_CASES = {
+    "Extrusion": lambda b: _slab(b),
+    "Extrusion-thin": lambda b: _slab(b, 1e-30),
+    "Extrusion-flat": lambda b: _slab(b, 0.0),
+    "Transform": lambda b: b.rotate(_slab(b), 0.7, (1, 0.3, 0.2)),
+    "Transform-scaled": lambda b: b.transform(_slab(b), np.diag([0.6, 1.7, 1.0, 1.0])),
+    "Offset": lambda b: b.offset(_slab(b), -0.05),
+    "Translate": lambda b: b.translate(_slab(b), 0.3, -0.2, 0.5),
+    "Intersection": lambda b: b.intersection(_slab(b), b.rotate(_slab(b), 1.2, (0, 1, 0))),
+    "Intersection-one": lambda b: b.intersection(b.new_sphere(0.6), _slab(b)),
+    "geb-first": lambda b: _geb_half(0),
+    "geb-second": lambda b: _geb_half(1),
+}
+
+
+@pytest.fixture(scope="module")
+def point_bound_kernels(tmp_path_factory):
+    """One g++ build of each case's baked function and its point bound:
+    {name: (tree, eval(p) -> (n, 2) values and bounds)}."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ not installed")
+    d = tmp_path_factory.mktemp("point_bounds")
+    shim = ["#include <math.h>", "#include <stdint.h>", "#include <string.h>"]
+    trees = {name: recipe(TorchBuilder()) for name, recipe in POINT_BOUND_CASES.items()}
+    for j, (name, tree) in enumerate(trees.items()):
+        cg = Codegen()
+        root = cg.emit(tree)
+        lo = cg.point_bound(tree)
+        assert lo, name
+        (d / f"tree{j}.cuh").write_text(f"// {name}\n{cg.source()}")
+        shim.append(
+            f'namespace tree{j} {{\n#include "tree{j}.cuh"\n}}\n'
+            f'extern "C" void eval{j}(const float* p, float* out, long n) {{\n'
+            f"    for (long k = 0; k < n; ++k) {{\n"
+            f"        out[2 * k] = tree{j}::{root}(p[3 * k], p[3 * k + 1], p[3 * k + 2]);\n"
+            f"        out[2 * k + 1] = tree{j}::{lo}(p[3 * k], p[3 * k + 1], p[3 * k + 2]);\n"
+            "    }\n}"
+        )
+    (d / "shim.cpp").write_text("\n".join(shim) + "\n")
+    so = d / "libshim.so"
+    subprocess.run(["g++", "-O1", "-ffp-contract=off", "-std=c++17", "-shared", "-fPIC",
+                    "-I", str(d), "-o", str(so), str(d / "shim.cpp")],
+                   check=True, capture_output=True, timeout=600)
+    lib = ctypes.CDLL(str(so))
+
+    def evaluator(j):
+        fn = getattr(lib, f"eval{j}")
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long]
+
+        def run(p):
+            p = np.ascontiguousarray(p, np.float32)
+            out = np.empty((len(p), 2), np.float32)
+            fn(p.ctypes.data, out.ctypes.data, len(p))
+            return out
+
+        return run
+
+    return {name: (tree, evaluator(j)) for j, (name, tree) in enumerate(trees.items())}
+
+
+def test_every_point_bound_class_has_a_case():
+    """Each 3D class that states a point bound is the root of a case, and
+    only those classes state one (Intersection2D shares Intersection's,
+    over 2D children, none of which states one)."""
+    from gsdf_tpu_torch.core.node import Shader, Shader3D
+
+    stated, todo = set(), [Shader3D]
+    while todo:
+        c = todo.pop()
+        todo.extend(c.__subclasses__())
+        if c.emit_point_bound is not Shader.emit_point_bound:
+            stated.add(c.__name__)
+    roots = {type(r(TorchBuilder())).__name__ for r in POINT_BOUND_CASES.values()}
+    assert stated == roots == {"Extrusion", "Transform", "Offset", "Translate", "Intersection"}
+
+
+@pytest.mark.parametrize("name", list(POINT_BOUND_CASES))
+def test_point_bound_holds(name, point_bound_kernels):
+    """Wherever the g++-built point bound is no NaN, the baked value is no
+    NaN and no less than it: at random points, the bounds' axes, faces and
+    centre, huge and infinite coordinates, a NaN coordinate, and heights
+    just above and below 2^-63, where a square underflows. The bound is
+    reached (outside the slab over the section, the value is |z| - h/2)."""
+    tree, run = point_bound_kernels[name]
+    p = _bound_points(tree)
+    rng = np.random.default_rng(11)
+    tiny = np.float32(2.0 ** rng.uniform(-75, -55, 4096)) * rng.choice([-1, 1], 4096)
+    near = p[rng.integers(0, len(p), 4096)].copy()
+    near[:, 2] = tiny.astype(np.float32)
+    with_nan = p[rng.integers(0, len(p), 3 * 1024)].copy()
+    with_nan[np.arange(len(with_nan)), np.arange(len(with_nan)) % 3] = np.nan
+    p = np.concatenate([p, near, with_nan]).astype(np.float32)
+    value, bound = run(p).T
+    held = ~np.isnan(bound)
+    assert held.mean() > 0.5
+    assert not np.isnan(value[held]).any()
+    assert (value[held] >= bound[held]).all(), p[held][value[held] < bound[held]][:4]
+    assert (value[held] == bound[held]).any()
+
+
 #: trees whose short circuits are held to the arithmetic without them: the
-#: parts, the recipes with a site, and a plate whose minuend (a sphere) is
-#: NaN wherever a coordinate is
+#: parts, the recipes with a site, a plate whose minuend (a sphere) is NaN
+#: wherever a coordinate is; and unions with point-bounded members: the GEB
+#: sculpture and every-type (a union member after an unbounded one), two
+#: slabs whose bounds tie on the plane between them, and three slabs (the
+#: first runs first, unbounded)
 def _exact_trees():
     b = TorchBuilder()
     hole = b.new_cylinder(0.1, 3.0)
@@ -801,9 +935,14 @@ def _exact_trees():
                       for a in np.linspace(0, 6, 9)])
     trees = {name: _parts(name)[1] for name in PARTS}
     trees["sphere-holes"] = b.difference(b.new_sphere(1.0), holes)
-    for name in ("Difference", "Difference2D", "nine-types"):
+    for name in ("Difference", "Difference2D", "nine-types", "every-type", "geb"):
         trees[name] = _codegen_trees()[name]
     trees["Difference2D/2d"] = NODE_CASES["Difference2D"](TorchBuilder(), TORCH_KIT)
+    slab = b.extrude(b.new_hexagon(0.5), 0.8)
+    trees["union-slabs"] = b.union(b.translate(slab, 0, 0, -0.6), b.translate(slab, 0, 0, 0.6))
+    bar = b.offset(b.rotate(slab, 0.5, (1, 0, 0)), -0.05)
+    trees["union-three"] = b.union(b.translate(slab, 0, 0, -0.6), b.translate(bar, 0.9, 0, 0),
+                                   b.translate(slab, 0, 0, 0.7))
     return trees
 
 
@@ -818,16 +957,28 @@ def exact_kernels(tmp_path_factory):
     return trees, _host_build(tmp_path_factory.mktemp("exact"), trees, tuple(SITE_MODES))
 
 
+def _gap(rec, k, lo):
+    """How far each point passes site k's skip test, NaN where it did not
+    reach the site: a + lo for a Difference (it skips where its minuend a
+    exceeds -lo), lo(p) - a for a union member (it is skipped where the
+    running minimum a lies below its point bound lo(p)). float32 rounding
+    keeps the sign, so the site skips exactly where the gap is > 0."""
+    a, second = rec[..., k, 0], rec[..., k, 1]
+    with np.errstate(invalid="ignore"):  # inf - inf where a coordinate is infinite
+        return a + np.float32(lo) if lo is not None else second - a
+
+
 def _site_points(tree, record, seed=7):
     """Points that test each short-circuit site: random ones; a dense band
-    whose minuend a lies within 1 of the site's threshold; lines along each
-    axis from band points and from the 16 points deepest in the subtrahend
-    (the least b, where a wrong bound would show), keeping their
-    points with a near the threshold and, bisected, the float32 steps
-    where a crosses it with 16 ulps on either side (a tie and its
-    neighbours); band points with one coordinate NaN, huge or infinite (a
-    NaN minuend, a minuend near infinity). `record` gives each point's a
-    and b at each site."""
+    whose gap (_gap) lies within 1 of 0, the site's threshold; lines along
+    each axis from band points and from the 16 points deepest in the
+    skipped function (the least b of a Difference's subtrahend, the least
+    bound of a union member: where a wrong bound would show), keeping their
+    points with the gap near 0 and, bisected, the float32 steps where it
+    crosses 0 with 16 ulps on either side (a tie and its neighbours); band
+    points with one coordinate NaN, huge, infinite or a signed zero (a NaN
+    minuend, a minuend near infinity, a tie on a plane of symmetry).
+    `record` gives each point's two numbers at each site (SITE_MODES)."""
     rng = np.random.default_rng(seed)
     nd = tree.NDIM
     base = points(tree, n=100_000, seed=seed)
@@ -835,8 +986,8 @@ def _site_points(tree, record, seed=7):
     ab = record(base)
     reach = np.float32(tree.bounds().diagonal() / 2)
     for k, (_, _, lo) in enumerate(tree_sites(tree)):
-        threshold = -np.float32(lo)
-        band = base[np.abs(ab[:, k, 0] - threshold) <= 1]
+        width = 1 if lo is None else np.abs(lo)
+        band = base[np.abs(_gap(ab, k, lo)) <= 1]
         band = band[rng.permutation(len(band))[:4096]]
         deep = base[np.argsort(ab[:, k, 1])[:16]]
         assert len(band) > 100, (k, len(band))
@@ -846,9 +997,9 @@ def _site_points(tree, record, seed=7):
         for p, ax in starts:
             line = np.repeat(p[None], 4001, 0)
             line[:, ax] = p[ax] + np.linspace(-reach, reach, 4001, dtype=np.float32)
-            a = record(line)[:, k, 0]
-            out.append(line[np.abs(a - threshold) <= np.abs(lo)])
-            above = a > threshold
+            gap = _gap(record(line), k, lo)
+            out.append(line[np.abs(gap) <= width])
+            above = gap > 0
             for i in np.nonzero(above[1:] != above[:-1])[0][:4]:
                 lo_z, hi_z = line[i, ax], line[i + 1, ax]  # bisect to adjacent floats
                 q = p.copy()
@@ -856,7 +1007,7 @@ def _site_points(tree, record, seed=7):
                     q[ax] = (lo_z + hi_z) / np.float32(2)
                     if q[ax] in (lo_z, hi_z):
                         break
-                    if (record(q[None])[0, k, 0] > threshold) == above[i]:
+                    if (_gap(record(q[None]), k, lo)[0] > 0) == above[i]:
                         lo_z = q[ax]
                     else:
                         hi_z = q[ax]
@@ -869,7 +1020,7 @@ def _site_points(tree, record, seed=7):
                 q = np.repeat(p[None], len(steps), 0)
                 q[:, ax] = steps
                 out.append(q)
-        specials = np.float32([np.nan, np.inf, -np.inf, 3.4e38, -3.4e38, 1e38])
+        specials = np.float32([np.nan, np.inf, -np.inf, 3.4e38, -3.4e38, 1e38, 0.0, -0.0])
         for p in band[:64]:
             for c in range(nd):
                 q = np.repeat(p[None], len(specials), 0)
@@ -884,9 +1035,10 @@ def test_short_circuits_exact(name, exact_kernels):
     """The baked source with its short circuits equals, bit for bit, the
     same source with every site off (the arithmetic of a source without
     them) at random points, in a dense band around each site's threshold,
-    at the float32 steps across it, and at band points with a NaN, huge or
-    infinite coordinate, and equals the plain torch version wherever a
-    finite result is finite there; the skips engage on each site."""
+    at the float32 steps across it, and at band points with a NaN, huge,
+    infinite or zero coordinate, and equals the plain torch version
+    wherever a finite result is finite there; the skips engage on each
+    site, a Difference's and a union's alike."""
     trees, runs = exact_kernels
     tree = trees[name]
     sites = tree_sites(tree)
@@ -904,8 +1056,15 @@ def test_short_circuits_exact(name, exact_kernels):
     for k, (_, _, lo) in enumerate(sites):
         a, b = ab[:, k, 0], ab[:, k, 1]
         reached = ~np.isnan(a)
-        skipped = reached & (a > -lo) & ~np.isnan(p).any(axis=1)
+        skipped = reached & (_gap(ab, k, lo) > 0) & ~np.isnan(p).any(axis=1)
         assert skipped.any() and (reached & ~skipped).any()
+        if lo is None:  # a union member's point bound b: a tie's ulps, a near skip
+            gap = _gap(ab, k, lo)
+            assert (reached & (np.abs(gap) <= 8 * np.spacing(b))).any(), sites[k]
+            assert (skipped & (gap <= np.float32(0.1) * np.abs(b))).any(), sites[k]
+            if name == "union-slabs":  # on the plane between the slabs
+                assert (reached & (a == b) & ~skipped).any()
+            continue
         # the steps across the threshold reach it within a few ulps
         assert (np.abs(a + lo) <= 8 * np.spacing(-lo)).any(), sites[k]
         assert (skipped & (a <= -lo * np.float32(1.1))).any()
