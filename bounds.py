@@ -1,4 +1,6 @@
 """Each kernel's bound: the least time the card could take for its work.
+A measurement tool of chip_smoke.py, beside it: no path of the program
+(gsdf_tpu_torch) needs it.
 
     bound = max(ops / PEAK_OPS, bytes / HBM_BYTES_PER_S)
 
@@ -199,7 +201,7 @@ def raymarch_ops(tree, evaluations: int, rays: int) -> int:
     tests, the move of t) and each ray's direction and shading, counted by
     OpCounter over the plain version's pieces (eval/ray_kernels.py) with
     the tree's work taken out."""
-    from .eval import ray_kernels as rk
+    from gsdf_tpu_torch.eval import ray_kernels as rk
 
     cam = rk.pack_camera([0, 0, 2], [1, 0, 0], [0, 1, 0], [0, 0, -1], [0, 0, 0],
                          [0, 0, 1], 1, 6)

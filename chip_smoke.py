@@ -31,7 +31,7 @@
    plane offset k0. Times every kernel against its plain version with
    CUDA events, in turns (plain, kernel, kernel, plain; K3's library call
    torch.nonzero inside them), at the five main-path grids, beside its
-   bound from this run's sizes (gsdf_tpu_torch/bounds.py: the tree's
+   bound from this run's sizes (bounds.py: the tree's
    operations per corner counted on the CPU, the MC kernels' from their
    plain versions on these inputs) and K1's time over K2's.
    The parametric forms K1p and KPp (one library per tree STRUCTURE, the
@@ -959,7 +959,7 @@ def pruned_kernel_times(tree, resdiv, dev, gk, n_params, card):
     same inputs to its plain version (pruned_compare, first_batch=True).
     Returns {kernel: row}."""
     import torch
-    from gsdf_tpu_torch import bounds
+    import bounds
     from gsdf_tpu_torch.ops import compact_field, mc_emit
     from gsdf_tpu_torch.render.pruned import PrunedRenderer
 
@@ -1132,10 +1132,8 @@ def rm_occupancy(tree, parametric, threads=128) -> int:
     import ctypes
 
     from gsdf_tpu_torch import _build, kernels
-    from gsdf_tpu_torch.eval import grid_kernels as gk
-    from gsdf_tpu_torch.eval import ray_kernels as rk
 
-    gen, _, key = gk._sources(tree, rk.TEMPLATES, parametric)
+    gen, _, key = kernels._sources(tree, "raymarch", parametric)
     probe = ('#include "raymarch.cu"\n'
              'extern "C" int gsdf_rm_occupancy(int threads) {\n'
              "    int n = -1;\n"
@@ -1252,7 +1250,7 @@ def rm_site_ops(tree) -> dict:
     """Each short-circuit site's skipped function's ops a point
     (bounds.tree_ops_per_point), by the site's name: the work a lane that
     skips there does not do."""
-    from gsdf_tpu_torch import bounds
+    import bounds
     from gsdf_tpu_torch.codegen.cuda import Codegen
 
     cg = Codegen()
@@ -1325,8 +1323,9 @@ def raymarch_kernel_times(parts, dev, card):
     ({part: {frame: row, "forms": ..., "short_circuits": ...}}, {part:
     {frame: plain's image on the host}})."""
     import torch
-    from gsdf_tpu_torch import bounds
-    from gsdf_tpu_torch.eval import grid_kernels as gk
+
+    import bounds
+    from gsdf_tpu_torch import kernels
     from gsdf_tpu_torch.eval import ray_kernels as rk
     from gsdf_tpu_torch.eval.parametric import kernel_params
 
@@ -1335,7 +1334,7 @@ def raymarch_kernel_times(parts, dev, card):
     for name, tree in parts.items():
         forms = {}
         for form, p in (("raymarch", False), ("raymarch_param", True)):
-            forms[form] = {**ptxas_usage(gk.build_log(tree, rk.TEMPLATES, p)),
+            forms[form] = {**ptxas_usage(kernels.build_log(tree, "raymarch", p)),
                            "blocks_per_sm": rm_occupancy(tree, p), "sms": sms}
         out[name], refs[name] = {"forms": forms}, {}
         # each site's skipped ops a lane ({} on a tree with none); None on
@@ -1447,7 +1446,7 @@ def raymarch_study(dev, card) -> int:
     occupancy probes built in parallel first, as one JSON line. Runs
     against whichever gsdf_tpu_torch the script's folder holds, so that a
     copy of it beside an older checkout measures that checkout's K8."""
-    from gsdf_tpu_torch import Builder, flagships
+    from gsdf_tpu_torch import Builder, flagships, kernels
     from gsdf_tpu_torch.eval import grid_kernels as gk
     from gsdf_tpu_torch.eval import ray_kernels as rk
 
@@ -1458,7 +1457,7 @@ def raymarch_study(dev, card) -> int:
         parts["geb"] = geb
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=32) as pool:
-        futs = [pool.submit(gk.build, tree, rk.TEMPLATES, p)
+        futs = [pool.submit(kernels.build, tree, "raymarch", p)
                 for tree in parts.values() for p in (False, True)]
         futs += [pool.submit(rm_occupancy, tree, p) for tree in parts.values() for p in (False, True)]
         for fut in futs:
@@ -1799,7 +1798,7 @@ def dc_pass_bounds(name, corners, words, edges, voxels, tree_ops, total_ops, ran
     whose remainder after the tree's and the normals' work is the QEF's
     (with the few ops of t and the crossing points). ranked: the flag pass
     also writes the edge ranks (the earlier design, with a live pass)."""
-    from gsdf_tpu_torch import bounds
+    import bounds
 
     eval_ops = tree_ops * corners
     normal_ops = 6 * edges * tree_ops + 24 * edges  # 18 offsets, 3 differences, 3 scales
@@ -1832,12 +1831,10 @@ def dc_occupancy(tree, parametric) -> dict:
     import re
 
     from gsdf_tpu_torch import _build, kernels
-    from gsdf_tpu_torch.eval import grid_kernels as gk
-    from gsdf_tpu_torch.ops import dc_emit
 
     with open(os.path.join(kernels.CSRC, "dc_mesh.cu")) as f:
         names = re.findall(r"__global__\s+void\s+__launch_bounds__\([^)]*\)\s+(\w+)\s*\(", f.read())
-    gen, _, key = gk._sources(tree, dc_emit.TEMPLATES, parametric)
+    gen, _, key = kernels._sources(tree, "dc", parametric)
     probe = ('#include "dc_mesh.cu"\n'
              "template <typename F> static int occupancy(F f, int* out) {\n"
              "    cudaFuncAttributes a;\n"
@@ -1976,23 +1973,24 @@ def dc_study(dev, card) -> int:
     that checkout's K5. Prints one JSON line, the card, and the contract's
     last line."""
     import torch
-    from gsdf_tpu_torch import bounds, flagships, stages
-    from gsdf_tpu_torch.eval import grid_kernels as gk
+
+    import bounds
+    from gsdf_tpu_torch import flagships, kernels, stages
     from gsdf_tpu_torch.ops import dc_emit
     from gsdf_tpu_torch.render.dual_contour import DualContourRenderer
 
     bolt = flagships.build_bolt()
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=8) as pool:
-        futs = [pool.submit(gk.build, bolt, dc_emit.TEMPLATES, p) for p in (False, True)]
-        futs.append(pool.submit(gk.build, bolt))  # K2, which K5's grid is held to
+        futs = [pool.submit(kernels.build, bolt, "dc", p) for p in (False, True)]
+        futs.append(pool.submit(kernels.build, bolt))  # K2, which K5's grid is held to
         occ = {p: pool.submit(dc_occupancy, bolt, p) for p in (False, True)}
         for fut in futs:
             fut.result()
         occ = {("K5p" if p else "K5"): f.result() for p, f in occ.items()}
     log(f"dc study: 5 libraries in {time.perf_counter() - t0:.1f} s")
     for form, p in (("K5", False), ("K5p", True)):
-        text = gk.build_log(bolt, dc_emit.TEMPLATES, p)
+        text = kernels.build_log(bolt, "dc", p)
         for kernel, row in occ[form].items():
             row.update({k: v for k, v in ptxas_usage(text, kernel).items() if k != "registers"})
         log(f"  {form} per pass (registers, threads a block, blocks per SM, spills): "
@@ -2191,9 +2189,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     try:
+        import bounds
         from gsdf_tpu_torch import (
-            Builder, Flags, _build, bounds, cli, flagships, kernels, native, pipeline, render,
-            with_bounds,
+            Builder, Flags, _build, cli, flagships, kernels, native, pipeline, render, with_bounds,
         )
         from gsdf_tpu_torch.eval import (
             Batcher, new_sdf3, normals_central_diff, special,
@@ -2266,19 +2264,19 @@ def main() -> int:
     # one nvcc per library, all queued together; 32 at a time keep the
     # host's cores busy without holding every compiler in memory at once
     with ThreadPoolExecutor(max_workers=32) as pool:
-        futs = [pool.submit(gk.build, tree) for tree in trees.values()]
-        futs += [pool.submit(gk.build, battery["deep_tree_3d"])]
+        futs = [pool.submit(kernels.build, tree) for tree in trees.values()]
+        futs += [pool.submit(kernels.build, battery["deep_tree_3d"])]
         futs += [pool.submit(kernels.static_lib, n) for n in kernels.STATIC_KERNELS]
-        futs += [pool.submit(gk.build, tree, pk.POINT_TEMPLATES) for tree in point_trees.values()]
-        futs += [pool.submit(gk.build, tree, pk.FIELD_TEMPLATES) for tree, _, _ in trees2d.values()]
-        futs += [pool.submit(gk.build, tree, gk.PARAM_TEMPLATES, True) for tree in trees.values()]
-        futs += [pool.submit(gk.build, tree, pk.POINT_TEMPLATES, True)
+        futs += [pool.submit(kernels.build, tree, "point") for tree in point_trees.values()]
+        futs += [pool.submit(kernels.build, tree, "field") for tree, _, _ in trees2d.values()]
+        futs += [pool.submit(kernels.build, tree, "classified", True) for tree in trees.values()]
+        futs += [pool.submit(kernels.build, tree, "point", True)
                  for tree in point_trees.values()]
-        futs += [pool.submit(gk.build, tree, dc_emit.TEMPLATES, parametric)
+        futs += [pool.submit(kernels.build, tree, "dc", parametric)
                  for tree in dc_trees.values() for parametric in (False, True)]
-        futs += [pool.submit(gk.build, tree, gk.PRUNE_TEMPLATES, parametric)
+        futs += [pool.submit(kernels.build, tree, "prune", parametric)
                  for tree in trees.values() for parametric in (False, True)]
-        futs += [pool.submit(gk.build, tree, rk.TEMPLATES, parametric)
+        futs += [pool.submit(kernels.build, tree, "raymarch", parametric)
                  for tree in rm_trees.values() for parametric in (False, True)]
         futs += [pool.submit(rm_occupancy, tree, parametric)
                  for tree in rm_parts.values() for parametric in (False, True)]
@@ -2296,21 +2294,21 @@ def main() -> int:
     log("  parameters per part (packed as the JAX package packs them / in the kernels' "
         "layout): " + ", ".join(f"{name} {par.pack_params(trees[name]).size} / {n_params[name]}"
                                for name in golden_parts))
-    logs = [(name, gk.build_log(tree)) for name, tree in trees.items()]
+    logs = [(name, kernels.build_log(tree)) for name, tree in trees.items()]
     logs += [(name, kernels.static_build_log(name)) for name in kernels.STATIC_KERNELS]
-    logs += [(f"KP {name}", gk.build_log(trees[name], pk.POINT_TEMPLATES))
+    logs += [(f"KP {name}", kernels.build_log(trees[name], "point"))
              for name in golden_parts]
-    logs += [(f"K1p {name}", gk.build_log(trees[name], gk.PARAM_TEMPLATES, True))
+    logs += [(f"K1p {name}", kernels.build_log(trees[name], "classified", True))
              for name in golden_parts]
-    logs += [(f"KPp {name}", gk.build_log(trees[name], pk.POINT_TEMPLATES, True))
+    logs += [(f"KPp {name}", kernels.build_log(trees[name], "point", True))
              for name in golden_parts]
-    logs += [(f"K2-2D {name}", gk.build_log(trees2d[name][0], pk.FIELD_TEMPLATES))
+    logs += [(f"K2-2D {name}", kernels.build_log(trees2d[name][0], "field"))
              for name, _, _, _ in flagships.PNG_SCENES]
-    logs += [(f"K5{'p' if p else ''} bolt", gk.build_log(trees["bolt"], dc_emit.TEMPLATES, p))
+    logs += [(f"K5{'p' if p else ''} bolt", kernels.build_log(trees["bolt"], "dc", p))
              for p in (False, True)]
-    logs += [(f"K6{'p' if p else ''} {name}", gk.build_log(trees[name], gk.PRUNE_TEMPLATES, p))
+    logs += [(f"K6{'p' if p else ''} {name}", kernels.build_log(trees[name], "prune", p))
              for name in golden_parts for p in (False, True)]
-    logs += [(f"K8{'p' if p else ''} {name}", gk.build_log(tree, rk.TEMPLATES, p))
+    logs += [(f"K8{'p' if p else ''} {name}", kernels.build_log(tree, "raymarch", p))
              for name, tree in rm_parts.items() for p in (False, True)]
     for name, text in logs:
         for line in text.splitlines():
@@ -2573,22 +2571,22 @@ def main() -> int:
     # libraries of the four parts, equal outputs, then in turns
     def form(by_value, fn):
         def call():
-            gk.PARAMS_BY_VALUE = by_value
+            kernels.PARAMS_BY_VALUE = by_value
             try:
                 return fn()
             finally:
-                gk.PARAMS_BY_VALUE = None
+                kernels.PARAMS_BY_VALUE = None
         return call
 
-    gk.PARAMS_BY_VALUE = False  # one setting around all the threads' builds
+    kernels.PARAMS_BY_VALUE = False  # one setting around all the threads' builds
     try:
         with ThreadPoolExecutor(max_workers=8) as pool:
-            futs = [pool.submit(gk.build, trees[n], tm, True)
-                    for n in golden_parts for tm in (gk.PARAM_TEMPLATES, pk.POINT_TEMPLATES)]
+            futs = [pool.submit(kernels.build, trees[n], tm, True)
+                    for n in golden_parts for tm in ("classified", "point")]
             for fut in futs:
                 fut.result()
     finally:
-        gk.PARAMS_BY_VALUE = None
+        kernels.PARAMS_BY_VALUE = None
     for name, resdiv in MAIN_GRIDS:
         tree = trees[name]
         fr = FlatRenderer(tree, tree.bounds().diagonal() / resdiv, dev)
@@ -2621,7 +2619,7 @@ def main() -> int:
         log(f"  device ms KPp {name} N={n_points}: by value {val_ms:.4f} (on the card "
             f"{val_card}), through a pointer {ptr_ms:.4f} (on the card {ptr_card}, its "
             f"upload included)  [{card}]")
-    if gk.PARAMS_BY_VALUE is not None:
+    if kernels.PARAMS_BY_VALUE is not None:
         raise RuntimeError("the parameter form override was left set")
     torch.cuda.empty_cache()
 
@@ -2694,11 +2692,11 @@ def main() -> int:
         f"no memset): {dc_card}")
 
     # K5p's parameter argument by value against the pointer form, bolt@256
-    gk.PARAMS_BY_VALUE = False
+    kernels.PARAMS_BY_VALUE = False
     try:
-        gk.build(trees["bolt"], dc_emit.TEMPLATES, True)
+        kernels.build(trees["bolt"], "dc", True)
     finally:
-        gk.PARAMS_BY_VALUE = None
+        kernels.PARAMS_BY_VALUE = None
     dcr = DualContourRenderer(trees["bolt"], bolt_res, device=dev)
     dargs = (trees["bolt"], dcr.origin, dcr.res, dcr.shape(), dev, dcr.contourer.norm_step,
              dcr.contourer.sqrt_lambda)
@@ -2712,7 +2710,7 @@ def main() -> int:
         by_pointer_ms=ptr_ms, by_pointer_on_card_ms=ptr_card, by_value_on_card_ms=val_card)
     log(f"  device ms K5p bolt@256: by value {val_ms:.3f} (on the card {val_card}), through "
         f"a pointer {ptr_ms:.3f} (on the card {ptr_card}, its upload included)  [{card}]")
-    if gk.PARAMS_BY_VALUE is not None:
+    if kernels.PARAMS_BY_VALUE is not None:
         raise RuntimeError("the parameter form override was left set")
     torch.cuda.empty_cache()
 
@@ -3084,7 +3082,7 @@ def main() -> int:
         fr = FlatRenderer(pinned, res400, dev)
         first, _ = run(f"edit loop {path}: the first parametric render", expected,
                        lambda: getattr(fr, path)(parametric=True))
-        built = (dict(_build.COUNTS), len(gk._libs))
+        built = (dict(_build.COUNTS), len(kernels._libs))
         loop_ms, baked_loop_ms, sizes = [], [], [len(first[1])]
         for what, edit in edits:
             t0 = time.perf_counter()
@@ -3093,9 +3091,9 @@ def main() -> int:
                                lambda: getattr(fr, path)(parametric=True))
             loop_ms.append((time.perf_counter() - t0) * 1e3)
             exactly(f"edit loop {path}", counts, {k: 1 for k in expected})
-            if (dict(_build.COUNTS), len(gk._libs)) != built:
+            if (dict(_build.COUNTS), len(kernels._libs)) != built:
                 raise RuntimeError(f"edit loop {path}: an edit built or loaded a library: "
-                                   f"{_build.COUNTS}, {len(gk._libs)} libraries, were {built}")
+                                   f"{_build.COUNTS}, {len(kernels._libs)} libraries, were {built}")
             sizes.append(len(mesh[1]))
             # the baked loop: the edited tree is a new tree hash, a new source, an nvcc run
             compiles = _build.COUNTS["compiles"]
@@ -3105,7 +3103,7 @@ def main() -> int:
             if _build.COUNTS["compiles"] != compiles + 1:
                 raise RuntimeError(f"edit loop {path}: the baked render of an edited tree made "
                                    f"{_build.COUNTS['compiles'] - compiles} compiler runs")
-            built = (dict(_build.COUNTS), len(gk._libs))
+            built = (dict(_build.COUNTS), len(kernels._libs))
             if not same_mesh(mesh, baked):
                 raise RuntimeError(f"edit loop {path}, {what}: the parametric mesh differs from "
                                    "the baked render of the edited tree")
@@ -3127,11 +3125,11 @@ def main() -> int:
     member = holes.joined[40]
     sfr = FlatRenderer(spinned, shower.bounds().diagonal() / 350, dev)
     before = sfr.render_compact(parametric=True)
-    built = (dict(_build.COUNTS), len(gk._libs))
+    built = (dict(_build.COUNTS), len(kernels._libs))
     spinned.rebind({member: {"p_": member.p_ + np.float32([0.9, 0, 0])}})
     moved, counts = run("showerhead: one hole of the loop group moved", k1p_compact,
                         lambda: sfr.render_compact(parametric=True))
-    if (dict(_build.COUNTS), len(gk._libs)) != built:
+    if (dict(_build.COUNTS), len(kernels._libs)) != built:
         raise RuntimeError("the showerhead's member edit built or loaded a library")
     if same_mesh(before, moved) or len(before[1]) != flagships.GOLDEN_SHOWERHEAD_TRIS:
         raise RuntimeError("the showerhead's member edit is not seen in the mesh")
@@ -3163,7 +3161,7 @@ def main() -> int:
         psdf = par.ParametricSDF3(tree)
         pts = seeded_points(tree, n_points, 3, "cpu").numpy()
         psdf.evaluate(pts)  # warm-up
-        built = (dict(_build.COUNTS), len(gk._libs))
+        built = (dict(_build.COUNTS), len(kernels._libs))
         (d, whole_ms), counts = run(f"ParametricSDF3.evaluate {name} N={n_points}",
                                     ("point_eval_param",),
                                     lambda: host_ms(lambda: psdf.evaluate(pts)))
@@ -3171,7 +3169,7 @@ def main() -> int:
         d2, counts = run(f"ParametricSDF3.evaluate {name}, another tree's values",
                          ("point_eval_param",), lambda: psdf.evaluate(pts, other))
         exactly(f"ParametricSDF3.evaluate {name}, other", counts, {"point_eval_param": 1})
-        if psdf.device != dev or (dict(_build.COUNTS), len(gk._libs)) != built:
+        if psdf.device != dev or (dict(_build.COUNTS), len(kernels._libs)) != built:
             raise RuntimeError(f"ParametricSDF3 {name}: not on the card, or a second tree "
                                "built or loaded a library")
         pos = torch.from_numpy(pts).to(dev)
@@ -3298,7 +3296,7 @@ def main() -> int:
     pinned = with_bounds(body, Box([-1.2, -0.8, -0.9], [1.2, 0.8, 0.9]))
     first, _ = run("DC edit loop: the first parametric render", ("dc_mesh_param",),
                    lambda: DualContourRenderer(pinned, 0.06).render(parametric=True))
-    built = (dict(_build.COUNTS), len(gk._libs))
+    built = (dict(_build.COUNTS), len(kernels._libs))
     sizes, edit_ms = [len(first)], []
     for r in (0.3, 0.35, 0.4):
         t0 = time.perf_counter()
@@ -3307,11 +3305,11 @@ def main() -> int:
                            lambda: DualContourRenderer(pinned, 0.06).render(parametric=True))
         edit_ms.append((time.perf_counter() - t0) * 1e3)
         exactly("DC edit loop", counts, {"dc_mesh_param": 1})
-        if (dict(_build.COUNTS), len(gk._libs)) != built:
+        if (dict(_build.COUNTS), len(kernels._libs)) != built:
             raise RuntimeError(f"DC edit loop: an edit built or loaded a library: "
-                               f"{_build.COUNTS}, {len(gk._libs)} libraries, were {built}")
+                               f"{_build.COUNTS}, {len(kernels._libs)} libraries, were {built}")
         baked = DualContourRenderer(pinned, 0.06).render()
-        built = (dict(_build.COUNTS), len(gk._libs))  # the baked render built one
+        built = (dict(_build.COUNTS), len(kernels._libs))  # the baked render built one
         if tris.shape != baked.shape or np.abs(tris - baked).max(initial=0) > 1e-6:
             raise RuntimeError(f"DC edit loop, r = {r}: the parametric mesh differs from the "
                                "baked render of the edited tree")
@@ -3443,7 +3441,7 @@ def main() -> int:
     dense_fr = FlatRenderer(pinned, res400, dev)
     if not same_mesh(first, dense_fr.render_compact(parametric=True)):
         raise RuntimeError("pruned edit loop: the first render differs from the dense one")
-    built = (dict(_build.COUNTS), len(gk._libs))
+    built = (dict(_build.COUNTS), len(kernels._libs))
     sizes, loop_ms = [len(first[1])], []
     for what, edit in edits:
         t0 = time.perf_counter()
@@ -3454,9 +3452,9 @@ def main() -> int:
         exactly("pruned edit loop", counts,
                 {"tile_prune_param": 1, **{k: ppr.batches for k in PRUNED_PARAM_PATH[1:]}})
         dense = dense_fr.render_compact(parametric=True)
-        if (dict(_build.COUNTS), len(gk._libs)) != built:
+        if (dict(_build.COUNTS), len(kernels._libs)) != built:
             raise RuntimeError(f"pruned edit loop: an edit built or loaded a library: "
-                               f"{_build.COUNTS}, {len(gk._libs)} libraries, were {built}")
+                               f"{_build.COUNTS}, {len(kernels._libs)} libraries, were {built}")
         if not same_mesh(mesh, dense) or ppr.fallbacks:
             raise RuntimeError(f"pruned edit loop, {what}: the mesh differs from the dense "
                                "parametric render of the edited tree")

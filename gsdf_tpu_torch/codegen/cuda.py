@@ -63,7 +63,7 @@ tree of the same structure and an edited part needs no new build.
   followed by each child's slice in `param_children()` order. A child is
   called with `P + k`, k known here, so functions are named and shared by
   `struct_key` and two subtrees of one structure differ only in the slice
-  they read. `eval/parametric.py::kernel_index` lays a tree's vector out
+  they read. `codegen/params.py::kernel_index` lays a tree's vector out
   the same way.
 - A constant that the baked emitter derives on the host in numpy float32
   (`dims * 0.5`, `1 / factor`) is computed in the kernel by the same

@@ -8,7 +8,7 @@ type the JAX package hashes it by (float32 scalars and arrays, ints,
 bools), so the rebuilt tree has the reference's tree_hash and renders the
 same part. A node object that several parents share is converted once, so
 the rebuilt tree shares it the same way and `param_spec`, `pack_params`
-and `structural_hash` (eval/parametric.py) equal the reference's too.
+and `structural_hash` (codegen/params.py) equal the reference's too.
 """
 from __future__ import annotations
 

@@ -113,7 +113,7 @@ class Shader:
 
     def param_children(self) -> Tuple["Shader", ...]:
         """The children in the order in which the parametric kernel's
-        vector holds their parameter slices (eval/parametric.py); a node
+        vector holds their parameter slices (codegen/params.py); a node
         that loops one function over several children (OpUnion) puts
         those side by side."""
         return self.children()

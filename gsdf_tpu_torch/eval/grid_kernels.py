@@ -9,26 +9,17 @@ Pallas TPU kernels (gsdf_tpu/eval/pallas_grid.py).
   eval pass and its classify pass.
 
 Both are hand-written CUDA C++ templates (gsdf_tpu_torch/csrc/) around
-the per-tree distance function that codegen/cuda.py generates; nvcc
-builds them for sm_90a at first use, cached by source hash under
-build/gsdf_tpu_torch/. `build` also serves the two per-tree kernels of
-eval/point_kernels.py (KP, K2-2D) and the raymarcher K8
-(eval/ray_kernels.py), each a library of its own. On a CPU tensor device each wrapper runs its plain
-torch version; on a CUDA device it launches the kernel or raises.
+the per-tree distance function that codegen/cuda.py generates, one
+library per tree ("grid" of kernels.LIBRARIES), which kernels.py builds
+at first use. On a CPU tensor device each wrapper runs its plain torch
+version; on a CUDA device it launches the kernel or raises.
 
-K1 and KP also have a parametric form (`parametric=True`): the same
-templates around the tree's parametric source (codegen/cuda.py), one
-library per tree STRUCTURE, cached by `structural_hash`. The tree's
-continuous parameters (eval/parametric.py::kernel_params) go with every
-launch: by value, as a kernel parameter that the card reads from its
-constant bank (no upload, no synchronising call), up to
-codegen.cuda.PARAMS_BY_VALUE_MAX floats; a longer vector is uploaded and
-read through a pointer. Which of the two a library takes is fixed by the
-vector's length when it is built. A parametric call never builds or
-launches a baked library.
+K1 has a parametric form (`parametric=True`): the same template around
+the tree's parametric source, one library per tree STRUCTURE ("classified"),
+the tree's continuous parameters a launch argument (kernels.py).
 
 The pruned renderer's two per-tree kernels (render/pruned.py) live here
-too, baked and parametric, in one library per tree (PRUNE_TEMPLATES):
+too, baked and parametric, in one library per tree ("prune"):
 - K6c `coarse_keep`: the keep mask of the coarse tile grid, the tree's
   distance at each tile centre against S*res*sqrt(3)/2
   (gsdf_tpu/render/pruned.py::_coarse_fn, :41-98);
@@ -41,151 +32,13 @@ Grid layout is [k, j, i], x contiguous; the corner at integer index
 """
 from __future__ import annotations
 
-import ctypes
-import os
-
 import numpy as np
 import torch
 
-from .. import _build, spans
-from ..codegen.cuda import tree_source
-from .parametric import kernel_params, structural_hash
-from ..kernels import (
-    CSRC,
-    LAUNCHES,
-    NVCC_FLAGS,
-    check_out,
-    cuda_device,
-    float_args,
-    launch,
-    nvcc,
-)
-from ..ops import dc_tables, mc_emit
+from ..kernels import build, check_out, cuda_device, float_args
+from ..ops import mc_emit
 
 _f32 = np.float32
-
-TEMPLATES = ("grid_eval.cu", "classified_grid.cu")
-#: the parametric K1 is a library of its own (K2 has no parametric form:
-#: no caller of it takes `parametric` in the JAX package)
-PARAM_TEMPLATES = ("classified_grid.cu",)
-#: the pruned renderer's coarse pass (K6c) and tile atlas (K6a), baked or
-#: parametric (K6cp, K6ap): one library of both per tree or structure
-PRUNE_TEMPLATES = ("tile_prune.cu", "tile_atlas.cu")
-#: included by the templates that have a parametric form
-PARAMS_HEADER = "gsdf_params.cuh"
-#: further headers a template includes: from csrc/, and generated beside
-#: gsdf_tree.cuh (name -> the function that writes its text)
-INCLUDES = {"dc_mesh.cu": ("gsdf_scan.cuh", "gsdf_qef.cuh", "gsdf_dc_words.cuh"),
-            "classified_grid.cu": ("gsdf_case.cuh",), "tile_atlas.cu": ("gsdf_case.cuh",),
-            "raymarch.cu": ("gsdf_raymarch.cuh",),
-            "raymarch_sites.cu": ("raymarch.cu", "gsdf_raymarch.cuh")}
-GENERATED = {"dc_mesh.cu": {"gsdf_dc_tables.cuh": dc_tables.header}}
-
-_V, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-#: each per-tree template's C entry points (the last argument is the stream)
-_SIGNATURES = {
-    "grid_eval.cu": {"gsdf_grid_eval": (_I, [_V] + [_F] * 4 + [_I] * 4 + [_V])},
-    "classified_grid.cu": {"gsdf_classified_grid": (_I, [_V] * 2 + [_F] * 5 + [_I] * 4 + [_V])},
-    "point_eval.cu": {"gsdf_point_eval": (_I, [_V, ctypes.c_int64, _V, _V])},
-    "grid_eval_2d.cu": {"gsdf_grid_eval_2d": (_I, [_V] + [_F] * 4 + [_I] * 2 + [_V])},
-    "tile_prune.cu": {"gsdf_tile_prune": (_I, [_V] * 2 + [_F] * 6 + [_I] * 3 + [_V])},
-    "tile_atlas.cu": {"gsdf_tile_atlas": (_I, [_V] * 3 + [_I] * 5 + [_F] * 5 + [_V])},
-    "raymarch.cu": {"gsdf_raymarch": (_I, [_V] * 5 + [_I] * 3 + [_F, _I] + [_V])},
-    "raymarch_sites.cu": {"gsdf_raymarch_sites": (_I, [_V] * 5 + [_I] * 3 + [_F, _I] + [_V, _V])},
-    "dc_mesh.cu": {
-        "gsdf_dc_work": (ctypes.c_int64, [_I] * 4),
-        "gsdf_dc_count": (_I, [_V] + [_F] * 4 + [_I] * 5 + [_V] * 4 + [_V]),
-        "gsdf_dc_emit": (_I, [_V] + [_F] * 4 + [_I] * 5 + [_V] * 4 + [_I] * 2 + [_F] * 3
-                         + [_V] * 6 + [_V]),
-    },
-}
-#: the parametric forms' entry points: the parameter vector (a host
-#: pointer where the library takes it by value, else a device pointer)
-#: goes before the stream; gsdf_params_by_value says which
-_PARAM_SIGNATURES = {
-    "classified_grid.cu": {
-        "gsdf_classified_grid_param": (_I, [_V] * 2 + [_F] * 5 + [_I] * 4 + [_V, _I, _V])
-    },
-    "point_eval.cu": {"gsdf_point_eval_param": (_I, [_V, ctypes.c_int64, _V, _V, _I, _V])},
-    "tile_prune.cu": {
-        "gsdf_tile_prune_param": (_I, [_V] * 2 + [_F] * 6 + [_I] * 3 + [_V, _I, _V])
-    },
-    "tile_atlas.cu": {
-        "gsdf_tile_atlas_param": (_I, [_V] * 3 + [_I] * 5 + [_F] * 5 + [_V, _I, _V])
-    },
-    "raymarch.cu": {"gsdf_raymarch_param": (_I, [_V] * 5 + [_I] * 3 + [_F, _I] + [_V, _I, _V])},
-    "dc_mesh.cu": {
-        "gsdf_dc_work": (ctypes.c_int64, [_I] * 4),
-        "gsdf_dc_count_param": (_I, [_V] + [_F] * 4 + [_I] * 5 + [_V] * 4 + [_V, _I, _V]),
-        "gsdf_dc_emit_param": (_I, [_V] + [_F] * 4 + [_I] * 5 + [_V] * 4 + [_I] * 2 + [_F] * 3
-                               + [_V] * 6 + [_V, _I, _V]),
-    },
-}
-_PARAM_INFO = {"gsdf_params_by_value": (_I, [])}
-
-#: how a parametric library built from now on takes its vector: None by
-#: the vector's length (codegen.cuda.PARAMS_BY_VALUE_MAX), True by value,
-#: False through a pointer. Only tests and measurements set it.
-PARAMS_BY_VALUE = None
-
-#: (tree hash, templates) -> baked kernel library;
-#: (structural hash, templates, "param", PARAMS_BY_VALUE) -> parametric one
-_libs: dict = {}
-
-
-def _sources(tree, templates, parametric=False):
-    """(generated headers {name: text}, template paths, cache key) of one
-    build: the tree's source (which states its NDIM), the headers the
-    templates generate, and the named templates with what they include."""
-    gen = {"gsdf_tree.cuh": tree_source(tree, parametric, PARAMS_BY_VALUE)}
-    for t in templates:
-        gen.update({name: text() for name, text in GENERATED.get(t, {}).items()})
-    paths = [os.path.join(CSRC, t) for t in templates]
-    headers = {PARAMS_HEADER, *(h for t in templates for h in INCLUDES.get(t, ()))}
-    texts = []
-    for p in paths + [os.path.join(CSRC, h) for h in sorted(headers)]:
-        with open(p) as f:
-            texts.append(f.read())
-    key = _build.source_key(*(v for k in sorted(gen) for v in (k, gen[k])), *templates,
-                            *texts, *NVCC_FLAGS)
-    return gen, paths, key
-
-
-def build(tree, templates=TEMPLATES, parametric=False) -> ctypes.CDLL:
-    """The library of `templates` around the tree's generated source (K1 +
-    K2 unless named otherwise), built by nvcc at first use. Each set of
-    templates is a library of its own, so a render never pays for the
-    point kernel's compile, nor a 2D tree for a 3D template. With
-    parametric=True the source is the parametric one and the library
-    serves every tree of this structure."""
-    if parametric:
-        key = (structural_hash(tree), templates, "param", PARAMS_BY_VALUE)
-    else:
-        key = (tree.tree_hash(), templates)
-    lib = _libs.get(key)
-    if lib is not None:
-        return lib
-    gen, paths, source_key = _sources(tree, templates, parametric)
-
-    def command(out, d):
-        for name, text in gen.items():
-            _build.write_atomic(os.path.join(d, name), text)
-        return [nvcc(), *NVCC_FLAGS, "-I", d, "-I", CSRC, "-o", out, *paths]
-
-    so = _build.build_shared("gsdf_tree", source_key, command)
-    table = _PARAM_SIGNATURES if parametric else _SIGNATURES
-    signatures = {fn: sig for t in templates for fn, sig in table[t].items()}
-    lib = _build.load(so, {**signatures, **(_PARAM_INFO if parametric else {})})
-    _libs[key] = lib
-    return lib
-
-
-def build_log(tree, templates=TEMPLATES, parametric=False) -> str:
-    """nvcc's output (the ptxas register/spill report) for the tree."""
-    build(tree, templates, parametric)
-    key = _sources(tree, templates, parametric)[2]
-    with open(os.path.join(_build.BUILD_DIR, f"gsdf_tree-{key}", "build.log")) as f:
-        return f.read()
 
 
 def _shape(shape):
@@ -225,21 +78,6 @@ def classified_grid_plain(tree, origin, res, shape, device, k0: int = 0):
 
 
 # --- kernel wrappers -------------------------------------------------------
-def param_args(tree, lib, device):
-    """A parametric launch's parameter arguments, (pointer, length,
-    keep-alive): the tree's current vector in the kernels' layout, as the
-    host array itself where the library takes it by value (the launch
-    copies it into the kernel's parameter space), else uploaded from
-    pinned memory with a copy that does not synchronise. The kernel checks
-    the length against the structure's."""
-    with spans.span("params.pack"):
-        p = kernel_params(tree)
-        if lib.gsdf_params_by_value():
-            return p.ctypes.data, len(p), p
-        t = torch.from_numpy(p).pin_memory().to(device, non_blocking=True)
-        return t.data_ptr(), len(p), t
-
-
 def evaluate_grid(tree, origin, res, shape, device, k0: int = 0):
     """Distances (nk, nj, ni) f32 at every grid corner (K2)."""
     nk, nj, ni = _shape(shape)
@@ -249,8 +87,8 @@ def evaluate_grid(tree, origin, res, shape, device, k0: int = 0):
     lib = build(tree)
     out = torch.empty((nk, nj, ni), dtype=torch.float32, device=device)
     check_out(out, (nk, nj, ni), torch.float32, device)
-    launch("grid_eval", device, lib.gsdf_grid_eval, out.data_ptr(),
-           *float_args(origin, res), int(k0), nk, nj, ni)
+    lib.launch("grid_eval", device, out.data_ptr(), *float_args(origin, res), int(k0), nk, nj,
+               ni)
     return out
 
 
@@ -266,18 +104,14 @@ def classified_grid(tree, origin, res, shape, device, k0: int = 0, parametric: b
     if torch.device(device).type == "cpu":
         return classified_grid_plain(tree, origin, res, shape, device, k0)
     device = cuda_device(device)
-    lib = build(tree, PARAM_TEMPLATES, True) if parametric else build(tree)
+    lib = build(tree, "classified", True) if parametric else build(tree)
     dist = torch.empty((nk, nj, ni), dtype=torch.float32, device=device)
     cases = torch.empty((nk - 1, nj - 1, ni - 1), dtype=torch.uint8, device=device)
     check_out(dist, (nk, nj, ni), torch.float32, device)
     check_out(cases, (nk - 1, nj - 1, ni - 1), torch.uint8, device)
-    args = (dist.data_ptr(), cases.data_ptr(),
-            *float_args(origin, res, mc_emit.quick_reject_threshold(res)), int(k0), nk, nj, ni)
-    if parametric:
-        ptr, n, _keep = param_args(tree, lib, device)
-        launch("classified_grid_param", device, lib.gsdf_classified_grid_param, *args, ptr, n)
-    else:
-        launch("classified_grid", device, lib.gsdf_classified_grid, *args)
+    lib.launch("classified_grid", device, dist.data_ptr(), cases.data_ptr(),
+               *float_args(origin, res, mc_emit.quick_reject_threshold(res)), int(k0), nk, nj, ni,
+               tree=tree)
     return dist, cases
 
 
@@ -316,17 +150,12 @@ def coarse_keep(tree, origin, res, S, shape, device, parametric: bool = False):
     if torch.device(device).type == "cpu":
         return coarse_keep_plain(tree, origin, res, S, shape, device)
     device = cuda_device(device)
-    lib = build(tree, PRUNE_TEMPLATES, parametric)
+    lib = build(tree, "prune", parametric)
     n = tz * ty * tx
     buf = torch.empty(-(-n // 4) + 1, dtype=torch.int32, device=device)  # mask, then count
     keep, count = buf.view(torch.uint8)[:n].view(tz, ty, tx), buf[-1:]
-    args = (keep.data_ptr(), count.data_ptr(),
-            *float_args(origin, *prune_constants(res, S)), tz, ty, tx)
-    if parametric:
-        ptr, n_params, _keep = param_args(tree, lib, device)
-        launch("tile_prune_param", device, lib.gsdf_tile_prune_param, *args, ptr, n_params)
-    else:
-        launch("tile_prune", device, lib.gsdf_tile_prune, *args)
+    lib.launch("tile_prune", device, keep.data_ptr(), count.data_ptr(),
+               *float_args(origin, *prune_constants(res, S)), tz, ty, tx, tree=tree)
     return keep, count
 
 
@@ -408,14 +237,10 @@ def tile_grid(tree, tiles, origin, res, S, dims, device, parametric: bool = Fals
     if T * P**3 >= 1 << 31:
         raise ValueError(f"a tile atlas of {T} tiles of {P}^3 corners exceeds int32 indices")
     check_out(tiles, (T, 3), torch.int32, device)
-    lib = build(tree, PRUNE_TEMPLATES, parametric)
+    lib = build(tree, "prune", parametric)
     dist = torch.empty((T * P, P, P), dtype=torch.float32, device=device)
     cases = torch.empty((T * P - 1, S, S), dtype=torch.uint8, device=device)
-    args = (dist.data_ptr(), cases.data_ptr(), tiles.data_ptr(), T, S, nx, ny, nz,
-            *float_args(origin, res, mc_emit.quick_reject_threshold(res)))
-    if parametric:
-        ptr, n_params, _keep = param_args(tree, lib, device)
-        launch("tile_atlas_param", device, lib.gsdf_tile_atlas_param, *args, ptr, n_params)
-    else:
-        launch("tile_atlas", device, lib.gsdf_tile_atlas, *args)
+    lib.launch("tile_atlas", device, dist.data_ptr(), cases.data_ptr(), tiles.data_ptr(), T, S,
+               nx, ny, nz, *float_args(origin, res, mc_emit.quick_reject_threshold(res)),
+               tree=tree)
     return dist, cases

@@ -11,15 +11,16 @@ behind the evaluators and the 2D image renderer.
 
 Both are hand-written CUDA C++ templates (csrc/point_eval.cu,
 csrc/grid_eval_2d.cu) around the tree's generated `gsdf_tree`, each
-built into a library of its own at its wrapper's first CUDA call
-(grid_kernels.build). On the CPU a wrapper runs its plain torch version;
-on a CUDA device it launches its kernel or raises.
+built into a library of its own ("point" and "field" of
+kernels.LIBRARIES) at its wrapper's first CUDA call. On the CPU a wrapper
+runs its plain torch version; on a CUDA device it launches its kernel or
+raises.
 
 KP has a parametric form, KPp (`evaluate_points(..., parametric=True)`):
 the same template around the tree's parametric source, one library per
 tree structure, the tree's continuous parameters a launch argument
-(grid_kernels.param_args). Counterpart of the jit behind the JAX
-package's ParametricSDF3/2 (gsdf_tpu/eval/parametric.py:147-175).
+(kernels.py). Counterpart of the jit behind the JAX package's
+ParametricSDF3/2 (gsdf_tpu/eval/parametric.py:147-175).
 """
 from __future__ import annotations
 
@@ -27,13 +28,9 @@ import numpy as np
 import torch
 
 from ..core.node import Shader2D
-from ..kernels import check_out, entry_device, launch
-from .grid_kernels import build, param_args
+from ..kernels import build, check_out, entry_device
 
 _f32 = np.float32
-
-POINT_TEMPLATES = ("point_eval.cu",)
-FIELD_TEMPLATES = ("grid_eval_2d.cu",)
 
 
 # --- plain torch versions ------------------------------------------------
@@ -85,14 +82,9 @@ def evaluate_points(tree, pos: torch.Tensor, device, parametric: bool = False) -
     if device.type == "cpu":
         return point_eval_plain(tree, pos)
     out = torch.empty((n,), dtype=torch.float32, device=device)
-    if n and parametric:
-        lib = build(tree, POINT_TEMPLATES, True)
-        ptr, n_params, _keep = param_args(tree, lib, device)
-        launch("point_eval_param", device, lib.gsdf_point_eval_param, pos.data_ptr(), n,
-               out.data_ptr(), ptr, n_params)
-    elif n:
-        lib = build(tree, POINT_TEMPLATES)
-        launch("point_eval", device, lib.gsdf_point_eval, pos.data_ptr(), n, out.data_ptr())
+    if n:
+        build(tree, "point", parametric).launch("point_eval", device, pos.data_ptr(), n,
+                                                out.data_ptr(), tree=tree)
     return out
 
 
@@ -106,8 +98,8 @@ def distance_field(tree, width: int, height: int, device) -> torch.Tensor:
     xmin, ymax, dx, dy = pixel_grid(tree, width, height)
     if device.type == "cpu":
         return distance_field_plain(tree, width, height, device)
-    lib = build(tree, FIELD_TEMPLATES)
+    lib = build(tree, "field")
     out = torch.empty((int(height), int(width)), dtype=torch.float32, device=device)
-    launch("grid_eval_2d", device, lib.gsdf_grid_eval_2d, out.data_ptr(),
-           float(xmin), float(ymax), float(dx), float(dy), int(width), int(height))
+    lib.launch("grid_eval_2d", device, out.data_ptr(), float(xmin), float(ymax), float(dx),
+               float(dy), int(width), int(height))
     return out

@@ -8,8 +8,8 @@ visual/raymarch.py, and its plain torch version.
 
 A hand-written CUDA C++ template (csrc/raymarch.cu, the per-ray arithmetic
 in csrc/gsdf_raymarch.cuh) around the tree's generated `gsdf_tree`, built
-into a library of its own at the wrapper's first CUDA call
-(grid_kernels.build). The frame's size, step count, relaxation, aa and
+into a library of its own ("raymarch" of kernels.LIBRARIES) at the
+wrapper's first CUDA call. The frame's size, step count, relaxation, aa and
 camera are launch arguments, so one library serves every frame of a tree.
 The kernel is persistent: warps take rays from a queue and refill a lane
 whose ray is done (csrc/raymarch.cu); the wrapper gives it the queue's
@@ -20,15 +20,15 @@ raises.
 K8 has a parametric form, K8p (`raymarch(..., parametric=True)`): the same
 template around the tree's parametric source, one library per tree
 structure, the tree's continuous parameters a launch argument
-(grid_kernels.param_args). Counterpart of `_raymarch_fn(parametric=True)`
+(kernels.py). Counterpart of `_raymarch_fn(parametric=True)`
 (raymarch.py:150-169).
 
 Short circuits. A tree's baked source may return a Difference's minuend
 before it evaluates a subtrahend that cannot change the result, and skip a
 union's member whose point bound the members run before it undercut
 (codegen/cuda.py). `count_short_circuits` runs K8's counting form on
-such a tree (csrc/raymarch_sites.cu, a library of its own around the
-same generated code): the same image and evaluations, and per site how
+such a tree (csrc/raymarch_sites.cu, "raymarch_sites", a library of its
+own around the same generated code): the same image and evaluations, and per site how
 often the skip engaged, added to SHORT_CIRCUITS. `raymarch`, with or
 without evals, runs K8 itself, which counts nothing.
 
@@ -43,14 +43,10 @@ import torch
 
 from ..codegen.cuda import tree_sites
 from ..core import mathx as mx
-from ..kernels import check_out, entry_device, launch
-from .grid_kernels import build, param_args
+from ..kernels import build, check_out, entry_device
 
 _f32 = np.float32
 
-TEMPLATES = ("raymarch.cu",)
-#: K8's counting form, built only for a tree with short-circuit sites
-SITES_TEMPLATES = ("raymarch_sites.cu",)
 #: what K8's counting launches (count_short_circuits) saw at each short-circuit site,
 #: summed over calls since the last clear: the site's name (codegen.cuda's
 #: Codegen.sites) -> {"subtrahend": a Difference's subtrahend's function and
@@ -267,7 +263,7 @@ def _raymarch(tree, camera, width, height, steps, relax, aa, device, parametric,
     if device.type == "cpu":
         return raymarch_plain(tree, cam, width, height, steps, relax, aa, device, evals)
     counted = sites(tree) if count else []
-    lib = build(tree, SITES_TEMPLATES if counted else TEMPLATES, parametric)
+    lib = build(tree, "raymarch_sites" if counted else "raymarch", parametric)
     out = torch.empty((height, width, 3), dtype=torch.uint8, device=device)
     samples = out if aa == 1 else torch.empty((height * aa, width * aa, 3), dtype=torch.uint8,
                                               device=device)
@@ -277,13 +273,10 @@ def _raymarch(tree, camera, width, height, steps, relax, aa, device, parametric,
     queue = torch.empty(1, dtype=torch.int32, device=device)  # the kernel's ray counter
     args = (samples.data_ptr(), out.data_ptr(), None if n_evals is None else n_evals.data_ptr(),
             queue.data_ptr(), cam.ctypes.data, width, height, steps, float(_f32(relax)), aa)
-    if parametric:
-        ptr, n_params, _keep = param_args(tree, lib, device)
-        launch("raymarch_param", device, lib.gsdf_raymarch_param, *args, ptr, n_params)
-    elif counted:
+    if counted:
         counts = torch.empty((len(counted), len(_SITE_COUNTS)), dtype=torch.int64,
                              device=device)
-        launch("raymarch", device, lib.gsdf_raymarch_sites, *args, counts.data_ptr())
+        lib.launch("raymarch_sites", device, *args, counts.data_ptr())
         for (site, sub, lo), row in zip(counted, counts.tolist()):
             skips = ({"member": sub, "bound": "point"} if lo is None
                      else {"subtrahend": sub, "bound": float(lo)})
@@ -291,5 +284,5 @@ def _raymarch(tree, camera, width, height, steps, relax, aa, device, parametric,
             for k, v in zip(_SITE_COUNTS, row):
                 total[k] += v
     else:
-        launch("raymarch", device, lib.gsdf_raymarch, *args)
+        lib.launch("raymarch", device, *args, tree=tree)
     return (out, n_evals) if evals else out

@@ -85,9 +85,8 @@ def compact_emit(grid, cases, ids, n_t=None, offsets=None):
     lib = kernels.static_lib("compact_emit")
     idx8 = torch.empty(A, dtype=torch.uint8, device=device)
     tvals = torch.empty(int(n_t), dtype=torch.float32, device=device)
-    kernels.launch("compact_emit", device, lib.gsdf_compact_emit, grid.data_ptr(),
-                   cases.data_ptr(), ids.data_ptr(), A, nx, ny, offsets.data_ptr(),
-                   idx8.data_ptr(), tvals.data_ptr())
+    lib.launch("compact_emit", device, grid.data_ptr(), cases.data_ptr(), ids.data_ptr(), A, nx,
+               ny, offsets.data_ptr(), idx8.data_ptr(), tvals.data_ptr())
     return idx8, tvals
 
 
@@ -170,8 +169,8 @@ def tile_global_ids(ids, tiles, S, dims):
     if A == 0:
         return out
     lib = kernels.static_lib("tile_global_ids")
-    kernels.launch("tile_global_ids", device, lib.gsdf_tile_global_ids, ids.data_ptr(), A,
-                   tiles.data_ptr(), int(S), nx, ny, out.data_ptr())
+    lib.launch("tile_global_ids", device, ids.data_ptr(), A, tiles.data_ptr(), int(S), nx, ny,
+               out.data_ptr())
     return out
 
 

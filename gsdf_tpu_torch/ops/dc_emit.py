@@ -44,6 +44,7 @@ import torch
 
 from .. import kernels
 from ..core import mathx as mx
+from ..eval.grid_kernels import evaluate_grid_plain
 from .dc_tables import GATHER, OFF5
 
 _f32 = np.float32
@@ -122,8 +123,6 @@ def _edges_plain(tree, origin, res, shape, device, half, scale, k0):
     """(eids int64, flips, t, points (E,3), normals (E,3)) of the active
     edges; the normals are the central differences times `scale` (raw for
     None)."""
-    from ..eval.grid_kernels import evaluate_grid_plain
-
     nk, nj, ni, _ = check_shape(shape)
     nx, ny = ni - 1, nj - 1
     nvox = (nk - 1) * ny * nx
@@ -282,10 +281,6 @@ def voxel_sums_plain(tree, origin, res, shape, device, norm_step, sqrt_lambda, k
 
 
 # --- kernel wrappers -------------------------------------------------------
-#: K5's per-tree template (eval/grid_kernels.py builds it around the tree)
-TEMPLATES = ("dc_mesh.cu",)
-
-
 class K5Scratch:
     """K5's scratch buffers for one corner shape and owned-layer count:
     the work words (counts, the scan's status words and ticket, zeroed by
@@ -321,22 +316,14 @@ def _launch_k5(tree, origin, res, shape, device, n_own, k0, parametric, half, sc
     """Both K5 calls with the one count read between them: (eids, flips,
     t or None, normals, verts or None, the corner grid). `scratch`, a
     K5Scratch, keeps K5's scratch for later calls of this shape."""
-    from ..eval import grid_kernels as gk
-
     nk, nj, ni, n_own = check_shape(shape, n_own)
     device = kernels.cuda_device(device)
-    lib = gk.build(tree, TEMPLATES, parametric)
+    lib = kernels.build(tree, "dc", parametric)
     work, dist, ebits, edir, uvox = (scratch or K5Scratch()).buffers(lib, nk, nj, ni, n_own,
                                                                      device)
     grid_args = (*kernels.float_args(origin, res), int(k0), nk, nj, ni, n_own)
-    extra = ()
-    if parametric:
-        ptr, n, _keep = gk.param_args(tree, lib, device)
-        extra = (ptr, n)
-    name = "dc_mesh_param" if parametric else "dc_mesh"
-    count = lib.gsdf_dc_count_param if parametric else lib.gsdf_dc_count
-    kernels.launch(name, device, count, dist.data_ptr(), *grid_args, work.data_ptr(),
-                   ebits.data_ptr(), edir.data_ptr(), uvox.data_ptr(), *extra)
+    params = lib.launch("dc_count", device, dist.data_ptr(), *grid_args, work.data_ptr(),
+                        ebits.data_ptr(), edir.data_ptr(), uvox.data_ptr(), tree=tree)
     n_x, n_y, n_z, n_vox = work[:4].tolist()  # the one read of the device counts
     n_edges = n_x + n_y + n_z
     eids = torch.empty(n_edges, dtype=torch.int32, device=device)
@@ -346,12 +333,11 @@ def _launch_k5(tree, origin, res, shape, device, n_own, k0, parametric, half, sc
     nrm = torch.empty((n_edges, 3), dtype=torch.float32, device=device)
     verts = (torch.empty((n_vox, 3), dtype=torch.float32, device=device) if with_verts
              else None)
-    emit = lib.gsdf_dc_emit_param if parametric else lib.gsdf_dc_emit
-    kernels.launch(name, device, emit, dist.data_ptr(), *grid_args, work.data_ptr(),
-                   ebits.data_ptr(), edir.data_ptr(), uvox.data_ptr(), n_edges, n_vox,
-                   float(half), float(scale), float(l2), eids.data_ptr(), flips.data_ptr(),
-                   None if tvals is None else tvals.data_ptr(), pts.data_ptr(), nrm.data_ptr(),
-                   None if verts is None else verts.data_ptr(), *extra, count=False)
+    lib.launch("dc_emit", device, dist.data_ptr(), *grid_args, work.data_ptr(), ebits.data_ptr(),
+               edir.data_ptr(), uvox.data_ptr(), n_edges, n_vox, float(half), float(scale),
+               float(l2), eids.data_ptr(), flips.data_ptr(),
+               None if tvals is None else tvals.data_ptr(), pts.data_ptr(), nrm.data_ptr(),
+               None if verts is None else verts.data_ptr(), tree=tree, params=params, count=False)
     return eids, flips, tvals, nrm, verts, dist
 
 

@@ -132,11 +132,10 @@ def welded_buffer(grid, cases, ids, origin, res, k0, comp):
     verts = buf.data_ptr()  # the layout of split_welded, 4 bytes a word
     tri_idx = verts + 12 * n_verts
     lib = kernels.static_lib("emit_welded")
-    kernels.launch("emit_welded", device, lib.gsdf_emit_welded, grid.data_ptr(),
-                   cases.data_ptr(), ids.data_ptr(), A, nx, ny, nz,
-                   *kernels.float_args(origin, res, k0), comp.offsets.data_ptr(),
-                   comp.tri_offsets.data_ptr(), comp.edge_ranks.data_ptr(), verts, tri_idx,
-                   tri_idx + 12 * n_tris)
+    lib.launch("emit_welded", device, grid.data_ptr(), cases.data_ptr(), ids.data_ptr(), A, nx, ny,
+               nz, *kernels.float_args(origin, res, k0), comp.offsets.data_ptr(),
+               comp.tri_offsets.data_ptr(), comp.edge_ranks.data_ptr(), verts, tri_idx,
+               tri_idx + 12 * n_tris)
     return buf, n_verts, n_tris
 
 

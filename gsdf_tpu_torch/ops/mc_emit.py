@@ -257,8 +257,8 @@ def compact_active(cases, edge_ranks: bool = False) -> Compaction:
     # one int64 buffer: counts (4), both offsets, the tiles' status words
     work = torch.empty(lib.gsdf_compact_work(n), dtype=torch.int64, device=device)
     ids = torch.empty(n, dtype=torch.int32, device=device)
-    kernels.launch("compact_active", device, lib.gsdf_compact_active, cases.data_ptr(), n,
-                   work.data_ptr(), ids.data_ptr(), None if ranks is None else ranks.data_ptr())
+    lib.launch("compact_active", device, cases.data_ptr(), n, work.data_ptr(), ids.data_ptr(),
+               None if ranks is None else ranks.data_ptr())
     with spans.span("mc.count_read"):
         n_active, n_t, n_tris = work[:3].tolist()  # the one read of the device counts
     blocks, stride = -(-n_active // EMIT_BLOCK), n // EMIT_BLOCK + 1
@@ -348,10 +348,9 @@ def emit_triangles(grid, cases, ids, origin, res, k0=0, n_tris=None, tri_offsets
         return tris
     kernels.check_out(tri_offsets, (-(-A // EMIT_BLOCK),), torch.int64, device)
     lib = kernels.static_lib("emit_soup")
-    kernels.launch("emit_soup", device, lib.gsdf_emit_soup, grid.data_ptr(), cases.data_ptr(),
-                   ids.data_ptr(), A, nx, ny, *kernels.float_args(origin, res, k0),
-                   None if tiles is None else tiles.data_ptr(), tri_offsets.data_ptr(),
-                   tris.data_ptr())
+    lib.launch("emit_soup", device, grid.data_ptr(), cases.data_ptr(), ids.data_ptr(), A, nx, ny,
+               *kernels.float_args(origin, res, k0), None if tiles is None else tiles.data_ptr(),
+               tri_offsets.data_ptr(), tris.data_ptr())
     return tris
 
 

@@ -1,4 +1,4 @@
-"""The port's kernel bounds (gsdf_tpu_torch/bounds.py) on the CPU: the
+"""The port's kernel bounds (bounds.py, beside chip_smoke.py) on the CPU: the
 operation counter on trees whose count is known by hand, its linearity in
 the number of points on the golden parts, and the byte and bound
 arithmetic that chip_smoke.py prints beside each kernel's time."""
@@ -6,7 +6,8 @@ import numpy as np
 import pytest
 import torch
 
-from gsdf_tpu_torch import Builder, bounds, flagships
+import bounds
+from gsdf_tpu_torch import Builder, flagships
 from gsdf_tpu_torch.eval import grid_kernels as gk
 from gsdf_tpu_torch.ops import mc_emit
 

@@ -103,12 +103,12 @@ def test_kernels_match_plain(name, cuda_device):
     tree = TREES[name]()
     fr = FlatRenderer(tree, tree.bounds().diagonal() / 90, cuda_device)
     args = (tree, fr.origin, fr.res, fr.shape(), cuda_device)
-    before = dict(gk.LAUNCHES)
+    before = dict(kernels.LAUNCHES)
     dist, cases = gk.classified_grid(*args)
     dist2 = gk.evaluate_grid(*args)
     torch.cuda.synchronize()
-    assert gk.LAUNCHES["classified_grid"] == before["classified_grid"] + 1
-    assert gk.LAUNCHES["grid_eval"] == before["grid_eval"] + 1
+    assert kernels.LAUNCHES["classified_grid"] == before["classified_grid"] + 1
+    assert kernels.LAUNCHES["grid_eval"] == before["grid_eval"] + 1
     ref_dist, ref_cases = gk.classified_grid_plain(*args)
     tol = 1e-5 * ref_dist.abs().clamp(min=1.0)
     assert bool(((dist - ref_dist).abs() <= tol).all())
@@ -698,10 +698,10 @@ def test_parametric_kernels_match_plain_and_baked(name, cuda_device):
     assert torch.equal(at_corners.reshape(dist.shape), dist)
     assert kernels.LAUNCHES["point_eval_param"] == before["point_eval_param"] + 1
     other = _perturbed(tree)
-    libs, counts = len(gk._libs), dict(_build.COUNTS)
+    libs, counts = len(kernels._libs), dict(_build.COUNTS)
     odist, ocases = gk.classified_grid(other, *grid, parametric=True)
     opoints = pk.evaluate_points(other, pos, cuda_device, parametric=True)
-    assert len(gk._libs) == libs and dict(_build.COUNTS) == counts  # the same two libraries
+    assert len(kernels._libs) == libs and dict(_build.COUNTS) == counts  # the same two libraries
     oref_dist, oref_cases = gk.classified_grid_plain(other, *grid)
     tol = 1e-5 * oref_dist.abs().clamp(min=1.0)
     assert bool(((odist - oref_dist).abs() <= tol).all())
@@ -717,10 +717,10 @@ def test_parametric_pointer_form_equals_by_value(cuda_device, monkeypatch):
     fr = FlatRenderer(tree, tree.bounds().diagonal() / 90, cuda_device)
     args = (tree, fr.origin, fr.res, fr.shape(), cuda_device, 0, True)
     dist, cases = gk.classified_grid(*args)
-    by_value = gk.build(tree, gk.PARAM_TEMPLATES, True)
+    by_value = kernels.build(tree, "classified", True)
     assert by_value.gsdf_params_by_value() == 1
-    monkeypatch.setattr(gk, "PARAMS_BY_VALUE", False)
-    by_pointer = gk.build(tree, gk.PARAM_TEMPLATES, True)
+    monkeypatch.setattr(kernels, "PARAMS_BY_VALUE", False)
+    by_pointer = kernels.build(tree, "classified", True)
     assert by_pointer is not by_value and by_pointer.gsdf_params_by_value() == 0
     pdist, pcases = gk.classified_grid(*args)
     assert torch.equal(pdist, dist) and torch.equal(pcases, cases)
@@ -763,18 +763,18 @@ def test_edit_loop_builds_nothing(path, cuda_device):
     part, cyl = _boss_part()
     fr = FlatRenderer(part, 0.02, cuda_device)
     _, first = getattr(fr, path)(parametric=True)
-    counts, libs = dict(_build.COUNTS), len(gk._libs)
+    counts, libs = dict(_build.COUNTS), len(kernels._libs)
     sizes = [len(first)]
     for r in (0.35, 0.5, 0.4):
         part.rebind({cyl: {"r": r}})
         baked_before = kernels.LAUNCHES["classified_grid"]
         verts, tri = getattr(fr, path)(parametric=True)
-        assert dict(_build.COUNTS) == counts and len(gk._libs) == libs
+        assert dict(_build.COUNTS) == counts and len(kernels._libs) == libs
         assert kernels.LAUNCHES["classified_grid"] == baked_before
         sizes.append(len(tri))
         bverts, btri = getattr(FlatRenderer(part, 0.02, cuda_device), path)()
         assert np.array_equal(tri, btri) and np.array_equal(verts, bverts)
-        counts, libs = dict(_build.COUNTS), len(gk._libs)  # the baked render built one
+        counts, libs = dict(_build.COUNTS), len(kernels._libs)  # the baked render built one
     assert len(set(sizes)) == len(sizes)
 
 
@@ -784,7 +784,7 @@ def test_parametric_does_not_fall_back_when_the_build_fails(cuda_device, monkeyp
     b = Builder()
     tree = b.smooth_union(0.13, b.new_sphere(0.61), b.translate(b.new_box(0.7, 0.5, 0.3, 0.02),
                                                                0.2, 0.1, 0.0))
-    monkeypatch.setattr(gk, "nvcc", lambda: "/bin/false")
+    monkeypatch.setattr(kernels, "nvcc", lambda: "/bin/false")
     before = dict(kernels.LAUNCHES)
     fr = FlatRenderer(tree, 0.05, cuda_device)
     for render in (fr.render_compact, fr.render_indexed):
@@ -799,7 +799,7 @@ def test_parametric_does_not_fall_back_when_the_build_fails(cuda_device, monkeyp
 
 def test_parametric_launch_checks_the_vector_length(cuda_device):
     tree = Builder().new_sphere(1.0)
-    lib = gk.build(tree, pk.POINT_TEMPLATES, True)
+    lib = kernels.build(tree, "point", True)
     pos = torch.zeros((4, 3), device=cuda_device)
     out = torch.empty(4, device=cuda_device)
     p = np.ones(2, np.float32)
@@ -922,17 +922,17 @@ def test_dc_edit_loop_builds_nothing(cuda_device):
 
     part, cyl = _boss_part()
     first = DualContourRenderer(part, 0.03, device=cuda_device).render(parametric=True)
-    counts, libs = dict(_build.COUNTS), len(gk._libs)
+    counts, libs = dict(_build.COUNTS), len(kernels._libs)
     sizes = [len(first)]
     for r in (0.35, 0.5, 0.4):
         part.rebind({cyl: {"r": r}})
         tris = DualContourRenderer(part, 0.03, device=cuda_device).render(parametric=True)
-        assert dict(_build.COUNTS) == counts and len(gk._libs) == libs
+        assert dict(_build.COUNTS) == counts and len(kernels._libs) == libs
         baked = DualContourRenderer(part, 0.03, device=cuda_device).render()
         assert tris.shape == baked.shape
         np.testing.assert_allclose(tris, baked, rtol=0, atol=1e-6)
         sizes.append(len(tris))
-        counts, libs = dict(_build.COUNTS), len(gk._libs)  # the baked render built one
+        counts, libs = dict(_build.COUNTS), len(kernels._libs)  # the baked render built one
     assert len(set(sizes)) == len(sizes)
 
 
@@ -1054,12 +1054,12 @@ def test_pruned_renders_on_card(cuda_device):
     pr = PrunedRenderer(pinned, 0.02, device=cuda_device)
     pr.render_compact(parametric=True)
     FlatRenderer(pinned, 0.02, cuda_device).render_compact(parametric=True)
-    counts, libs = dict(_build.COUNTS), len(gk._libs)
+    counts, libs = dict(_build.COUNTS), len(kernels._libs)
     for r in (0.35, 0.5):
         pinned.rebind({cyl: {"r": r}})
         verts, tri = pr.render_compact(parametric=True)
         dverts, dtri = FlatRenderer(pinned, 0.02, cuda_device).render_compact(parametric=True)
-        assert dict(_build.COUNTS) == counts and len(gk._libs) == libs
+        assert dict(_build.COUNTS) == counts and len(kernels._libs) == libs
         assert np.array_equal(tri, dtri) and np.array_equal(verts, dverts)
 
 
@@ -1093,10 +1093,10 @@ def test_raymarch_matches_plain(name, aa, cuda_device):
     assert torch.equal(img, ref) and torch.equal(evals, ref_evals)
     assert torch.equal(pimg, img) and torch.equal(pevals, evals)
     other = _perturbed(tree)
-    libs, counts = len(gk._libs), dict(_build.COUNTS)
+    libs, counts = len(kernels._libs), dict(_build.COUNTS)
     oargs = _frame_args(other, 64, 48, aa, 196, cuda_device)
     oimg = rk.raymarch(other, *oargs, parametric=True)
-    assert len(gk._libs) == libs and dict(_build.COUNTS) == counts  # the same library
+    assert len(kernels._libs) == libs and dict(_build.COUNTS) == counts  # the same library
     assert torch.equal(oimg, rk.raymarch_plain(other, *oargs))
 
 
@@ -1176,19 +1176,17 @@ def test_raymarch_one_library_per_tree(cuda_device):
 
     tree = _solid()
     rk.raymarch(tree, *_frame_args(tree, 8, 8, 1, 4, cuda_device))
-    counts, libs = dict(_build.COUNTS), len(gk._libs)
+    counts, libs = dict(_build.COUNTS), len(kernels._libs)
     for w, h, aa, steps in ((16, 16, 1, 5), (33, 17, 3, 200), (7, 40, 2, 0), (64, 64, 1, 72)):
         args = _frame_args(tree, w, h, aa, steps, cuda_device)
         img = rk.raymarch(tree, *args)
         assert torch.equal(img, rk.raymarch_plain(tree, *args))
-    assert dict(_build.COUNTS) == counts and len(gk._libs) == libs
+    assert dict(_build.COUNTS) == counts and len(kernels._libs) == libs
 
 
 def test_raymarch_launch_rejects_what_the_kernel_does_not_take(cuda_device):
-    from gsdf_tpu_torch.eval import ray_kernels as rk
-
     tree = _solid()
-    lib = gk.build(tree, rk.TEMPLATES)
+    lib = kernels.build(tree, "raymarch")
     cam = _frame_args(tree, 4, 4, 1, 4, cuda_device)[0]
     buf = torch.empty((8, 8, 3), dtype=torch.uint8, device=cuda_device)
     queue = torch.empty(1, dtype=torch.int32, device=cuda_device).data_ptr()

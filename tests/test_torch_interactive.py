@@ -12,9 +12,8 @@ import pytest
 
 from gsdf_tpu import Builder as JaxBuilder
 from gsdf_tpu.pipeline import InteractiveViewer as JaxViewer
-from gsdf_tpu_torch import Builder, _build
+from gsdf_tpu_torch import Builder, _build, kernels
 from gsdf_tpu_torch.convert import from_reference_tree
-from gsdf_tpu_torch.eval import grid_kernels as gk
 from gsdf_tpu_torch.pipeline import InteractiveViewer
 
 CPU = "cpu"
@@ -220,18 +219,18 @@ def test_parametric_slider_edit_zero_recompile():
                           params=[("boss r", boss, "r", 0.2, 0.6)], device=CPU)
     assert v.parametric
     img0 = v.render_current("full")
-    counts, libs = dict(_build.COUNTS), len(gk._libs)
+    counts, libs = dict(_build.COUNTS), len(kernels._libs)
     for r in (0.3, 0.55, 0.4):
         v.set_param(boss, "r", r)
         img = v.render_current("full")
-    assert dict(_build.COUNTS) == counts and len(gk._libs) == libs
+    assert dict(_build.COUNTS) == counts and len(kernels._libs) == libs
     assert not np.array_equal(img0, img)  # the edit is visible
     assert boss.r == np.float32(0.4)
     v.on_press(5, 5)
     v.on_move(25, 9)
     v.render_current("drag")
     v.render_current("drag")
-    assert dict(_build.COUNTS) == counts and len(gk._libs) == libs
+    assert dict(_build.COUNTS) == counts and len(kernels._libs) == libs
 
 
 def test_set_param_requires_parametric_viewer():

@@ -48,7 +48,7 @@ from gsdf_tpu.eval import new_sdf2 as jax_new_sdf2
 from gsdf_tpu.eval import parametric as jpar
 from gsdf_tpu.forge import threads as jax_threads
 from gsdf_tpu.geometry.boxes import Box as JaxBox
-from gsdf_tpu_torch import Builder, _build
+from gsdf_tpu_torch import Builder, _build, kernels
 from gsdf_tpu_torch.codegen.cuda import Codegen, tree_source
 from gsdf_tpu_torch.convert import NODE_TYPES, from_reference_tree
 from gsdf_tpu_torch.core.ops2 import Rotation2D
@@ -388,12 +388,12 @@ def test_rebind_zero_new_libraries(path):
     jpinned, jcyl = _pinned(jbld, jax_with_bounds, JaxBox)
     fr = FlatRenderer(pinned, 0.05, "cpu")
     _, i0 = getattr(fr, path)(parametric=True)
-    counts, libs = dict(_build.COUNTS), len(gk._libs)
+    counts, libs = dict(_build.COUNTS), len(kernels._libs)
     pinned.rebind({cyl: {"r": 0.35}})
     jpinned.rebind({jcyl: {"r": 0.35}})
     v1, i1 = getattr(fr, path)(parametric=True)
     assert len(i1) != len(i0)  # the geometry changed
-    assert dict(_build.COUNTS) == counts and len(gk._libs) == libs
+    assert dict(_build.COUNTS) == counts and len(kernels._libs) == libs
     # the baked render of the edited tree, and the JAX package's
     v2, i2 = getattr(FlatRenderer(pinned, 0.05, "cpu"), path)()
     np.testing.assert_array_equal(i1, i2)

@@ -3,8 +3,10 @@ and opens no profiler range; `recording()` and a running torch.profiler
 switch them on; the viewer frame's and the mesh path's spans nest as the
 code does, with one request id; a profiler trace holds them as `gsdf.*`
 ranges nested as in memory; the ring keeps its bound; the viewer's
-`frame_stats` keeps its shape; and `kernels.launch` opens `launch.<kernel>`
-around its C entry call (a stub entry: no card here)."""
+`frame_stats` keeps its shape; `kernels.launch` opens `launch.<kernel>`
+around its C entry call (a stub entry: no card here); and one
+`Library.launch` serves both forms of a library, a parametric one packing
+its vector in `params.pack` first (a stub library)."""
 import contextlib
 import io
 import json
@@ -14,7 +16,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from gsdf_tpu_torch import Builder, kernels, spans
-from gsdf_tpu_torch.eval import grid_kernels as gk
+from gsdf_tpu_torch.codegen.params import kernel_params
 from gsdf_tpu_torch.pipeline import InteractiveViewer
 from gsdf_tpu_torch.render.flat import FlatRenderer
 from gsdf_tpu_torch.render.stl import write_binary_stl_indexed
@@ -140,14 +142,58 @@ def test_mesh_path_spans():
 
 def test_params_pack_span():
     class Lib:
+        by_value = True
+
+    with spans.recording():
+        ptr, n, keep = kernels.param_args(_obj(), Lib(), CPU)
+    assert n == len(keep) and ptr == keep.ctypes.data
+    assert _names(spans.records()) == ["params.pack"]
+
+
+def test_one_launch_call_serves_both_forms(monkeypatch):
+    """`Library.launch` on a stub library of K8 on a stand-in card: the
+    parametric form's C entry receives (..., pointer, length, stream) from
+    one call, which counts under raymarch_param inside
+    `launch.raymarch_param`, after `params.pack`; the parameter arguments
+    it returns pass the same vector to a second call, which packs nothing;
+    the baked form's entry receives the stream alone after its arguments."""
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: 77, raising=False)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setitem(kernels.LAUNCHES, "raymarch", 0)
+    monkeypatch.setitem(kernels.LAUNCHES, "raymarch_param", 0)
+    called = []
+
+    def entry(*args):
+        called.append((args, [s.name for s in getattr(spans._local, "open", [])]))
+        return 0
+
+    class CDLL:
+        gsdf_raymarch = gsdf_raymarch_param = staticmethod(entry)
+
         @staticmethod
         def gsdf_params_by_value():
             return 1
 
+    card, tree = torch.device("cuda", 0), _obj()
+    lib = kernels.Library(CDLL(), ("raymarch.cu",), parametric=True)
     with spans.recording():
-        ptr, n, keep = gk.param_args(_obj(), Lib(), CPU)
-    assert n == len(keep) and ptr == keep.ctypes.data
-    assert _names(spans.records()) == ["params.pack"]
+        params = lib.launch("raymarch", card, 1, 2, tree=tree)
+    ptr, n, keep = params
+    assert n == len(kernel_params(tree)) == len(keep) and ptr == keep.ctypes.data
+    assert called == [((1, 2, ptr, n, 77), ["launch.raymarch_param"])]
+    pack, run = spans.records()
+    assert (pack.name, run.name) == ("params.pack", "launch.raymarch_param")
+    assert pack.parent is None and run.parent is None
+    assert kernels.LAUNCHES["raymarch_param"] == 1 and kernels.LAUNCHES["raymarch"] == 0
+    spans.clear()
+    with spans.recording():
+        assert lib.launch("raymarch", card, 3, tree=tree, params=params, count=False) is params
+    assert called[-1][0] == (3, ptr, n, 77)
+    assert _names(spans.records()) == ["launch.raymarch_param"]
+    assert kernels.LAUNCHES["raymarch_param"] == 1
+    baked = kernels.Library(CDLL(), ("raymarch.cu",))
+    assert baked.launch("raymarch", card, 4, tree=tree) is None
+    assert called[-1][0] == (4, 77) and kernels.LAUNCHES["raymarch"] == 1
 
 
 def test_launch_span_around_the_c_entry(monkeypatch):

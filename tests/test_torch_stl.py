@@ -40,7 +40,7 @@ def test_native_copy_matches_reference():
 
 
 def _port_sources():
-    paths = [os.path.join(REPO, "chip_smoke.py")]
+    paths = [os.path.join(REPO, f) for f in ("chip_smoke.py", "bounds.py")]
     for root, _, files in os.walk(os.path.join(REPO, "gsdf_tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(paths)
@@ -57,7 +57,7 @@ def _docstrings(tree):
 
 
 def test_port_uses_nothing_of_the_jax_package():
-    """No module of the port, nor chip_smoke.py, imports jax or gsdf_tpu,
+    """No module of the port, nor chip_smoke.py or bounds.py, imports jax or gsdf_tpu,
     and none holds a string that names a path into gsdf_tpu/ (a citation
     of the reference by file and line, "gsdf_tpu/x.py:12", is none). The
     text modules are among them, and the font they load is the port's own
