@@ -195,8 +195,11 @@
    each row also gives the share of lane evaluations and of warp turns
    that skipped at each site, and a second bound and device share on the
    work K8 runs: the counted work less each site's lane skips times its
-   skipped function's ops (rm_site_ops). The shares are also read over
-   the view mix of the benchmark's viewer cell
+   skipped function's ops (rm_site_ops), and at each bin-table loop of a
+   threshold form (a Difference's subtrahend's translate-group loop, that
+   walks only the members listed for the point's xy cell) the members a
+   lane entry and a warp turn walked, less the members not walked. The
+   shares are also read over the view mix of the benchmark's viewer cell
    (torch_bench/traffic/view.json), one frame a stratum at 512 x 512 aa 3
    (rm_short_circuits), with each union's sites summed.
    `python3 chip_smoke.py --raymarch` runs these raymarch kernel rows
@@ -1249,18 +1252,29 @@ def rm_view_mix() -> tuple:
 def rm_site_ops(tree) -> dict:
     """Each short-circuit site's skipped function's ops a point
     (bounds.tree_ops_per_point), by the site's name: the work a lane that
-    skips there does not do."""
+    skips there does not do; and each bin-table loop's member's ops, by the
+    loop's name: the work of each member a lane that enters it does not
+    walk."""
     import bounds
     from gsdf_tpu_torch.codegen.cuda import Codegen
 
     cg = Codegen()
     cg.emit(tree)
-    sites, nodes, stack = list(cg.sites), {}, [tree]
+    sites, nodes, stack = list(cg.sites) + list(getattr(cg, "loops", [])), {}, [tree]
     while stack:
         node = stack.pop()
         nodes.setdefault(cg.emit(node), node)
         stack.extend(node.children())
     return {site: bounds.tree_ops_per_point(nodes[sub]) for site, sub, _ in sites}
+
+
+def rm_skipped_ops(site_ops, counts) -> int:
+    """The ops a counting launch's lanes did not run (ray_kernels'
+    SHORT_CIRCUITS as `counts`): each site's lane skips times its skipped
+    function's ops, each loop's members not walked times its member's."""
+    return sum(c["lane_skips"] * site_ops[site] if "loop" not in c
+               else (c["members"] * c["entries"] - c["walked"]) * site_ops[site]
+               for site, c in counts.items())
 
 
 def rm_short_circuits(tree, dev, w=512, h=512, steps=196, aa=3):
@@ -1270,8 +1284,10 @@ def rm_short_circuits(tree, dev, w=512, h=512, steps=196, aa=3):
     512 x 512 aa 3 (the viewer's rest frame), and the frames'
     evaluations; per union with sites ("<union>/<member>") its sites'
     lane evaluations and warp turns summed, and their shares that skipped
-    a member (a warp turn counted once a site it reached). None on a
-    tree with no site."""
+    a member (a warp turn counted once a site it reached); per bin-table
+    loop its counts (entries, members walked by lanes and by warp turns),
+    whose members a lane entry and a warp turn are in the shares. None on
+    a tree with no site."""
     from gsdf_tpu_torch.eval import ray_kernels as rk
     from gsdf_tpu_torch.visual import raymarch as vrm
 
@@ -1296,6 +1312,7 @@ def rm_short_circuits(tree, dev, w=512, h=512, steps=196, aa=3):
                 u[k] += c[k]
     return {"frames": n_yaw * n_pitch, "evaluations": evaluations,
             "shares": rk.short_circuit_shares(),
+            "loops": {site: c for site, c in rk.SHORT_CIRCUITS.items() if "loop" in c},
             "unions": {name: {"lanes": u["lanes"], "turns": u["turns"],
                               "lane_share": u["lanes"] and u["lane_skips"] / u["lanes"],
                               "warp_share": u["turns"] and u["turn_skips"] / u["turns"]}
@@ -1358,8 +1375,7 @@ def raymarch_kernel_times(parts, dev, card):
                 differing["raymarch_sites"] = rm_levels(cimg, ref)
                 ev_diff += int((cevals != ref_evals).sum())
                 shorts = rk.short_circuit_shares()
-                skipped = sum(c["lane_skips"] * site_ops[site]
-                              for site, c in rk.SHORT_CIRCUITS.items())
+                skipped = rm_skipped_ops(site_ops, rk.SHORT_CIRCUITS)
                 del cimg, cevals
             if ev_diff or any(n for n, _ in differing.values()):
                 raise RuntimeError(f"raymarch {name} {label} ({w}x{h}, {steps} steps, aa {aa}): "

@@ -48,6 +48,37 @@ Each bounded member is a site, named after the
 union's and the member's functions: a union of extruded letters (the GEB
 sculpture) skips the half that lies beyond the nearer half's value.
 
+Threshold forms (baked mode). Past its site a Difference needs its
+subtrahend's value b only where -b could exceed a, that is where b < -a.
+Where the subtrahend states a threshold form (`Shader.emit_below`,
+`<function>_below(px, py, pz, t)`: its value bit for bit wherever that
+is <= t or t is NaN, elsewhere a value > t), the Difference calls it
+with t = -a, and fmaxf(a, -b) is the same bit for bit: where b <= -a the
+form returns b; elsewhere both b and the form's value exceed -a, so -b
+and its negation lie below a, and the result is a. An OpUnion with a
+translate-group loop states one (Translate passes it through) where
+each loop's member states a radial bound (`Shader.radial_bound`, a point
+bound on the distance from its axis: a Cylinder), from which its reach
+(`Shader.axis_reach`) follows: a member whose bound exceeds t cannot be
+at or below t, so it is skipped, and the fminf chain over the members
+run, in the loop's order and then the tree's, is the same bit for bit
+where the union is <= t (the argument of the union sites above, every
+skipped member lying above the minimum); a bounded member after the loop
+is skipped where its bound exceeds the running minimum or t. The loop
+walks only the members that a baked xy bin table (`bin_table`, emitted
+with the walk's lines by `Codegen.table_walk`) lists for the point's
+cell: those whose axis comes within the member's reach at t_max, minus
+the minuend's lower bound, of some point of the cell. It takes the table
+where t <= t_max and px + py is no NaN; a point outside the grid lies
+beyond every member's reach and walks none; elsewhere it walks the whole
+loop and skips nothing. Each loop is named "<union>/<member>*<members>",
+numbered in emission order and wrapped as GSDF_TABLE(k, near) (whether
+the lane takes the table) and GSDF_LOOP(k, n) (the members it walks);
+the source defines GSDF_NLOOPS and both, as `(near)` and nothing, unless
+the includer has (csrc/raymarch_sites.cu counts each loop's walks). The
+showerhead's plate runs its 131-hole union as a table walk of at most a
+few holes.
+
 `tree_source(tree)` ends with the root function the kernel templates call,
 `gsdf_tree(px, py, pz)` for a 3D tree and `gsdf_tree(px, py)` for a 2D one,
 and defines GSDF_NDIM (3 or 2) so that a template can tell which it got.
@@ -80,11 +111,12 @@ tree of the same structure and an edited part needs no new build.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 
 from ..core.mathx import CBRT_MAGIC, CBRT_STEPS, COS_ACOS_3_COEFFS
-from ..core.node import Shader
+from ..core.node import NO_BOUND, Shader
 
 PRELUDE = """\
 // generated by gsdf_tpu_torch.codegen.cuda -- do not edit
@@ -176,6 +208,8 @@ class Codegen:
         self._stack: list = []  # nodes whose bodies are being emitted
         self._sizes: dict = {}  # id(node) -> floats in its subtree's slice
         self._bounds: dict = {}  # tree hash -> point-bound function name or None
+        self._belows: dict = {}  # (tree hash, t_max) -> threshold-form name or None
+        self._arrays: dict = {}  # (function, C type, values) -> array name
         self.union_helpers = False  # the source needs UNION_HELPERS
         #: the short-circuit sites, in their GSDF_SITE order: (the site's
         #: name, the function it skips, the bound: the Difference's
@@ -183,6 +217,10 @@ class Codegen:
         #: bound). A Difference's site is named by its function, a union's
         #: as "<union's function>/<member's function>"
         self.sites: list = []
+        #: the translate-group loops of threshold forms, in their GSDF_TABLE
+        #: and GSDF_LOOP order: (the loop's name, the member's function,
+        #: the members)
+        self.loops: list = []
 
     @staticmethod
     def lit(x) -> str:
@@ -247,16 +285,31 @@ class Codegen:
         return f"({text})" if self.parametric else lit(value)
 
     def array(self, node: Shader, values) -> str:
-        """Emit a float32 constant table for `node`; returns its name."""
+        """Emit a float32 constant table for `node` (once for equal
+        values); returns its name."""
+        flat = np.asarray(values, np.float32).reshape(-1)
+        return self._table(node, "float", [lit(v) for v in flat], 4)
+
+    def int_array(self, node: Shader, values) -> str:
+        """Emit a constant table of non-negative integers for `node`, in
+        the narrowest C type that holds them; returns its name."""
+        flat = [int(v) for v in np.asarray(values).reshape(-1)]
+        top = max(flat, default=0)
+        ctype = "unsigned char" if top < 2**8 else "unsigned short" if top < 2**16 else "int"
+        return self._table(node, ctype, [str(v) for v in flat], 16)
+
+    def _table(self, node: Shader, ctype: str, items: list, per_row: int) -> str:
         fn = self.name(node)
+        key = (fn, ctype, tuple(items))
+        if key in self._arrays:
+            return self._arrays[key]
         i = self._n_arrays.get(fn, 0)
         self._n_arrays[fn] = i + 1
-        name = f"{fn}_c{i}"
-        flat = np.asarray(values, np.float32).reshape(-1)
+        name = self._arrays[key] = f"{fn}_c{i}"
         body = ",\n    ".join(
-            ", ".join(lit(v) for v in flat[r : r + 4]) for r in range(0, len(flat), 4)
+            ", ".join(items[r : r + per_row]) for r in range(0, len(items), per_row)
         )
-        self._chunks.append(f"GSDF_CONST float {name}[{len(flat)}] = {{\n    {body}\n}};")
+        self._chunks.append(f"GSDF_CONST {ctype} {name}[{len(items)}] = {{\n    {body}\n}};")
         return name
 
     def call(self, node: Shader, *args: str) -> str:
@@ -272,20 +325,88 @@ class Codegen:
         the C expression `params` points to."""
         return f"{self.emit(node)}({', '.join((params,) + args)})"
 
-    def short_circuit(self, node: Shader, sub: Shader, args) -> str:
-        """The line of a Difference `node`'s body, after its minuend's value
-        `a`, that returns `a` where its subtrahend `sub` cannot change the
-        result: baked mode and a finite `sub.lower_bound()` (the module
-        note); else "". `args` are the function's coordinates."""
-        if self.parametric:
-            return ""
-        lo = np.float32(sub.lower_bound())
+    def subtrahend(self, node: Shader, minuend: Shader, sub: Shader, args) -> str:
+        """The lines of a Difference `node`'s body, after its minuend's value
+        `a`, that give its subtrahend's value `b`: in baked mode with a
+        finite `sub.lower_bound()` first a line that returns `a` where `sub`
+        cannot change the result, then, where the minuend has a finite
+        lower bound and `sub` a threshold form, b from that form at t = -a
+        (the module note). `args` are the function's coordinates."""
+        lo = np.float32(NO_BOUND if self.parametric else sub.lower_bound())
         if not np.isfinite(lo):
-            return ""
+            return f"float b = {self.call(sub, *args)};\n"
+        t_max = -np.float32(minuend.lower_bound())
+        below = self.below(sub, t_max) if np.isfinite(t_max) else None
+        fn = below or self.emit(sub)  # its own sites first
         k = len(self.sites)
-        self.sites.append((self.name(node), self.emit(sub), lo))
+        self.sites.append((self.name(node), self.name(sub), lo))
+        call = f"{fn}({', '.join(args)}, -a)" if below else self.call(sub, *args)
         ordered = f"!isnan({' + '.join(args)})"
-        return f"if (GSDF_SITE({k}, a > {lit(-lo)} && {ordered})) return a;\n"
+        return (f"if (GSDF_SITE({k}, a > {lit(-lo)} && {ordered})) return a;\n"
+                f"float b = {call};\n")
+
+    def below(self, node: Shader, t_max) -> str | None:
+        """The name of `node`'s threshold form for thresholds up to the
+        float32 `t_max` (`emit_below`, `<function>_below` of the node's
+        coordinates and t), emitted on first use; None where its class
+        states none, and in parametric mode."""
+        if self.parametric:
+            return None
+        t_max = np.float32(t_max)
+        key = (node.tree_hash(), t_max.tobytes())
+        if key not in self._belows:
+            self._stack.append(node)
+            try:
+                body = node.emit_below(self, t_max)  # emits the children's first
+            finally:
+                self._stack.pop()
+            name = f"{self.name(node)}_below"
+            n = sum(1 for (h, _), fn in self._belows.items() if h == key[0] and fn)
+            self._belows[key] = body and self._function(name + (f"{n}" if n else ""), node,
+                                                        body, "float t")
+        return self._belows[key]
+
+    def loop_site(self, node: Shader, member: Shader, n: int) -> int:
+        """Number a translate-group loop of `node`'s threshold form over n
+        copies of `member` (the module note); returns its GSDF_TABLE and
+        GSDF_LOOP index."""
+        fn = self.emit(member)
+        name = f"{self.name(node)}/{fn}*{n}"
+        if any(site == name for site, _, _ in self.loops):
+            name += f"#{len(self.loops)}"
+        self.loops.append((name, fn, n))
+        return len(self.loops) - 1
+
+    def table_walk(self, node: Shader, gi: int, member: Shader, offsets, reach, t_max) -> tuple:
+        """Group gi of union `node`'s threshold form, a loop over `member`
+        translated by `offsets`: emits its bin table (`bin_table` of the
+        offsets' xy at `reach`) and numbers the loop (`loop_site`). Returns
+        the lines that set near<gi> (the lane takes the table: t <= the
+        float32 `t_max` and px + py no NaN, through GSDF_TABLE), i<gi> and
+        n<gi> (where its cell's list starts and how many members it walks:
+        none outside the grid, all where it does not take the table), then
+        GSDF_LOOP's note; and the C expression of the offsets' row of the
+        i-th member walked (the module note)."""
+        table = bin_table(offsets[:, :2], reach)
+        starts, ids = self.int_array(node, table.starts), self.int_array(node, table.ids)
+        k = self.loop_site(node, member, len(offsets))
+        (x0, y0), (nx, ny) = table.origin, table.shape
+        inv = lit(1.0 / table.cell)
+        head = "\n".join([
+            f"int i{gi} = 0, n{gi} = {len(offsets)};",
+            f"const bool near{gi} = GSDF_TABLE({k}, t <= {lit(t_max)} && !isnan(px + py));",
+            f"if (near{gi}) {{",
+            f"    const float fx = (px - {lit(x0)}) * {inv}, fy = (py - {lit(y0)}) * {inv};",
+            f"    n{gi} = 0;",
+            f"    if (fx >= 0.0f && fx < {lit(nx)} && fy >= 0.0f && fy < {lit(ny)}) {{",
+            f"        const int c = (int)fy * {nx} + (int)fx;",
+            f"        i{gi} = {starts}[c];",
+            f"        n{gi} = {starts}[c + 1] - i{gi};",
+            "    }",
+            "}",
+            f"GSDF_LOOP({k}, n{gi});",
+        ])
+        return head, f"near{gi} ? {ids}[i{gi} + i] : i"
 
     def point_bound(self, node: Shader) -> str | None:
         """The name of `node`'s point-bound function (`emit_point_bound`,
@@ -314,9 +435,10 @@ class Codegen:
         self.sites.append((name, fn, None))
         return len(self.sites) - 1
 
-    def _function(self, name: str, node: Shader, body: str) -> str:
-        """Append the function `name` of `node`'s coordinates with `body`."""
-        params = ("float px", "float py", "float pz")[: node.NDIM]
+    def _function(self, name: str, node: Shader, body: str, *extra: str) -> str:
+        """Append the function `name` of `node`'s coordinates (and the
+        parameters `extra`) with `body`."""
+        params = ("float px", "float py", "float pz")[: node.NDIM] + extra
         if self.parametric:
             params = ("const float* P",) + params
         indented = "\n".join("    " + ln for ln in body.splitlines())
@@ -343,9 +465,75 @@ class Codegen:
                 f"#undef GSDF_NSITES\n#define GSDF_NSITES {len(self.sites)}\n"
                 "#ifndef GSDF_SITE\n#define GSDF_SITE(k, skip) (skip)\n#endif\n"
             )
+        if self.loops:
+            sites += (
+                f"#undef GSDF_NLOOPS\n#define GSDF_NLOOPS {len(self.loops)}\n"
+                "#ifndef GSDF_TABLE\n#define GSDF_TABLE(k, near) (near)\n#endif\n"
+                "#ifndef GSDF_LOOP\n#define GSDF_LOOP(k, n) ((void)0)\n#endif\n"
+            )
         if self.union_helpers:
             sites += UNION_HELPERS
         return PRELUDE + sites + "\n" + "\n\n".join(self._chunks) + "\n"
+
+
+#: a bin table's cell is the power of two nearest the loop members' reach,
+#: doubled until the grid has at most BIN_SIDE cells a side
+BIN_SIDE = 64
+
+
+class BinTable(NamedTuple):
+    """An xy grid over a translate-group loop's offsets and the members
+    each cell lists (`bin_table`)."""
+
+    origin: np.ndarray  # float32 (2,): the grid's lower corner X0, Y0
+    cell: float  # the cells' side, a power of two
+    shape: tuple  # (nx, ny) cells; cell (ix, iy) is number iy * nx + ix
+    starts: np.ndarray  # (nx * ny + 1,): where each cell's list starts in ids
+    ids: np.ndarray  # the members listed, ascending within each cell
+
+
+def bin_table(xy, reach) -> BinTable:
+    """The members of a translate-group loop that each cell of an xy grid
+    can reach: member i is listed for a cell wherever its axis xy[i] comes
+    within reach + m of the cell's closed rectangle, m = 2^-12 (1 + s),
+    s the largest |coordinate| of an axis plus reach. The grid spans the
+    axes grown by reach + 2m on each side, so a point outside it lies
+    farther than reach from every axis.
+
+    Why m covers the kernel's float32 arithmetic (this is float64): a point
+    that the kernel puts in cell (ix, iy) has fl(px - X0) in [ix c, (ix + 1)
+    c) (the product by 1 / c, c a power of two, is exact), so px lies
+    within e = 2^-24 W of the cell, W the grid's width (< 2 s + 4 m); its
+    computed distance from an axis, sqrtf(fl(qx*qx) + fl(qy*qy)) with
+    qx = fl(px - ox), is at least its real one times 1 - 2^-22 (a square
+    that underflows is below 2^-126 beside the other, >= 2^-25). So a
+    member not listed lies at a computed distance >= (reach + m - 2e)(1 -
+    2^-22) >= reach from every point put in the cell: m exceeds 2e +
+    2^-22 (reach + m) over 500 times. A point put outside the grid is as
+    far: fl(px - X0) < 0 only where px < X0, and fl(px - X0) >= nx c only
+    where px > X0 + nx c - e."""
+    xy = np.asarray(xy, np.float64).reshape(-1, 2)
+    reach = float(reach)
+    span = float(np.abs(xy).max(initial=0.0)) + reach
+    m = 2.0 ** -12 * (1.0 + span)
+    cell = 2.0 ** round(math.log2(max(reach, 2.0 ** -20)))
+    lo, hi = xy.min(0) - reach - 2 * m, xy.max(0) + reach + 2 * m
+    origin = lo.astype(np.float32)
+    origin = np.where(origin > lo, np.nextafter(origin, np.float32(-np.inf)), origin)
+    shape = np.ceil((hi - origin) / cell).astype(np.int64)
+    while shape.max() > BIN_SIDE:
+        cell *= 2
+        shape = np.ceil((hi - origin) / cell).astype(np.int64)
+    gaps = []
+    for a in range(2):  # each axis's distance from each member to each cell's span
+        edges = origin[a].astype(np.float64) + cell * np.arange(shape[a] + 1)
+        x = xy[:, a, None]
+        gaps.append(np.maximum(np.maximum(edges[None, :-1] - x, x - edges[None, 1:]), 0.0))
+    near = np.hypot(gaps[0][:, None, :], gaps[1][:, :, None]) < reach + m  # (G, ny, nx)
+    lists = [np.nonzero(near[:, iy, ix])[0] for iy in range(shape[1]) for ix in range(shape[0])]
+    starts = np.concatenate([[0], np.cumsum([len(c) for c in lists])])
+    ids = np.concatenate(lists + [np.zeros(0, np.int64)])
+    return BinTable(origin, cell, (int(shape[0]), int(shape[1])), starts, ids)
 
 
 #: floats of a parameter vector that the templates still take by value, as
@@ -361,6 +549,15 @@ def tree_sites(tree: Shader) -> list:
     cg = Codegen()
     cg.emit(tree)
     return cg.sites
+
+
+def tree_loops(tree: Shader) -> list:
+    """The translate-group loops of `tree`'s baked threshold forms, in
+    GSDF_LOOP order: (the loop's name, the member's function, the
+    members)."""
+    cg = Codegen()
+    cg.emit(tree)
+    return cg.loops
 
 
 def tree_source(tree: Shader, parametric: bool = False, by_value: bool | None = None) -> str:

@@ -23,6 +23,7 @@ parametric codegen names and shares functions by it.
 from __future__ import annotations
 
 import hashlib
+import math
 from typing import Iterable, Tuple
 
 import numpy as np
@@ -37,6 +38,15 @@ def finite(*values) -> bool:
     """True where every value (a scalar or an array) is a finite float32:
     what a node's bound and its nan_free need of the literals it emits."""
     return all(bool(np.all(np.isfinite(np.asarray(v, np.float32)))) for v in values)
+
+
+def radial_at(steps, d) -> np.float32:
+    """A radial bound's value (Shader.radial_bound) at the float32
+    distance `d` from the z axis, by the C's float32 operations."""
+    v = np.float32(d)
+    for op, c in steps:
+        v = v + np.float32(c) if op == "+" else v - np.float32(c)
+    return np.float32(v)
 
 
 def _param_bytes(v) -> bytes:
@@ -192,7 +202,7 @@ class Shader:
         fl(x + y) >= fl(x0 + y0), and likewise for a subtraction of a
         constant, sqrtf, fabsf, fmaxf and fminf of non-NaN values. The
         codegen's Difference skips its subtrahend where the minuend
-        exceeds minus this (codegen/cuda.py, Codegen.short_circuit)."""
+        exceeds minus this (codegen/cuda.py, Codegen.subtrahend)."""
         return NO_BOUND
 
     def nan_free(self) -> bool:
@@ -214,7 +224,56 @@ class Shader:
         `cg.point_bound(child)` names a child's bound function (None where
         it has none). The codegen's OpUnion skips a member where the
         members run before it already undercut its point bound
-        (codegen/cuda.py, the module note)."""
+        (codegen/cuda.py, the module note). By default the class's radial
+        bound (radial_bound), where it states one."""
+        steps = self.radial_bound()
+        if steps is None:
+            return None
+        return f"return sqrtf(px * px + py * py){''.join(f' {op} {cg.lit(c)}' for op, c in steps)};"
+
+    def radial_bound(self) -> tuple | None:
+        """A point bound (emit_point_bound's contract) stated as float32
+        steps on the point's distance from the z axis, d = sqrtf(px * px +
+        py * py): pairs (op, c), op "+" or "-" and c a float32 constant,
+        applied left to right; None where the class states none. From it
+        the default emit_point_bound writes the C and axis_reach reads how
+        far from the axis the bound exceeds a threshold."""
+        return None
+
+    def axis_reach(self, t):
+        """A float32 distance from the z axis at and beyond which the radial
+        bound (radial_bound) exceeds the float32 `t`, at any z; None where
+        the class states no radial bound or no finite reach exists. The
+        bound is a chain of float32 additions of constants to d, each
+        monotone (rounding is), so it exceeds t wherever d is no less than a
+        value where it does. The search starts where it exceeds t in real
+        arithmetic and steps up an ulp at a time. The codegen's bin table of
+        a translate-group loop lists a cell's members by it
+        (codegen/cuda.py, `bin_table`)."""
+        steps = self.radial_bound()
+        if steps is None or not finite(t, *(c for _, c in steps)):
+            return None
+        shift = math.fsum(float(c) if op == "+" else -float(c) for op, c in steps)
+        reach = np.float32(max(np.float64(t) - shift, 0.0))
+        for _ in range(64):
+            if not np.isfinite(reach):
+                return None
+            if radial_at(steps, reach) > t:
+                return reach
+            reach = np.nextafter(reach, np.float32(np.inf))
+        return None
+
+    def emit_below(self, cg, t_max) -> str | None:
+        """The body of this node's threshold form: a C function of its own
+        coordinates and a float `t` (`<function>_below`), or None where the
+        class states none. The contract, at every point and every t: where
+        the node's baked value v is <= t, or t is NaN, it returns v bit for
+        bit; elsewhere a value > t. The form may take a faster path where
+        t <= t_max (a float32) and no coordinate is NaN. `cg.below(child,
+        t_max)` names a child's form (None where it has none). A Difference
+        calls its subtrahend's form with t = -a, its minuend's value, and
+        t_max minus the minuend's lower bound (codegen/cuda.py, the module
+        note)."""
         return None
 
     def emit_cuda(self, cg) -> str:

@@ -140,22 +140,69 @@ class OpUnion(Shader3D):
                 "}"
             )
             terms.append(f"dg{gi}")
+        return self._emit_members(cg, lines, terms, ordered)
+
+    def _emit_members(self, cg, lines, terms, ordered, threshold=None) -> str:
+        """The body's end: the members evaluated one by one, after the
+        groups' loops (`lines`, their values `terms`), and the fminf chain
+        in the tree's order. A threshold form (`threshold`, its t) also
+        skips a bounded member whose bound exceeds t."""
         los = [cg.point_bound(s) for s in ordered[1:]]
         if ordered:  # with no loop and every other member bounded, it runs first unbounded
-            alone = not looped and len(ordered) > 2 and all(los)
+            alone = not terms and len(ordered) > 2 and all(los)
             los.insert(0, None if alone else cg.point_bound(ordered[0]))
         if not any(los):
             terms += [cg.call(s, "px", "py", "pz") for s in ordered]
-        elif not looped and len(ordered) == 2 and all(los):
+        elif not terms and len(ordered) == 2 and all(los):
             lines.append(self._emit_either_first(cg, ordered, los))
             terms += ["t0", "t1"]
         else:
-            lines.append(self._emit_bounded_last(cg, terms, ordered, los))
+            lines.append(self._emit_bounded_last(cg, terms, ordered, los, threshold))
             terms += [f"t{i}" for i in range(len(ordered))]
         lines.append(f"float d = {terms[0]};")
         lines += [f"d = fminf(d, {t});" for t in terms[1:]]
         lines.append("return d;")
         return "\n".join(lines)
+
+    def emit_below(self, cg, t_max):
+        """The union's threshold form (Shader.emit_below): each group's loop
+        walks the members that its bin table lists for the point's xy cell
+        and skips those whose point bound exceeds t; a bounded member after
+        the loops is skipped where its bound exceeds the running minimum or
+        t (codegen/cuda.py, the module note). Stated where there is a loop
+        and each loop's member has a radial bound with a reach at t_max
+        (Shader.radial_bound, Shader.axis_reach)."""
+        looped, ordered = self._groups()
+        reaches = [child.axis_reach(t_max) for child, _ in looped]
+        if not looped or any(r is None for r in reaches) or not all(finite(o) for _, o in looped):
+            return None
+        los = [cg.point_bound(child) for child, _ in looped]
+        if not all(los):
+            return None
+        lines, terms = [], []
+        for gi, ((child, offsets), reach, lo) in enumerate(zip(looped, reaches, los)):
+            lines.append(self._emit_table_loop(cg, gi, child, offsets, reach, lo, t_max))
+            terms.append(f"dg{gi}")
+        return self._emit_members(cg, lines, terms, ordered, threshold="t")
+
+    def _emit_table_loop(self, cg, gi, child, offsets, reach, lo, t_max) -> str:
+        """Group gi's loop in the threshold form: the members its bin table
+        walk (Codegen.table_walk) gives, each skipped where the lane took
+        the table and its bound exceeds t. dg<gi> is the fminf chain over
+        the members run, in the loop's order."""
+        arr = cg.array(self, offsets)
+        head, row = cg.table_walk(self, gi, child, offsets, reach, t_max)
+        call = cg.call(child, "qx", "qy", "qz")
+        return "\n".join([
+            head,
+            f"float dg{gi} = {cg.lit(mx.LARGENUM)};",
+            f"for (int i = 0; i < n{gi}; ++i) {{",
+            f"    const float* o = {arr} + 3 * ({row});",
+            "    const float qx = px - o[0], qy = py - o[1], qz = pz - o[2];",
+            f"    if (near{gi} && {lo}(qx, qy, qz) > t) continue;",
+            f"    dg{gi} = fminf(dg{gi}, {call});",
+            "}",
+        ])
 
     def _emit_either_first(self, cg, ordered, los) -> str:
         """Two members, both bounded: the one whose bound is lower runs
@@ -188,15 +235,16 @@ class OpUnion(Shader3D):
             "}",
         ])
 
-    def _emit_bounded_last(self, cg, terms, ordered, los) -> str:
+    def _emit_bounded_last(self, cg, terms, ordered, los, threshold=None) -> str:
         """The groups' loops (`terms`) and the members without a bound
         (`los`: the first member where all others have one) run first; then
         each bounded member in the tree's order, unless the running minimum
         `a` of what ran undercuts its bound (a site each). t<i> holds
-        member i's value, NaN where skipped."""
+        member i's value, NaN where skipped. In a threshold form `a` is
+        also no greater than the threshold (fminf drops a NaN one)."""
         lines = [f"const float t{i} = {cg.call(s, 'px', 'py', 'pz')};"
                  for i, (s, lo) in enumerate(zip(ordered, los)) if not lo]
-        ran = terms + [f"t{i}" for i, lo in enumerate(los) if not lo]
+        ran = terms + [f"t{i}" for i, lo in enumerate(los) if not lo] + [threshold] * bool(threshold)
         lines.append(f"float a = {ran[0]};")
         lines += [f"a = fminf(a, {t});" for t in ran[1:]]
         lines.append("const bool ordered = !isnan(px + py + pz);")
@@ -257,7 +305,8 @@ class _Difference(_Binary):
     """s1 - s2, 3D and 2D: fmaxf(a, -b). Where the subtrahend has a
     finite lower bound lo, -b <= -lo, so wherever a > -lo the result is a
     bit for bit and the baked function returns it before it evaluates
-    the subtrahend (Codegen.short_circuit)."""
+    the subtrahend, and past that it asks the subtrahend's threshold form
+    for its value only where it is below -a (Codegen.subtrahend)."""
 
     _C = "fmaxf(a, -b)"
 
@@ -265,9 +314,8 @@ class _Difference(_Binary):
         args = ("px", "py", "pz")[: self.NDIM]
         return (
             f"float a = {cg.call(self.s1, *args)};\n"
-            + cg.short_circuit(self, self.s2, args)
-            + f"float b = {cg.call(self.s2, *args)};\n"
-            f"return {self._C};"
+            + cg.subtrahend(self, self.s1, self.s2, args)
+            + f"return {self._C};"
         )
 
     def distance(self, p):
@@ -557,6 +605,12 @@ class Translate(Shader3D):
     def emit_point_bound(self, cg):
         lo = cg.point_bound(self.s)
         return lo and f"return {lo}({', '.join(self._args(cg))});"
+
+    # the child's threshold form at the p - offset the function computes:
+    # the child's contract, at any point, is the translate's
+    def emit_below(self, cg, t_max):
+        below = cg.below(self.s, t_max)
+        return below and f"return {below}({', '.join(self._args(cg))}, t);"
 
     # p - offset is no NaN at a non-NaN p where the offset is finite: the
     # child's bound and NaN-freeness carry over

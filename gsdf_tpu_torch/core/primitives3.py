@@ -260,6 +260,26 @@ class Cylinder(Shader3D):
     def nan_free(self):
         return finite(*self._args())
 
+    # With r, h and rnd finite, take dx = d_axis - r (rounded: (d_axis - r)
+    # + rnd), the function's own dx. Where d_axis is no NaN (px, py no
+    # NaN), dx is no NaN and so is the result, whatever pz: fmaxf drops a
+    # NaN dy, and qy = fmaxf(dy, 0) is then 0. Where dx <= 0 the first
+    # term fminf(fmaxf(dx, dy), 0) is >= dx and the root >= 0, so the sum
+    # is >= dx. Where dx > 0 the first term is 0 and the sum is sqrtf(dx*dx
+    # + qy*qy) >= sqrtf(fl(dx*dx)), which is dx exactly in binary float32
+    # wherever dx*dx is normal (dx >= 2^-63) or overflows (inf); below
+    # 2^-63 the square may underflow and the root fall under dx, never
+    # under 0. So the sum is >= fl(dx - 2^-63) everywhere, and the rounded
+    # result, the sum less rnd, is >= fl(fl(dx - 2^-63) - rnd) (rounding
+    # is monotone): the point bound, NaN exactly where d_axis is
+    def radial_bound(self):
+        r, h, rnd = self._args()
+        if not finite(r, h, rnd):
+            return None
+        if float(rnd) == 0:
+            return (("-", r), ("-", _f32(2.0 ** -63)))
+        return (("-", r), ("+", rnd), ("-", _f32(2.0 ** -63)), ("-", rnd))
+
     def bounds(self) -> Box:
         r, h = self.r, self.h
         return Box(np.array([-r, -r, -h / 2], _f32), np.array([r, r, h / 2], _f32))

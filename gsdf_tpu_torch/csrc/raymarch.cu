@@ -72,10 +72,13 @@
 // change the result, codegen/cuda.py) counted: per site, the lane
 // evaluations that reached it, of them those that skipped, the warp turns
 // in which a lane reached it, and of them those in which every lane that
-// reached it skipped (the turns whose warp ran no subtrahend there). A
-// library of its own behind `eval/ray_kernels.py::count_short_circuits`;
-// this form, which `raymarch` runs with or without evals, carries none of
-// it.
+// reached it skipped (the turns whose warp ran no subtrahend there); and
+// per bin-table loop of a threshold form (GSDF_LOOP) the lane evaluations
+// that entered it, the members they walked, the warp turns in which a lane
+// entered it, and the members those turns walked (each turn's longest
+// walk, which the warp runs). A library of its own behind
+// `eval/ray_kernels.py::count_short_circuits`; this form, which
+// `raymarch` runs with or without evals, carries none of it.
 //
 // gsdf_tree.cuh is generated per tree by gsdf_tpu_torch/codegen/cuda.py.
 #include <atomic>
@@ -86,6 +89,8 @@
 #ifdef GSDF_RM_COUNT_SITES
 static __device__ __forceinline__ bool gsdf_site_note(int site, bool skip);
 #define GSDF_SITE(site, skip) gsdf_site_note(site, skip)
+static __device__ __forceinline__ void gsdf_loop_note(int loop, int walked);
+#define GSDF_LOOP(loop, n) gsdf_loop_note(loop, n)
 #define GSDF_RM_SITES_DECL , unsigned long long* __restrict__ sites
 #define GSDF_RM_SITES_ARG , sites
 #else
@@ -96,6 +101,9 @@ static __device__ __forceinline__ bool gsdf_site_note(int site, bool skip);
 #include "gsdf_tree.cuh"
 #include "gsdf_params.cuh"
 #include "gsdf_raymarch.cuh"
+#ifndef GSDF_NLOOPS
+#define GSDF_NLOOPS 0
+#endif
 
 namespace {
 
@@ -108,21 +116,34 @@ constexpr int kMaxDevices = 64;
 #ifdef GSDF_RM_COUNT_SITES
 static_assert(GSDF_NSITES > 0, "the counting form is built for trees with short-circuit sites");
 
+constexpr int kLoops = GSDF_NLOOPS > 0 ? GSDF_NLOOPS : 1;
+
 // Each thread's visits ([0]) and skips ([1]) of each site in the current
-// tree evaluation, as gsdf_site_note counts them.
+// tree evaluation, as gsdf_site_note counts them; and its entries ([0])
+// and members walked ([1]) of each loop, as gsdf_loop_note counts them.
 __shared__ uint32_t site_hits[GSDF_NSITES][2][kThreads];
+__shared__ uint32_t loop_hits[kLoops][2][kThreads];
 
 // A thread's tally over its warp's turns: per site [0] lane evaluations
 // that reached it, [1] of them skipped; lane 0 also [2] warp turns in
-// which a lane reached it, [3] of them with every such lane skipping.
+// which a lane reached it, [3] of them with every such lane skipping. Per
+// loop [0] lane evaluations that entered it, [1] the members they walked;
+// lane 0 also [2] warp turns in which a lane entered it, [3] the members
+// the warp walked in them (each turn's longest walk).
 struct SiteTally {
     unsigned long long n[GSDF_NSITES][4];
+    unsigned long long m[kLoops][4];
 
     __device__ void start() {
 #pragma unroll
         for (int k = 0; k < GSDF_NSITES; ++k) {
             site_hits[k][0][threadIdx.x] = site_hits[k][1][threadIdx.x] = 0;
             n[k][0] = n[k][1] = n[k][2] = n[k][3] = 0;
+        }
+#pragma unroll
+        for (int k = 0; k < kLoops; ++k) {
+            loop_hits[k][0][threadIdx.x] = loop_hits[k][1][threadIdx.x] = 0;
+            m[k][0] = m[k][1] = m[k][2] = m[k][3] = 0;
         }
     }
 
@@ -142,9 +163,24 @@ struct SiteTally {
                 n[k][3] += reached && all;
             }
         }
+#pragma unroll
+        for (int k = 0; k < GSDF_NLOOPS; ++k) {
+            const uint32_t entered = loop_hits[k][0][threadIdx.x];
+            const uint32_t walked = loop_hits[k][1][threadIdx.x];
+            loop_hits[k][0][threadIdx.x] = loop_hits[k][1][threadIdx.x] = 0;
+            m[k][0] += entered;
+            m[k][1] += walked;
+            const bool reached = __any_sync(kAll, entered != 0);
+            const uint32_t longest = __reduce_max_sync(kAll, walked);
+            if (lane == 0) {
+                m[k][2] += reached;
+                m[k][3] += longest;
+            }
+        }
     }
 
-    // The warp's sums into sites (GSDF_NSITES x 4), once per warp.
+    // The warp's sums into sites ((GSDF_NSITES + GSDF_NLOOPS) x 4: the
+    // sites', then the loops'), once per warp.
     __device__ void flush(unsigned long long* sites, int lane) {
 #pragma unroll
         for (int k = 0; k < GSDF_NSITES; ++k) {
@@ -152,6 +188,13 @@ struct SiteTally {
                 for (int o = 16; o > 0; o /= 2) n[k][j] += __shfl_down_sync(kAll, n[k][j], o);
             if (lane == 0)
                 for (int j = 0; j < 4; ++j) atomicAdd(&sites[4 * k + j], n[k][j]);
+        }
+#pragma unroll
+        for (int k = 0; k < GSDF_NLOOPS; ++k) {
+            for (int j = 0; j < 2; ++j)
+                for (int o = 16; o > 0; o /= 2) m[k][j] += __shfl_down_sync(kAll, m[k][j], o);
+            if (lane == 0)
+                for (int j = 0; j < 4; ++j) atomicAdd(&sites[4 * (GSDF_NSITES + k) + j], m[k][j]);
         }
     }
 };
@@ -352,6 +395,11 @@ static __device__ __forceinline__ bool gsdf_site_note(int site, bool skip) {
     site_hits[site][1][threadIdx.x] += skip;
     return skip;
 }
+
+static __device__ __forceinline__ void gsdf_loop_note(int loop, int walked) {
+    loop_hits[loop][0][threadIdx.x] += 1u;
+    loop_hits[loop][1][threadIdx.x] += (uint32_t)walked;
+}
 #endif
 
 // samples (aa*height, aa*width, 3) u8; out (height, width, 3) u8, the
@@ -363,8 +411,8 @@ static __device__ __forceinline__ bool gsdf_site_note(int site, bool skip) {
 // = launched). The parametric entry point also takes the parameter vector
 // (a host pointer where it goes by value, else a device pointer) and its
 // length, which must be the structure's. The counting entry point also
-// takes `sites`, GSDF_NSITES x 4 uint64 of device memory set here to the
-// counts of the kernel's note above.
+// takes `sites`, (GSDF_NSITES + GSDF_NLOOPS) x 4 uint64 of device memory
+// set here to the counts of the kernel's note above.
 #if defined(GSDF_RM_COUNT_SITES)
 extern "C" int gsdf_raymarch_sites(uint8_t* samples, uint8_t* out, int* evals, int* queue,
                                    const float* cam, int width, int height, int steps,
@@ -405,7 +453,8 @@ extern "C" int gsdf_raymarch(uint8_t* samples, uint8_t* out, int* evals, int* qu
     rc = (int)cudaMemsetAsync(queue, 0, sizeof(int), s);
     if (rc != 0) return rc;
 #ifdef GSDF_RM_COUNT_SITES
-    rc = (int)cudaMemsetAsync(sites, 0, GSDF_NSITES * 4 * sizeof(unsigned long long), s);
+    rc = (int)cudaMemsetAsync(sites, 0, (GSDF_NSITES + GSDF_NLOOPS) * 4 * sizeof(unsigned long long),
+                              s);
     if (rc != 0) return rc;
 #endif
     raymarch_kernel<<<blocks, kThreads, 0, s>>>(samples, evals, queue, rw, rh, (int)n_ids, steps,

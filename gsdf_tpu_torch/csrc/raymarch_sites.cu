@@ -4,6 +4,7 @@
 // its own, behind `eval/ray_kernels.py::count_short_circuits`: the image
 // and the evaluation counts are K8's, from the same generated code. A site
 // is a Difference's skipped subtrahend or a union's skipped member
-// (codegen/cuda.py): both count alike.
+// (codegen/cuda.py): both count alike; a threshold form's bin-table loop
+// counts the members it walks.
 #define GSDF_RM_COUNT_SITES 1
 #include "raymarch.cu"

@@ -26,11 +26,13 @@ structure, the tree's continuous parameters a launch argument
 Short circuits. A tree's baked source may return a Difference's minuend
 before it evaluates a subtrahend that cannot change the result, and skip a
 union's member whose point bound the members run before it undercut
-(codegen/cuda.py). `count_short_circuits` runs K8's counting form on
-such a tree (csrc/raymarch_sites.cu, "raymarch_sites", a library of its
-own around the same generated code): the same image and evaluations, and per site how
-often the skip engaged, added to SHORT_CIRCUITS. `raymarch`, with or
-without evals, runs K8 itself, which counts nothing.
+(codegen/cuda.py), and walk only the members of a translate-group loop
+that a bin table lists near the point. `count_short_circuits` runs K8's
+counting form on such a tree (csrc/raymarch_sites.cu, "raymarch_sites", a
+library of its own around the same generated code): the same image and
+evaluations, and per site how often the skip engaged and per loop how many
+members it walked, added to SHORT_CIRCUITS. `raymarch`, with or without
+evals, runs K8 itself, which counts nothing.
 
 The camera is 20 float32 numbers made once a frame on the host
 (`pack_camera`, visual/raymarch.py::camera): the kernel and the plain
@@ -41,7 +43,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..codegen.cuda import tree_sites
+from ..codegen.cuda import tree_loops, tree_sites
 from ..core import mathx as mx
 from ..kernels import build, check_out, entry_device
 
@@ -54,10 +56,16 @@ _f32 = np.float32
 #: "bound": "point"; "lanes": lane evaluations that reached the site,
 #: "lane_skips": of them those that skipped the function, "turns": warp
 #: turns in which a lane reached it, "turn_skips": of them those in which
-#: every such lane skipped}
+#: every such lane skipped}; and at each bin-table loop (codegen.cuda's
+#: Codegen.loops) its name -> {"loop": the member's function, "members":
+#: the loop's length; "entries": lane evaluations that entered it,
+#: "walked": the members they walked, "turns": warp turns in which a lane
+#: entered it, "turn_walked": the members the warp walked in them (each
+#: turn's longest walk)}
 SHORT_CIRCUITS: dict = {}
 _SITE_COUNTS = ("lanes", "lane_skips", "turns", "turn_skips")
-_sites: dict = {}  # tree hash -> tree_sites(tree)
+_LOOP_COUNTS = ("entries", "walked", "turns", "turn_walked")
+_sites: dict = {}  # tree hash -> (tree_sites(tree), tree_loops(tree))
 #: gsdf_rm::Camera's fields in order, and their lengths
 CAMERA_FIELDS = (("ro", 3), ("uu", 3), ("vv", 3), ("ww", 3), ("center", 3), ("light", 3),
                  ("scale", 1), ("far_plane", 1))
@@ -206,24 +214,43 @@ def raymarch_plain(tree, camera, width, height, steps, relax, aa, device, evals=
 
 
 # --- kernel wrapper ----------------------------------------------------------
+def _tree_sites(tree) -> tuple:
+    key = tree.tree_hash()
+    if key not in _sites:
+        _sites[key] = (tree_sites(tree), tree_loops(tree))
+    return _sites[key]
+
+
 def sites(tree) -> list:
     """The short-circuit sites of the 3D tree's baked source
     (codegen.cuda.tree_sites), kept per tree hash."""
-    key = tree.tree_hash()
-    if key not in _sites:
-        _sites[key] = tree_sites(tree)
-    return _sites[key]
+    return _tree_sites(tree)[0]
+
+
+def loops(tree) -> list:
+    """The bin-table loops of the 3D tree's baked source
+    (codegen.cuda.tree_loops), kept per tree hash."""
+    return _tree_sites(tree)[1]
 
 
 def short_circuit_shares() -> dict:
     """{site: {"subtrahend" or "member", "lane_share", "warp_share"}} from
     SHORT_CIRCUITS: the share of lane evaluations reaching the site that
     skipped its function, and of warp turns reaching it in which the
-    whole warp skipped it (None where none reached it)."""
-    return {site: {**{k: c[k] for k in ("subtrahend", "member") if k in c},
-                   "lane_share": c["lane_skips"] / c["lanes"] if c["lanes"] else None,
-                   "warp_share": c["turn_skips"] / c["turns"] if c["turns"] else None}
-            for site, c in SHORT_CIRCUITS.items()}
+    whole warp skipped it (None where none reached it); and {loop: {"loop",
+    "members", "lane_members", "warp_members"}}: the members walked a lane
+    entry and a warp turn that entered it."""
+    out = {}
+    for site, c in SHORT_CIRCUITS.items():
+        if "loop" in c:
+            out[site] = {"loop": c["loop"], "members": c["members"],
+                         "lane_members": c["walked"] / c["entries"] if c["entries"] else None,
+                         "warp_members": c["turn_walked"] / c["turns"] if c["turns"] else None}
+            continue
+        out[site] = {**{k: c[k] for k in ("subtrahend", "member") if k in c},
+                     "lane_share": c["lane_skips"] / c["lanes"] if c["lanes"] else None,
+                     "warp_share": c["turn_skips"] / c["turns"] if c["turns"] else None}
+    return out
 
 
 def raymarch(tree, camera, width, height, steps, relax, aa, device, parametric=False,
@@ -243,7 +270,8 @@ def count_short_circuits(tree, camera, width, height, steps, relax, aa, device):
     """K8's counting form on the 3D `tree`'s short-circuit sites: the
     image and evaluations of raymarch(..., evals=True), and per site the
     lane evaluations and warp turns that reached it and that skipped its
-    function, added to SHORT_CIRCUITS (one synchronisation). On a tree
+    function, and per bin-table loop the members walked, added to
+    SHORT_CIRCUITS (one synchronisation). On a tree
     with no site, K8 itself and nothing counted. A card's: the plain
     version has no warps."""
     if entry_device(device).type == "cpu":
@@ -262,7 +290,7 @@ def _raymarch(tree, camera, width, height, steps, relax, aa, device, parametric,
         raise ValueError(f"a camera is {CAMERA_FLOATS} floats, got {cam.size}")
     if device.type == "cpu":
         return raymarch_plain(tree, cam, width, height, steps, relax, aa, device, evals)
-    counted = sites(tree) if count else []
+    counted, looped = _tree_sites(tree) if count else ([], [])
     lib = build(tree, "raymarch_sites" if counted else "raymarch", parametric)
     out = torch.empty((height, width, 3), dtype=torch.uint8, device=device)
     samples = out if aa == 1 else torch.empty((height * aa, width * aa, 3), dtype=torch.uint8,
@@ -274,14 +302,20 @@ def _raymarch(tree, camera, width, height, steps, relax, aa, device, parametric,
     args = (samples.data_ptr(), out.data_ptr(), None if n_evals is None else n_evals.data_ptr(),
             queue.data_ptr(), cam.ctypes.data, width, height, steps, float(_f32(relax)), aa)
     if counted:
-        counts = torch.empty((len(counted), len(_SITE_COUNTS)), dtype=torch.int64,
+        counts = torch.empty((len(counted) + len(looped), len(_SITE_COUNTS)), dtype=torch.int64,
                              device=device)
         lib.launch("raymarch_sites", device, *args, counts.data_ptr())
-        for (site, sub, lo), row in zip(counted, counts.tolist()):
+        rows = counts.tolist()
+        for (site, sub, lo), row in zip(counted, rows):
             skips = ({"member": sub, "bound": "point"} if lo is None
                      else {"subtrahend": sub, "bound": float(lo)})
             total = SHORT_CIRCUITS.setdefault(site, {**skips, **dict.fromkeys(_SITE_COUNTS, 0)})
             for k, v in zip(_SITE_COUNTS, row):
+                total[k] += v
+        for (loop, member, n), row in zip(looped, rows[len(counted):]):
+            total = SHORT_CIRCUITS.setdefault(loop, {"loop": member, "members": n,
+                                                     **dict.fromkeys(_LOOP_COUNTS, 0)})
+            for k, v in zip(_LOOP_COUNTS, row):
                 total[k] += v
     else:
         lib.launch("raymarch", device, *args, tree=tree)

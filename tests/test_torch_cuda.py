@@ -1103,12 +1103,16 @@ def test_raymarch_matches_plain(name, aa, cuda_device):
 def test_raymarch_short_circuits(cuda_device):
     """The showerhead's code returns a Difference's minuend where its
     subtrahend cannot change the result: the 131 hole cylinders (above
-    0.8) and the buttress screw (above 2.75), two sites. At the viewer's
+    0.8) and the buttress screw (above 2.75), two sites; and skips a union
+    member, a Cylinder, whose point bound the members run before it
+    undercut: the knurled head's body, and past the holes' site the hole
+    union's own member. At the viewer's
     rest frame (512 x 512, aa 3) K8, with and without its evaluation
     counts, and its counting form (count_short_circuits) equal the plain
     version in every pixel and every ray's evaluation count; every
-    evaluation reaches both sites, and the counter reads skips at each, by
-    lane and by whole warp turn, while K8 itself counts nothing. The GEB
+    evaluation reaches the first three sites, and the counter reads skips
+    at each of the four, by lane and by whole warp turn, while K8 itself
+    counts nothing. The GEB
     sculpture's union skips the half whose point bound the other half's
     value undercuts: the half with the lower bound runs first, so each
     evaluation reaches one of the two union sites, and each reads skips
@@ -1130,13 +1134,17 @@ def test_raymarch_short_circuits(cuda_device):
     assert torch.equal(img, ref) and torch.equal(eimg, ref) and torch.equal(cimg, ref)
     assert torch.equal(eevals, ref_evals) and torch.equal(evals, ref_evals)
     sites = rk.sites(tree)
-    assert [sub for _, sub, _ in sites] == ["screwnode_80e066040afe", "opunion_47f303063cec"]
-    assert set(rk.SHORT_CIRCUITS) == {site for site, _, _ in sites}
-    for site, c in rk.SHORT_CIRCUITS.items():
-        assert c["lanes"] == int(evals.sum()), site
-        assert 0 < c["lane_skips"] < c["lanes"] and 0 < c["turn_skips"] < c["turns"], (site, c)
-    for share in rk.short_circuit_shares().values():
-        assert 0 < share["warp_share"] < 1 and 0 < share["lane_share"] < 1, share
+    differences = [sub for _, sub, lo in sites if lo is not None]
+    assert differences == ["screwnode_80e066040afe", "opunion_47f303063cec"]
+    assert [sub for _, sub, lo in sites if lo is None] == ["cylinder_fa0113ce8a56",
+                                                           "cylinder_42103e6013b8"]
+    assert set(rk.SHORT_CIRCUITS) == {site for site, _, _ in sites + rk.loops(tree)}
+    for site, sub, lo in sites:
+        c = rk.SHORT_CIRCUITS[site]
+        if sub != "cylinder_42103e6013b8":  # the hole union's own member: past its site
+            assert c["lanes"] == int(evals.sum()), site
+        assert 0 < c["lanes"] and 0 < c["lane_skips"] < c["lanes"], (site, c)
+        assert 0 < c["turn_skips"] < c["turns"], (site, c)
 
     geb = flagships.build_geb()
     gargs = _frame_args(geb, 512, 512, 3, 196, cuda_device)
@@ -1166,6 +1174,34 @@ def test_raymarch_short_circuits(cuda_device):
     sref, sref_evals = rk.raymarch_plain(sphere, *sargs, evals=True)
     assert torch.equal(simg, sref) and torch.equal(sevals, sref_evals)
     assert rk.SHORT_CIRCUITS == {}
+
+
+def test_raymarch_loop_walks(cuda_device):
+    """The showerhead's hole loop walks only the holes that its bin table
+    lists for the point's xy cell: at the viewer's rest frame (512 x 512,
+    aa 3) the counting form equals plain, lanes enter the loop, and the
+    members walked a lane entry and a warp turn are at most the table's
+    longest list (130 before the table); a warp turn walks at least what
+    its average lane walks."""
+    from gsdf_tpu_torch.codegen.cuda import bin_table
+    from gsdf_tpu_torch.eval import ray_kernels as rk
+
+    tree = flagships.build_showerhead()
+    plate = tree.joined[1]
+    (member, offsets), = plate.s2._groups()[0]
+    table = bin_table(offsets[:, :2], member.axis_reach(-np.float32(plate.s1.lower_bound())))
+    longest = int(np.diff(table.starts).max())
+    args = _frame_args(tree, 512, 512, 3, 196, cuda_device)
+    rk.SHORT_CIRCUITS.clear()
+    cimg, evals = rk.count_short_circuits(tree, *args)
+    ref, ref_evals = rk.raymarch_plain(tree, *args, evals=True)
+    assert torch.equal(cimg, ref) and torch.equal(evals, ref_evals)
+    (loop, _, n), = rk.loops(tree)
+    assert n == len(offsets) == 130
+    c = rk.SHORT_CIRCUITS[loop]
+    share = rk.short_circuit_shares()[loop]
+    assert 0 < c["entries"] < int(evals.sum()) and 0 < c["turns"], c
+    assert 0 < share["lane_members"] <= share["warp_members"] <= longest < n, (share, longest)
 
 
 def test_raymarch_one_library_per_tree(cuda_device):

@@ -139,3 +139,15 @@ def test_kernels_sits_below_the_wrapper_layers():
             late = [m for m, inside in _imports(os.path.join(ops, f))
                     if inside and m.startswith("gsdf_tpu_torch.eval.grid_kernels")]
             assert not late, (f, late)
+
+
+def test_core_sits_below_the_codegen():
+    """No module of core/ imports codegen/, which imports core.node: a
+    node asks its Codegen for what it emits (the bin table of a threshold
+    form's loop is `Codegen.table_walk`'s)."""
+    core = os.path.join(PKG, "core")
+    for f in sorted(os.listdir(core)):
+        if f.endswith(".py"):
+            up = [m for m, _ in _imports(os.path.join(core, f))
+                  if m.startswith("gsdf_tpu_torch.codegen")]
+            assert not up, (f, up)
