@@ -13,7 +13,12 @@ however the program does it:
   byte written once (`kernel_bytes`);
 - a raymarched frame costs its tree evaluations times the operations per
   point, plus each march step's and each ray's own arithmetic
-  (`raymarch_ops`).
+  (`raymarch_ops`);
+- where the program's code skips what cannot change a point's distance (a
+  short-circuit site that skips a function, a loop that walks only the
+  members near the point), the work is what its lanes ran: the skipped
+  functions' operations come off (`work_run`), as the program counts the
+  skips; its own bound and table arithmetic counts nothing.
 
 A share of the bound above 100% means the work is counted too high or the
 time leaves part of the work out; nothing here clips it.
@@ -138,3 +143,35 @@ def raymarch_ops(evaluations: int, rays: int, ops_pp: int, step_ops: int,
     own arithmetic (evaluations less the 5 of each ray's shading) and each
     ray's direction and shading."""
     return int(evaluations * ops_pp + (evaluations - 5 * rays) * step_ops + rays * ray_ops)
+
+
+def skipped_function(counts: dict) -> str:
+    """The function a short-circuit count (an entry of the program's
+    `ray_kernels.SHORT_CIRCUITS`) skips: a Difference's subtrahend, a union
+    member, or a loop's member."""
+    return counts.get("subtrahend") or counts.get("member") or counts["loop"]
+
+
+def skipped_ops(counts: dict, function_ops: dict) -> int:
+    """The operations that the lanes behind `counts` ({name: the program's
+    SHORT_CIRCUITS entry}) did not run: at each site its lane skips times
+    its skipped function's operations a point, at each loop the members its
+    lane entries did not walk times its member's (`function_ops`: a
+    function's name -> its operations a point)."""
+    out = 0
+    for name, c in counts.items():
+        n = c["entries"] * c["members"] - c["walked"] if "loop" in c else c["lane_skips"]
+        if n < 0:
+            raise ValueError(f"{name}: {n} skips")
+        out += n * function_ops[skipped_function(c)]
+    return int(out)
+
+
+def work_run(ops: int, counts: dict, function_ops: dict) -> int:
+    """`ops`, counted at the part's full operations a point, less what the
+    lanes skipped (`skipped_ops`). Raises where the skips exceed what was
+    counted: the counts are then not of these evaluations."""
+    skipped = skipped_ops(counts, function_ops)
+    if not 0 <= skipped <= ops:
+        raise ValueError(f"{skipped} skipped operations of {ops} counted")
+    return int(ops) - skipped

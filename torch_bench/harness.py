@@ -142,12 +142,14 @@ def execute(cell: spec.Cell, seed: int, seconds: float, traced: bool, device, t_
         mark = _traced_window(run, req, gen, sampler, device, launches)
     else:
         _window(run, req, gen, sampler, device)
-    built = sum(builds.values()) - sum(counts.values())
+    built = {k: builds[k] - counts[k] for k in builds}  # in the window alone
     peak = (torch.cuda.max_memory_allocated(device) if torch.device(device).type == "cuda"
             else 0)
     measured = traced and run.trace is not None and not run.trace.lost
     if measured:
+        t = time.perf_counter()
         req.count_work(mark)
+        ph["count_s"] = time.perf_counter() - t
     # the program's state goes before the reference runs on the same device
     req.release()
     gc.collect()
@@ -156,9 +158,8 @@ def execute(cell: spec.Cell, seed: int, seconds: float, traced: bool, device, t_
     t = time.perf_counter()
     numbers = req.check(sampler.kept, cell.reference.part(), device)
     if "builds" in cell.limits:
-        numbers["builds"] = built
-    log(f"window builds: {builds['compiles'] - counts['compiles']} compiler runs, "
-        f"{builds['loads'] - counts['loads']} libraries loaded")
+        numbers["builds"] = sum(built.values())
+    log(f"window builds: {built['compiles']} compiler runs, {built['loads']} libraries loaded")
     ph["check_s"] = time.perf_counter() - t
     if measured:
         run.device_bound_s = req.bound_s(run.completed)

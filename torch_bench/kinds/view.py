@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import importlib
 import math
+import sys
 
 import numpy as np
 import torch
@@ -72,23 +73,16 @@ class Kind(Request):
         del self.frames[mark[1]:]
 
     def count_work(self, mark):
-        """The bound of the window's sphere tracing, from the evaluations
-        each frame needs as K8 counts them (its `evals` output, taken again
-        for each frame of the window after it)."""
-        rk = importlib.import_module("gsdf_tpu_torch.eval.ray_kernels")
-        vr = importlib.import_module("gsdf_tpu_torch.visual.raymarch")
-        step_ops, ray_ops = view_arithmetic()
-        relax = vr.auto_relax(self.part)
-        ops_pp = int(self.config["ops_per_point"])
-        rays = self.w * self.h * self.aa * self.aa
-        total = 0.0
-        for yaw, pitch in self.frames[mark[1]:]:
-            cam = vr.camera(self.part, yaw, pitch, self.cam_dist)
-            _, evals = rk.raymarch(self.part, cam, self.w, self.h, self.steps, relax, self.aa,
-                                   self.device, evals=True)
-            ops = bounds.raymarch_ops(int(evals.sum()), rays, ops_pp, step_ops, ray_ops)
-            total += bounds.bound_s(ops, bounds.kernel_bytes("raymarch", pixels=self.w * self.h))
-        self._bound = total
+        """The bound of the window's sphere tracing, from the work K8's lanes
+        ran in its frames (`frames_work`, after the window)."""
+        work = frames_work(self.part, self.frames[mark[1]:], self.w, self.h, self.steps,
+                           self.aa, self.cam_dist, self.device, int(self.config["ops_per_point"]))
+        print(f"work of {work['frames']} frames: {work['evaluations']} evaluations, "
+              f"{work['counted']} ops counted, {work['run']} ops run, skipped share "
+              f"{1 - work['run'] / work['counted'] if work['counted'] else 0.0!r}",
+              file=sys.stderr, flush=True)
+        nbytes = work["frames"] * bounds.kernel_bytes("raymarch", pixels=self.w * self.h)
+        self._bound = bounds.bound_s(work["run"], nbytes)
 
     def bound_s(self, completed):
         return self._bound
@@ -112,6 +106,55 @@ class Kind(Request):
     def control_answer(self, view, ref_part, device, dtype):
         img, _ = self.reference_frame(ref_part, view, device, dtype)
         return {"view": view, "img": img.cpu().numpy()}
+
+
+def function_ops(part, names) -> dict:
+    """Each named function of the part's baked source -> its operations a
+    point: `bounds.ops_per_point` on the program's plain node of that
+    function, at seeded points in the part's box. The names are found by
+    emitting each node of the part with the program's code generator."""
+    cg = program_attr("gsdf_tpu_torch.codegen.cuda.Codegen")()
+    cg.emit(part)
+    nodes, seen, stack = {}, set(), [part]
+    while stack:
+        node = stack.pop()
+        if id(node) not in seen:
+            seen.add(id(node))
+            nodes.setdefault(cg.emit(node), node)
+            stack.extend(node.children())
+    bb = part.bounds()
+    return {n: bounds.ops_per_point(nodes[n], (bb.min, bb.max)) for n in set(names)}
+
+
+def frames_work(part, views, w, h, steps, aa, cam_dist, device, ops_pp) -> dict:
+    """The work of K8's frames of `part` at `views` ((yaw, pitch) each),
+    taken again by K8's counting form (`count_short_circuits`): the frames,
+    their evaluations, the operations `counted` at `ops_pp` an evaluation
+    with the march's and rays' own (`bounds.raymarch_ops`), and those `run`:
+    the counted less what the lanes skipped at each short-circuit site and
+    loop, summed over the frames (`bounds.work_run`). On a tree with neither,
+    K8 itself runs and nothing is skipped."""
+    rk = importlib.import_module("gsdf_tpu_torch.eval.ray_kernels")
+    vr = importlib.import_module("gsdf_tpu_torch.visual.raymarch")
+    step_ops, ray_ops = view_arithmetic()
+    relax = vr.auto_relax(part)
+    rays = w * h * aa * aa
+    shorts = bool(rk.sites(part) or rk.loops(part))
+    rk.SHORT_CIRCUITS.clear()
+    evaluations = counted = 0
+    for yaw, pitch in views:
+        cam = vr.camera(part, yaw, pitch, cam_dist)
+        if shorts:
+            _, evals = rk.count_short_circuits(part, cam, w, h, steps, relax, aa, device)
+        else:
+            _, evals = rk.raymarch(part, cam, w, h, steps, relax, aa, device, evals=True)
+        n = int(evals.sum())
+        evaluations += n
+        counted += bounds.raymarch_ops(n, rays, ops_pp, step_ops, ray_ops)
+    counts = dict(rk.SHORT_CIRCUITS)
+    fn_ops = function_ops(part, map(bounds.skipped_function, counts.values()))
+    return {"frames": len(views), "evaluations": evaluations, "counted": counted,
+            "run": bounds.work_run(counted, counts, fn_ops)}
 
 
 class _NoPart:

@@ -145,15 +145,16 @@ def frame(part, cam: dict, width: int, height: int, steps: int, relax: float, aa
 
 
 def relaxation(part) -> float:
-    """0.6 for a part with a helical sweep (not 1-Lipschitz: full steps
-    overshoot its thin features), else 0.8."""
+    """0.6 for a part with a domain warp, a node whose class says
+    `WARPS = True` (a helical sweep, a twist: not 1-Lipschitz, so full
+    steps overshoot its thin features), else 0.8."""
     seen, stack = set(), [part]
     while stack:
         n = stack.pop()
         if id(n) in seen:
             continue
         seen.add(id(n))
-        if isinstance(n, sdf.Screw):
+        if getattr(n, "WARPS", False):
             return 0.6
         for v in vars(n).values():
             if isinstance(v, (list, tuple)):

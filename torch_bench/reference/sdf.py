@@ -236,6 +236,9 @@ class Screw:
     profile(sawtooth(z + lead * theta / 2pi), r + z tan(taper)), cut at
     |z| <= length / 2."""
 
+    #: a domain warp, not 1-Lipschitz (raymarch.relaxation)
+    WARPS = True
+
     def __init__(self, profile, pitch, lead, length_div2, taper=0.0):
         self.profile = profile
         self.pitch, self.lead = _f32(pitch), _f32(lead)

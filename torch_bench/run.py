@@ -12,7 +12,8 @@ cell's end-to-end metrics, or with `--trace 1` its per-layer metrics),
 `device`, with `--trace 1` `breakdown`, and last `compared`, each number
 the check compared beside its limit. Without a CUDA card, or with fewer
 cards than the cell asks for, it prints no result and exits with 3; in a
-checkout without the program (gsdf_tpu_torch), with 2.
+checkout without the program (gsdf_tpu_torch), with 2; where the process
+holds JAX or the JAX package once the window has closed, with 4.
 """
 import time
 
@@ -44,6 +45,17 @@ def _args(argv):
     ap.add_argument("--seconds", type=float, required=True)
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
     return ap.parse_args(argv)
+
+
+#: top-level modules the run's process may not hold once its window has
+#: closed: JAX and the JAX package the program was ported from
+BARRED = frozenset(("jax", "jaxlib", "flax", "gsdf_tpu"))
+
+
+def barred_modules(names) -> list:
+    """The barred top-level modules among module names (whole names: the
+    port, gsdf_tpu_torch, is not gsdf_tpu)."""
+    return sorted({n.split(".", 1)[0] for n in names} & BARRED)
 
 
 def _card_limit() -> str:
@@ -88,9 +100,13 @@ def main(argv=None) -> int:
     result, run = harness.execute(cell, args.seed, args.seconds, bool(args.trace), device,
                                   PROCESS_START)
     phases.update(run.phases)
+    found = barred_modules(list(sys.modules))
+    if found:
+        print(f"the run's process holds {found}: no result", file=sys.stderr)
+        return 4
     log = harness.log
     log("card:", _card_limit())
-    log("setup phases (s):", json.dumps(phases))
+    log("phases (s):", json.dumps(phases))
     lat = sorted(run.latencies)
     if lat:
         from torch_bench.stats import percentile

@@ -125,6 +125,205 @@ def test_view_arithmetic_is_counted():
     assert bounds.raymarch_ops(100, 10, 5, step, ray) == 500 + 50 * step + 10 * ray
 
 
+def _site(name, skips, lanes=None, member=False):
+    return {("member" if member else "subtrahend"): name, "bound": "point" if member else -1.0,
+            "lanes": lanes if lanes is not None else skips, "lane_skips": skips, "turns": 0,
+            "turn_skips": 0}
+
+
+def _loop(name, members, entries, walked):
+    return {"loop": name, "members": members, "entries": entries, "walked": walked,
+            "turns": 0, "turn_walked": 0}
+
+
+def test_work_run_takes_off_what_the_lanes_skipped():
+    counts = {"diff": _site("holes", 80, 100), "u/cyl": _site("cyl", 30, 100, member=True),
+              "holes/cyl*130": _loop("hole", 130, 20, 25)}
+    fn_ops = {"holes": 2617, "cyl": 18, "hole": 16}
+    skipped = 80 * 2617 + 30 * 18 + (20 * 130 - 25) * 16
+    assert bounds.skipped_ops(counts, fn_ops) == skipped
+    assert bounds.work_run(100 * 3367, counts, fn_ops) == 100 * 3367 - skipped
+    assert [bounds.skipped_function(c) for c in counts.values()] == ["holes", "cyl", "hole"]
+    # no count, nothing skipped: the counted work is the work run
+    assert bounds.work_run(12345, {}, {}) == 12345
+
+
+def test_skipped_work_never_exceeds_the_counted():
+    fn_ops = {"holes": 2617, "hole": 16}
+    with pytest.raises(ValueError):  # more skipped than ten evaluations counted
+        bounds.work_run(10 * 3367, {"d": _site("holes", 20, 20)}, fn_ops)
+    with pytest.raises(ValueError):  # a loop that walked more members than it has
+        bounds.work_run(10**6, {"l": _loop("hole", 130, 2, 300)}, fn_ops)
+    assert bounds.work_run(10 * 2617, {"d": _site("holes", 10)}, fn_ops) == 0
+
+
+def _view_kind(part):
+    from torch_bench.kinds.view import Kind
+
+    return Kind(small("showerhead350.view"), part, "cpu")
+
+
+def _frame_ops(part, kind, views):
+    """raymarch_ops of K8's plain evaluations at `views`, at the cell's
+    frozen ops a point."""
+    from gsdf_tpu_torch.eval import ray_kernels as rk
+    from gsdf_tpu_torch.visual import raymarch as vr
+    from torch_bench.kinds.view import view_arithmetic
+
+    step, ray = view_arithmetic()
+    rays = kind.w * kind.h * kind.aa ** 2
+    total = 0
+    for yaw, pitch in views:
+        cam = vr.camera(part, yaw, pitch, kind.cam_dist)
+        _, ev = rk.raymarch_plain(part, cam, kind.w, kind.h, kind.steps, vr.auto_relax(part),
+                                  kind.aa, "cpu", evals=True)
+        total += bounds.raymarch_ops(int(ev.sum()), rays, kind.config["ops_per_point"], step,
+                                     ray)
+    return total
+
+
+def test_a_site_free_tree_counts_every_evaluation_in_full(capsys):
+    from gsdf_tpu_torch import Builder
+    from gsdf_tpu_torch.eval import ray_kernels as rk
+
+    b = Builder()
+    part = b.intersection(b.new_box(1.0, 0.8, 0.6), b.new_sphere(0.6))
+    assert not rk.sites(part) and not rk.loops(part)
+    kind = _view_kind(part)
+    views = [(0.6, 0.5), (2.0, -0.3)]
+    kind.frames[:] = views
+    kind.count_work((0, 0))
+    ops = _frame_ops(part, kind, views)
+    assert kind.bound_s(2) == bounds.bound_s(ops, 2 * kind.w * kind.h * 3)
+    assert f"{ops} ops counted, {ops} ops run, skipped share 0.0" in capsys.readouterr().err
+
+
+def test_count_work_reads_the_counting_forms_skips(monkeypatch, capsys):
+    """The showerhead's sites and loop, counted by a stand-in for K8's
+    counting form (the plain frame, and known skips)."""
+    from gsdf_tpu_torch.eval import ray_kernels as rk
+    from torch_bench.kinds.view import function_ops
+
+    cell = config_cell("showerhead350")
+    part = program_part(cell)
+    sites, loops = rk.sites(part), rk.loops(part)
+    assert sites and loops
+
+    def counting_form(tree, cam, w, h, steps, relax, aa, device):
+        img, ev = rk.raymarch(tree, cam, w, h, steps, relax, aa, device, evals=True)
+        n = int(ev.sum())
+        for site, sub, lo in sites:
+            c = rk.SHORT_CIRCUITS.setdefault(site, _site(sub, 0, 0, member=lo is None))
+            c["lanes"] += n
+            c["lane_skips"] += n // 4
+        for loop, member, m in loops:
+            c = rk.SHORT_CIRCUITS.setdefault(loop, _loop(member, m, 0, 0))
+            c["entries"] += n // 8
+            c["walked"] += n // 8
+        return img, ev
+
+    monkeypatch.setattr(rk, "count_short_circuits", counting_form)
+    kind = _view_kind(part)
+    views = [(0.6, 0.5), (4.0, 0.9)]
+    kind.frames[:] = [(0.0, 0.0)] + views  # the first is before the mark
+    rk.SHORT_CIRCUITS["stale"] = _site("nothing", 10**12)  # cleared before the frames
+    kind.count_work((0, 1))
+    counted = _frame_ops(part, kind, views)
+    fn_ops = function_ops(part, [s[1] for s in sites] + [lp[1] for lp in loops])
+    skipped = bounds.skipped_ops(rk.SHORT_CIRCUITS, fn_ops)
+    assert 0 < skipped < counted and "stale" not in rk.SHORT_CIRCUITS
+    assert kind.bound_s(2) == bounds.bound_s(counted - skipped, 2 * kind.w * kind.h * 3)
+    err = capsys.readouterr().err
+    assert "work of 2 frames: " in err and f"{counted - skipped} ops run" in err
+    rk.SHORT_CIRCUITS.clear()
+
+
+def test_function_ops_are_chip_smokes_site_ops():
+    """The benchmark's ops a point of each skipped function, by name, are
+    those chip_smoke counts on the program's plain nodes."""
+    import chip_smoke
+    from gsdf_tpu_torch.eval import ray_kernels as rk
+    from torch_bench.kinds.view import function_ops
+
+    part = program_part(config_cell("showerhead350"))
+    named = {s[0]: s[1] for s in rk.sites(part) + rk.loops(part)}
+    fn_ops = function_ops(part, named.values())
+    assert {site: fn_ops[fn] for site, fn in named.items()} == chip_smoke.rm_site_ops(part)
+    assert fn_ops[named[next(s[0] for s in rk.sites(part) if s[2] == -0.8)]] == 2617
+
+
+@pytest.mark.cuda
+def test_the_work_run_is_chip_smokes_on_a_showerhead_frame():
+    """On the card: the benchmark's work for one showerhead frame at the
+    default view (512 x 512, aa 3) is chip_smoke's, counted and run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import bounds as smoke_bounds
+    import chip_smoke
+    from gsdf_tpu_torch.eval import ray_kernels as rk
+    from torch_bench.kinds.view import frames_work
+
+    cell = config_cell("showerhead350")
+    part, dev = program_part(cell), torch.device("cuda", 0)
+    work = frames_work(part, [(0.6, 0.5)], 512, 512, 196, 3, 2.4, dev,
+                       cell.config["ops_per_point"])
+    rk.SHORT_CIRCUITS.clear()
+    _, ev = rk.count_short_circuits(part, *chip_smoke.rm_args(part, 512, 512, 196, 3, dev))
+    ops = smoke_bounds.raymarch_ops(part, int(ev.sum()), ev.numel())
+    skipped = chip_smoke.rm_skipped_ops(chip_smoke.rm_site_ops(part), rk.SHORT_CIRCUITS)
+    rk.SHORT_CIRCUITS.clear()
+    assert (work["evaluations"], work["counted"], work["run"]) == (int(ev.sum()), ops,
+                                                                    ops - skipped)
+    assert 0 < work["run"] < work["counted"]
+    nbytes = bounds.kernel_bytes("raymarch", pixels=512 * 512)
+    smoke = smoke_bounds.bound(ops - skipped, nbytes)
+    assert bounds.bound_s(work["run"], nbytes) * 1e3 == pytest.approx(smoke["published_fp32_ms"])
+    assert 2 * bounds.bound_s(work["run"], nbytes) * 1e3 == pytest.approx(smoke["bound_ms"])
+
+
+class _Twist:
+    """A twist about z, the reference node a twisted part would bring: XY
+    turned by k z."""
+
+    WARPS = True
+
+    def __init__(self, s, k):
+        self.s, self.k = s, np.float32(k)
+
+    def distance(self, p):
+        a = self.k * p[..., 2]
+        c, s = torch.cos(a), torch.sin(a)
+        x, y = p[..., 0], p[..., 1]
+        return self.s.distance(torch.stack([c * x - s * y, s * x + c * y, p[..., 2]], -1))
+
+    def bounds(self):
+        return self.s.bounds()
+
+
+def _twisted_pair():
+    from gsdf_tpu_torch import Builder
+    from torch_bench.reference import sdf
+
+    b = Builder()
+    prog = b.translate(b.twist(b.new_cylinder(0.5, 1.0), 2.0), 0.2, 0.0, 0.0)
+    ref = sdf.Translate(_Twist(sdf.Cylinder(0.5, 1.0), 2.0), [0.2, 0.0, 0.0])
+    return ref, prog
+
+
+@pytest.mark.parametrize("name,relax", [("showerhead350", 0.6), ("geb", 0.8),
+                                        ("twist", 0.6)])
+def test_the_references_relaxation_is_the_programs(name, relax):
+    from gsdf_tpu_torch.visual.raymarch import auto_relax
+    from torch_bench.reference import raymarch as rref
+
+    if name == "twist":
+        ref, prog = _twisted_pair()
+    else:
+        cell = config_cell(name)
+        ref, prog = cell.reference.part(), program_part(cell)
+    assert rref.relaxation(ref) == auto_relax(prog) == relax
+
+
 # --- traffic ---------------------------------------------------------------
 @pytest.mark.parametrize("mix", ["export", "edit", "view"])
 def test_generator_is_reproducible_by_seed(mix):
@@ -196,8 +395,12 @@ def test_reference_grid_is_the_flat_renderers(name):
 
 
 def test_no_file_imports_jax_or_the_jax_package():
-    banned = ("jax", "gsdf_tpu", "chip_smoke", "bench")
+    # the run's files import none of these; a test of the benchmark may hold
+    # its numbers to chip_smoke's, which no run loads
     for dirpath, _, files in os.walk(BENCH):
+        banned = ("jax", "jaxlib", "flax", "gsdf_tpu", "bench")
+        if os.path.relpath(dirpath, BENCH).split(os.sep)[0] != "tests":
+            banned += ("chip_smoke",)
         for f in files:
             if not f.endswith(".py"):
                 continue
@@ -236,6 +439,18 @@ def test_run_fails_without_a_card():
     assert proc.returncode != 0
     assert proc.stdout.strip() == ""
     assert "no result" in proc.stderr
+
+
+def test_jax_and_the_jax_package_are_found_by_whole_top_level_names():
+    sys.path.insert(0, BENCH)
+    try:
+        import run
+    finally:
+        sys.path.remove(BENCH)
+    assert run.barred_modules(["torch", "gsdf_tpu_torch", "gsdf_tpu_torch.eval",
+                               "jaxtyping", "flaxen"]) == []
+    assert run.barred_modules(["gsdf_tpu.eval.pallas_grid", "jax._src.api", "jaxlib",
+                               "flax.linen", "torch"]) == ["flax", "gsdf_tpu", "jax", "jaxlib"]
 
 
 def test_run_fails_in_a_checkout_of_the_benchmark_alone(tmp_path):
@@ -281,6 +496,32 @@ def test_trace_reduction():
     assert tr.reduce(ev, launches=3).lost
     # no device event at all
     assert tr.reduce([e for e in ev if e["cat"] != "kernel"], launches=0).lost
+
+
+def test_idle_gaps_go_to_the_innermost_benchmark_or_program_range():
+    ev = [
+        {"ph": "X", "cat": "user_annotation", "name": "bench.window", "ts": 0, "dur": 1000},
+        {"ph": "X", "cat": "user_annotation", "name": "bench.frame", "ts": 100, "dur": 800},
+        {"ph": "X", "cat": "user_annotation", "name": "gsdf.viewer.frame", "ts": 100,
+         "dur": 700},
+        {"ph": "X", "cat": "user_annotation", "name": "gsdf.raymarch.scene", "ts": 150,
+         "dur": 50},
+        {"ph": "X", "cat": "user_annotation", "name": "gsdf.launch.raymarch", "ts": 250,
+         "dur": 40},
+        {"ph": "X", "cat": "user_annotation", "name": "gsdf.viewer.fetch", "ts": 600,
+         "dur": 200},
+        {"ph": "X", "cat": "user_annotation", "name": "other.range", "ts": 0, "dur": 1000},
+        _launch(1, 260),
+        {"ph": "X", "cat": "kernel", "name": "raymarch", "ts": 300, "dur": 400,
+         "args": {"correlation": 1}},
+    ]
+    t = tr.reduce(ev, launches=1)
+    idle = dict(t.idle_gaps)
+    assert idle == pytest.approx({"between requests": 200e-6, "viewer.frame": 110e-6,
+                                  "raymarch.scene": 50e-6, "launch.raymarch": 40e-6,
+                                  "viewer.fetch": 100e-6, "frame": 100e-6})
+    # the idle share reads the device's union alone, whatever labels the gaps
+    assert t.busy_s == pytest.approx(400e-6) and sum(idle.values()) == pytest.approx(600e-6)
 
 
 def test_trace_with_one_of_two_kernels_of_a_launch_lost():

@@ -8,7 +8,8 @@ each of the device's idle stretches.
 `reduce` reads a torch.profiler trace (CUPTI) of one window: the device's
 kernels, copies and memsets, their union against the window's length, the
 kernels' time by name, and the idle stretches labelled by the innermost
-benchmark span open on the host over each.
+range open on the host over each: a benchmark span or a program span
+(`gsdf.<name>`, gsdf_tpu_torch/spans.py).
 
 The profiler can lose device events: a trace then holds the host's launch
 calls without the kernels they launched. So each kernel launch call of
@@ -34,6 +35,10 @@ from .stats import gaps, union_length
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_API_CATS = ("cuda_runtime", "cuda_driver")
 WINDOW = "bench.window"
+#: the ranges that label the device's idle stretches: the benchmark's spans
+#: and the program's (gsdf_tpu_torch/spans.py), each by its name without
+#: the prefix
+RANGES = ("bench.", "gsdf.")
 
 
 def _launches_a_kernel(e: dict) -> bool:
@@ -116,20 +121,23 @@ def reduce(events: list, launches: int) -> Trace:
         if e["cat"] != "gpu_memcpy":
             kernel_s += b - a
     spans = sorted(
-        ((float(e["ts"]) * 1e-6, (float(e["ts"]) + float(e["dur"])) * 1e-6, e["name"][6:])
+        ((float(e["ts"]) * 1e-6, (float(e["ts"]) + float(e["dur"])) * 1e-6,
+          e["name"].split(".", 1)[1])
          for e in xs if e.get("cat") == "user_annotation"
-         and e.get("name", "").startswith("bench.") and e["name"] != WINDOW))
+         and e.get("name", "").startswith(RANGES) and e["name"] != WINDOW))
     starts = [s[0] for s in spans]
     longest = max((s[1] - s[0] for s in spans), default=0.0)
     idle = defaultdict(float)
     for a, b in gaps(dev, lo, hi):
-        # each stretch of the gap goes to the innermost span open over it
+        # each stretch of the gap goes to the innermost range open over it (the
+        # latest to start; of two that start together, the shorter)
         near = spans[bisect.bisect_left(starts, a - longest):bisect.bisect_left(starts, b)]
         cuts = sorted({a, b, *(t for s in near for t in s[:2] if a < t < b)})
         for c0, c1 in zip(cuts, cuts[1:]):
             mid = (c0 + c1) / 2
             open_ = [s for s in near if s[0] <= mid <= s[1]]
-            idle[max(open_)[2] if open_ else "between requests"] += c1 - c0
+            inner = max(open_, key=lambda s: (s[0], -s[1]), default=None)
+            idle[inner[2] if inner else "between requests"] += c1 - c0
     kernel_ids = {_correlation(e) for e in xs if e.get("cat") == "kernel"}
     calls = [e for e in xs if _launches_a_kernel(e) and lo <= float(e["ts"]) * 1e-6 <= hi]
     unmatched = sum(1 for e in calls if _correlation(e) not in kernel_ids)
