@@ -1359,6 +1359,8 @@ def raymarch_kernel_times(parts, dev, card):
         site_ops = rm_site_ops(tree) if hasattr(rk, "count_short_circuits") else None
         for label, w, h, steps, aa in RM_FRAMES:
             args = rm_args(tree, w, h, steps, aa, dev)
+            # the program's counter of the march (None on a checkout without it)
+            march = dict(rk.MARCH) if hasattr(rk, "MARCH") else None
             img, evals = rk.raymarch(tree, *args, evals=True)
             pimg, pevals = rk.raymarch(tree, *args, parametric=True, evals=True)
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1383,6 +1385,9 @@ def raymarch_kernel_times(parts, dev, card):
                                    f"(max levels) {differing}, evaluations {ev_diff}")
             refs[name][label] = ref.cpu().numpy()
             n, rays = int(evals.sum()), evals.numel()
+            # MARCH's evaluations a ray over this frame's calls with evals
+            march_evals = march and ((rk.MARCH["evaluations"] - march["evaluations"])
+                                     / (rk.MARCH["rays"] - march["rays"]))
             host_evals = evals.cpu().numpy()
             del img, pimg, ref, pevals, ref_evals
 
@@ -1404,6 +1409,7 @@ def raymarch_kernel_times(parts, dev, card):
                    "pixels_differing_from_plain": {k: v[0] for k, v in differing.items()},
                    "evaluations_differing_from_plain": ev_diff, "evaluations": n, "rays": rays,
                    "mean_steps": n / rays - 5, "max_steps": int(host_evals.max()) - 5,
+                   "march_evals": march_evals,
                    # the queue counter's memset, K8, and the box filter at aa > 1
                    "launches_per_call": {"memsets": 1, "kernels": 1 + (aa > 1)},
                    "library_ms": None, **b,
@@ -1441,7 +1447,8 @@ def raymarch_kernel_times(parts, dev, card):
                         f"{v['run_bound_ms']:.4f}, "
                         f"{v['run_device_share'] and round(v['run_device_share'], 3)}, "
                         f"steps per ray mean "
-                        f"{v['mean_steps']:.2f} max {v['max_steps']}, plain {v['plain_ms']:.3f}, "
+                        f"{v['mean_steps']:.2f} max {v['max_steps']}, MARCH evaluations a ray "
+                        f"{v['march_evals']}, plain {v['plain_ms']:.3f}, "
                         f"K8p {v['param_ms']:.4f} graph "
                         f"{v['param_graph_ms'] and round(v['param_graph_ms'], 4)}, lanes "
                         + json.dumps({x: round(y, 3) for x, y in v["lanes"].items()})

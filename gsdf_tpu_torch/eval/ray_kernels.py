@@ -34,6 +34,12 @@ evaluations, and per site how often the skip engaged and per loop how many
 members it walked, added to SHORT_CIRCUITS. `raymarch`, with or without
 evals, runs K8 itself, which counts nothing.
 
+The march. Every call that returns evaluations (`raymarch(...,
+evals=True)`, on the card or its plain version on the CPU, and
+`count_short_circuits`) adds its frame, rays and tree evaluations to
+MARCH; a call without evals, the viewer's, counts nothing and
+synchronises nothing.
+
 The camera is 20 float32 numbers made once a frame on the host
 (`pack_camera`, visual/raymarch.py::camera): the kernel and the plain
 version take the same numbers.
@@ -66,6 +72,10 @@ SHORT_CIRCUITS: dict = {}
 _SITE_COUNTS = ("lanes", "lane_skips", "turns", "turn_skips")
 _LOOP_COUNTS = ("entries", "walked", "turns", "turn_walked")
 _sites: dict = {}  # tree hash -> (tree_sites(tree), tree_loops(tree))
+#: the frames, their rays (supersamples) and the rays' tree evaluations
+#: (march steps and the 5 of shading) of every call that returned
+#: evaluations, summed
+MARCH: dict = {"frames": 0, "rays": 0, "evaluations": 0}
 #: gsdf_rm::Camera's fields in order, and their lengths
 CAMERA_FIELDS = (("ro", 3), ("uu", 3), ("vv", 3), ("ww", 3), ("center", 3), ("light", 3),
                  ("scale", 1), ("far_plane", 1))
@@ -261,7 +271,7 @@ def raymarch(tree, camera, width, height, steps, relax, aa, device, parametric=F
     synchronised: one wrapper call, a 4-byte memset of the ray queue's
     counter and one launch (and the box filter's where aa > 1). With
     evals=True also the (aa*height, aa*width) int32 tree evaluations of
-    each supersample."""
+    each supersample, added to MARCH (one synchronisation)."""
     return _raymarch(tree, camera, width, height, steps, relax, aa, device, parametric, evals,
                      count=False)
 
@@ -271,9 +281,9 @@ def count_short_circuits(tree, camera, width, height, steps, relax, aa, device):
     image and evaluations of raymarch(..., evals=True), and per site the
     lane evaluations and warp turns that reached it and that skipped its
     function, and per bin-table loop the members walked, added to
-    SHORT_CIRCUITS (one synchronisation). On a tree
-    with no site, K8 itself and nothing counted. A card's: the plain
-    version has no warps."""
+    SHORT_CIRCUITS, and the evaluations to MARCH (one synchronisation). On
+    a tree with no site, K8 itself and nothing counted but MARCH. A card's:
+    the plain version has no warps."""
     if entry_device(device).type == "cpu":
         raise ValueError("the short-circuit counter is K8's: it needs a CUDA device")
     return _raymarch(tree, camera, width, height, steps, relax, aa, device, False, True,
@@ -289,7 +299,8 @@ def _raymarch(tree, camera, width, height, steps, relax, aa, device, parametric,
     if cam.size != CAMERA_FLOATS:
         raise ValueError(f"a camera is {CAMERA_FLOATS} floats, got {cam.size}")
     if device.type == "cpu":
-        return raymarch_plain(tree, cam, width, height, steps, relax, aa, device, evals)
+        out = raymarch_plain(tree, cam, width, height, steps, relax, aa, device, evals)
+        return _marched(*out) if evals else out
     counted, looped = _tree_sites(tree) if count else ([], [])
     lib = build(tree, "raymarch_sites" if counted else "raymarch", parametric)
     out = torch.empty((height, width, 3), dtype=torch.uint8, device=device)
@@ -319,4 +330,12 @@ def _raymarch(tree, camera, width, height, steps, relax, aa, device, parametric,
                 total[k] += v
     else:
         lib.launch("raymarch", device, *args, tree=tree)
-    return (out, n_evals) if evals else out
+    return _marched(out, n_evals) if evals else out
+
+
+def _marched(img, n_evals):
+    """(img, n_evals), their frame added to MARCH."""
+    MARCH["frames"] += 1
+    MARCH["rays"] += n_evals.numel()
+    MARCH["evaluations"] += int(n_evals.sum())
+    return img, n_evals

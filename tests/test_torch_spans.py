@@ -264,3 +264,28 @@ def test_frame_stats_keys_and_counts(traced):
         got = sorted(v._frame_ms["full"] + v._frame_ms["drag"])
         assert got == sorted((r.end - r.start) * 1e3 for r in frames)
 
+
+def test_the_march_counter_counts_what_raymarch_returns():
+    """`ray_kernels.MARCH` adds the frame, the rays and the evaluations that
+    raymarch(..., evals=True) returned (K8's plain version on the CPU, on a
+    small frame of the knurled cylinder); a frame without evals, the
+    viewer's, leaves it as it was; `spans.summary()` still holds span rows
+    alone."""
+    from gsdf_tpu_torch import flagships
+    from gsdf_tpu_torch.eval import ray_kernels as rk
+    from gsdf_tpu_torch.visual.raymarch import auto_relax, camera
+
+    part = flagships.build_knurled()
+    cam, relax = camera(part, 0.6, 0.5, 2.4), auto_relax(part)
+    before = dict(rk.MARCH)
+    try:
+        img, evals = rk.raymarch(part, cam, 16, 12, 48, relax, 2, CPU, evals=True)
+        assert evals.shape == (24, 32) and int(evals.sum()) > 6 * evals.numel()
+        counted = {"frames": before["frames"] + 1, "rays": before["rays"] + 24 * 32,
+                   "evaluations": before["evaluations"] + int(evals.sum())}
+        assert rk.MARCH == counted
+        assert torch.equal(rk.raymarch(part, cam, 16, 12, 48, relax, 2, CPU), img)
+        assert rk.MARCH == counted
+        assert all(set(row) == {"count", "total_s", "self_s"} for row in spans.summary().values())
+    finally:
+        rk.MARCH.update(before)
