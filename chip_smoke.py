@@ -201,7 +201,10 @@
    lane entry and a warp turn walked, less the members not walked. The
    shares are also read over the view mix of the benchmark's viewer cell
    (torch_bench/traffic/view.json), one frame a stratum at 512 x 512 aa 3
-   (rm_short_circuits), with each union's sites summed.
+   (rm_short_circuits), with each union's sites summed, and with the
+   share of lane edge evaluations and of warp edge turns of each polygon's
+   edge loop that divided (ray_kernels.EDGE_DIVISIONS: an edge divides
+   only where the clamp does not decide).
    `python3 chip_smoke.py --raymarch` runs these raymarch kernel rows
    alone; a copy of this script beside another checkout measures that
    checkout's K8.
@@ -1286,8 +1289,10 @@ def rm_short_circuits(tree, dev, w=512, h=512, steps=196, aa=3):
     lane evaluations and warp turns summed, and their shares that skipped
     a member (a warp turn counted once a site it reached); per bin-table
     loop its counts (entries, members walked by lanes and by warp turns),
-    whose members a lane entry and a warp turn are in the shares. None on
-    a tree with no site."""
+    whose members a lane entry and a warp turn are in the shares; per
+    polygon's edge loop its shares of lane edge evaluations and of warp
+    edge turns that divided (ray_kernels.edge_division_shares), and those
+    of all its polygons together. None on a tree with no site."""
     from gsdf_tpu_torch.eval import ray_kernels as rk
     from gsdf_tpu_torch.visual import raymarch as vrm
 
@@ -1296,6 +1301,9 @@ def rm_short_circuits(tree, dev, w=512, h=512, steps=196, aa=3):
     (ylo, yhi, n_yaw), (plo, phi, n_pitch), cam_dist = rm_view_mix()
     relax = vrm.auto_relax(tree)
     rk.SHORT_CIRCUITS.clear()
+    edges = getattr(rk, "EDGE_DIVISIONS", None)  # None on a checkout before it
+    if edges is not None:
+        edges.clear()
     evaluations = 0
     for i in range(n_yaw):
         for j in range(n_pitch):
@@ -1310,7 +1318,15 @@ def rm_short_circuits(tree, dev, w=512, h=512, steps=196, aa=3):
             u = unions.setdefault(site.split("/")[0], dict.fromkeys(counts, 0))
             for k in counts:
                 u[k] += c[k]
+    divided = None
+    if edges:
+        total = {k: sum(c[k] for c in edges.values())
+                 for k in ("lanes", "lane_divisions", "turns", "turn_divisions")}
+        divided = {"polygons": rk.edge_division_shares(), "counts": total,
+                   "lane_share": total["lane_divisions"] / total["lanes"],
+                   "warp_share": total["turn_divisions"] / total["turns"]}
     return {"frames": n_yaw * n_pitch, "evaluations": evaluations,
+            "edge_divisions": divided,
             "shares": rk.short_circuit_shares(),
             "loops": {site: c for site, c in rk.SHORT_CIRCUITS.items() if "loop" in c},
             "unions": {name: {"lanes": u["lanes"], "turns": u["turns"],

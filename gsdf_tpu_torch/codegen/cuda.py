@@ -79,6 +79,15 @@ the includer has (csrc/raymarch_sites.cu counts each loop's walks). The
 showerhead's plate runs its 131-hole union as a table walk of at most a
 few holes.
 
+Edge loops. A polygon's function is one loop over a baked table of its
+edges (`Polygon2D.emit_cuda`), numbered in emission order and wrapped as
+GSDF_EDGES(k) before the loop, GSDF_EDGE(k, divide) around the test that
+decides whether an edge divides, and GSDF_EDGES_DONE(k, n) after its n
+edges; the source defines GSDF_NPOLYGONS and the three, as nothing,
+`(divide)` and nothing, unless the includer has (csrc/raymarch_sites.cu
+counts each loop's edges and divisions). Parametric sources have them
+too: the edge table is structural.
+
 `tree_source(tree)` ends with the root function the kernel templates call,
 `gsdf_tree(px, py, pz)` for a 3D tree and `gsdf_tree(px, py)` for a 2D one,
 and defines GSDF_NDIM (3 or 2) so that a template can tell which it got.
@@ -221,6 +230,9 @@ class Codegen:
         #: and GSDF_LOOP order: (the loop's name, the member's function,
         #: the members)
         self.loops: list = []
+        #: the polygons' edge loops, in their GSDF_EDGES order: (the
+        #: polygon's function, its edges)
+        self.polygons: list = []
 
     @staticmethod
     def lit(x) -> str:
@@ -284,11 +296,14 @@ class Codegen:
         operations in the same order on the parameters' `p()` strings."""
         return f"({text})" if self.parametric else lit(value)
 
-    def array(self, node: Shader, values) -> str:
+    def array(self, node: Shader, values, align: int = 0) -> str:
         """Emit a float32 constant table for `node` (once for equal
-        values); returns its name."""
-        flat = np.asarray(values, np.float32).reshape(-1)
-        return self._table(node, "float", [lit(v) for v in flat], 4)
+        values); returns its name. With `align` (bytes) the table starts
+        on that boundary, for wide loads, and each row of the 2D `values`
+        is a line of its own."""
+        values = np.asarray(values, np.float32)
+        per_row = values.shape[-1] if align else 4
+        return self._table(node, "float", [lit(v) for v in values.reshape(-1)], per_row, align)
 
     def int_array(self, node: Shader, values) -> str:
         """Emit a constant table of non-negative integers for `node`, in
@@ -298,9 +313,9 @@ class Codegen:
         ctype = "unsigned char" if top < 2**8 else "unsigned short" if top < 2**16 else "int"
         return self._table(node, ctype, [str(v) for v in flat], 16)
 
-    def _table(self, node: Shader, ctype: str, items: list, per_row: int) -> str:
+    def _table(self, node: Shader, ctype: str, items: list, per_row: int, align: int = 0) -> str:
         fn = self.name(node)
-        key = (fn, ctype, tuple(items))
+        key = (fn, ctype, tuple(items), align)
         if key in self._arrays:
             return self._arrays[key]
         i = self._n_arrays.get(fn, 0)
@@ -309,7 +324,9 @@ class Codegen:
         body = ",\n    ".join(
             ", ".join(items[r : r + per_row]) for r in range(0, len(items), per_row)
         )
-        self._chunks.append(f"GSDF_CONST {ctype} {name}[{len(items)}] = {{\n    {body}\n}};")
+        aligned = f"alignas({align}) " if align else ""
+        self._chunks.append(
+            f"{aligned}GSDF_CONST {ctype} {name}[{len(items)}] = {{\n    {body}\n}};")
         return name
 
     def call(self, node: Shader, *args: str) -> str:
@@ -408,6 +425,12 @@ class Codegen:
         ])
         return head, f"near{gi} ? {ids}[i{gi} + i] : i"
 
+    def edge_loop(self, node: Shader, n: int) -> int:
+        """Number the edge loop of polygon `node`'s function, n edges (the
+        module note); returns its GSDF_EDGES index."""
+        self.polygons.append((self.name(node), n))
+        return len(self.polygons) - 1
+
     def point_bound(self, node: Shader) -> str | None:
         """The name of `node`'s point-bound function (`emit_point_bound`,
         `<function>_lo` of the node's coordinates), emitted on first use;
@@ -470,6 +493,13 @@ class Codegen:
                 f"#undef GSDF_NLOOPS\n#define GSDF_NLOOPS {len(self.loops)}\n"
                 "#ifndef GSDF_TABLE\n#define GSDF_TABLE(k, near) (near)\n#endif\n"
                 "#ifndef GSDF_LOOP\n#define GSDF_LOOP(k, n) ((void)0)\n#endif\n"
+            )
+        if self.polygons:
+            sites += (
+                f"#undef GSDF_NPOLYGONS\n#define GSDF_NPOLYGONS {len(self.polygons)}\n"
+                "#ifndef GSDF_EDGE\n#define GSDF_EDGES(k) ((void)0)\n"
+                "#define GSDF_EDGE(k, divide) (divide)\n"
+                "#define GSDF_EDGES_DONE(k, n) ((void)0)\n#endif\n"
             )
         if self.union_helpers:
             sites += UNION_HELPERS
@@ -558,6 +588,14 @@ def tree_loops(tree: Shader) -> list:
     cg = Codegen()
     cg.emit(tree)
     return cg.loops
+
+
+def tree_polygons(tree: Shader) -> list:
+    """The polygons' edge loops of `tree`'s baked source, in GSDF_EDGES
+    order: (the polygon's function, its edges)."""
+    cg = Codegen()
+    cg.emit(tree)
+    return cg.polygons
 
 
 def tree_source(tree: Shader, parametric: bool = False, by_value: bool | None = None) -> str:

@@ -536,28 +536,58 @@ class Polygon2D(Shader2D):
         s = torch.where(nflips % 2 == 1, -1.0, 1.0).to(torch.float32)
         return s * mx.sqrt(d)
 
+    def _edge_rows(self) -> np.ndarray:
+        """(V, 8) float32 rows v1x v1y ex ey ee v2y 0 0, one an edge: ex,
+        ey and ee by `distance`'s own float32 expressions; 32 bytes a row,
+        two 16-byte loads."""
+        v1x, v1y, v2x, v2y = self._edges().T
+        with np.errstate(over="ignore", under="ignore"):
+            ex, ey = v2x - v1x, v2y - v1y
+            ee = ex * ex + ey * ey
+        zero = np.zeros_like(ex)
+        return np.stack([v1x, v1y, ex, ey, ee, v2y, zero, zero], axis=1)
+
     def emit_cuda(self, cg) -> str:
-        edges = self._edges()
-        arr = cg.array(self, edges)
+        """`distance`'s fold, bit for bit, with the division only where
+        the clamp does not decide h. With num = wx ex + wy ey, `distance`
+        takes h = clamp(num / ee, 0, 1), and h enters the result only
+        through bx = wx - h ex and by = wy - h ey, squared:
+        - num <= 0 or NaN: the quotient is <= 0 or NaN (x / 0 = -inf, 0 /
+          0 and NaN / x are NaN), which fmaxf(q, 0) takes to +-0; h = 0
+          gives the same squares (h ex is +-0 either way);
+        - num > 0 and num >= ee, ee finite: ee = 0 gives num / 0 = +inf,
+          and ee > 0 a quotient >= 1 (1 is a float and rounding is
+          monotone): h = 1;
+        - else (0 < num < ee): today's expression, division and clamp.
+        ee is never NaN (a sum of squares). An edge whose ee overflows to
+        +inf has h = 0 for every num (num / inf is +-0, or NaN where num
+        is +-inf), so a polygon with one divides wherever num > 0. The
+        flip test is b1 == b2 == b3, the same boolean as (b1 b2 b3) or
+        (!b1 !b2 !b3). A warp whose lanes all project outside an edge
+        runs no division there."""
+        rows = self._edge_rows()
+        arr = cg.array(self, rows, align=32)
+        k = cg.edge_loop(self, len(rows))
+        inside = "num < ee" if np.isfinite(rows[:, 4]).all() else "(num < ee || isinf(ee))"
         return (
             "float d = INFINITY;\n"
             "int nflips = 0;\n"
-            f"for (int e = 0; e < {len(edges)}; ++e) {{\n"
-            f"    const float* v = {arr} + 4 * e;\n"
-            "    float ex = v[2] - v[0];\n"
-            "    float ey = v[3] - v[1];\n"
-            "    float wx = px - v[0];\n"
-            "    float wy = py - v[1];\n"
-            "    float ee = ex * ex + ey * ey;\n"
-            "    float h = fminf(fmaxf((wx * ex + wy * ey) / ee, 0.0f), 1.0f);\n"
-            "    float bx = wx - h * ex;\n"
-            "    float by = wy - h * ey;\n"
+            f"GSDF_EDGES({k});\n"
+            f"for (int e = 0; e < {len(rows)}; ++e) {{\n"
+            f"    const float* v = {arr} + 8 * e;\n"
+            "    const float wx = px - v[0];\n"
+            "    const float wy = py - v[1];\n"
+            "    const float ex = v[2], ey = v[3], ee = v[4];\n"
+            "    const float num = wx * ex + wy * ey;\n"
+            "    float h = num > 0.0f ? 1.0f : 0.0f;\n"
+            f"    if (GSDF_EDGE({k}, num > 0.0f && {inside})) h = fminf(fmaxf(num / ee, 0.0f), 1.0f);\n"
+            "    const float bx = wx - h * ex;\n"
+            "    const float by = wy - h * ey;\n"
             "    d = fminf(d, bx * bx + by * by);\n"
-            "    bool b1 = py >= v[1];\n"
-            "    bool b2 = py < v[3];\n"
-            "    bool b3 = ex * wy > ey * wx;\n"
-            "    nflips += ((b1 && b2 && b3) || (!b1 && !b2 && !b3)) ? 1 : 0;\n"
+            "    const bool b1 = py >= v[1], b2 = py < v[5], b3 = ex * wy > ey * wx;\n"
+            "    nflips += (b1 == b2 && b2 == b3) ? 1 : 0;\n"
             "}\n"
+            f"GSDF_EDGES_DONE({k}, {len(rows)});\n"
             "return ((nflips % 2 == 1) ? -1.0f : 1.0f) * sqrtf(d);"
         )
 

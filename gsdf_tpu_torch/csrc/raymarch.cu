@@ -76,9 +76,13 @@
 // per bin-table loop of a threshold form (GSDF_LOOP) the lane evaluations
 // that entered it, the members they walked, the warp turns in which a lane
 // entered it, and the members those turns walked (each turn's longest
-// walk, which the warp runs). A library of its own behind
-// `eval/ray_kernels.py::count_short_circuits`; this form, which
-// `raymarch` runs with or without evals, carries none of it.
+// walk, which the warp runs); and per polygon's edge loop (GSDF_EDGES) the
+// lane edge evaluations, of them those that divided, the warp edge turns
+// (each group of lanes that runs the loop together takes one turn an
+// edge), and of them those in which a lane divided: a warp's counts go to
+// shared memory once a loop and to the output once at its end. A library
+// of its own behind `eval/ray_kernels.py::count_short_circuits`; this
+// form, which `raymarch` runs with or without evals, carries none of it.
 //
 // gsdf_tree.cuh is generated per tree by gsdf_tpu_torch/codegen/cuda.py.
 #include <atomic>
@@ -91,6 +95,22 @@ static __device__ __forceinline__ bool gsdf_site_note(int site, bool skip);
 #define GSDF_SITE(site, skip) gsdf_site_note(site, skip)
 static __device__ __forceinline__ void gsdf_loop_note(int loop, int walked);
 #define GSDF_LOOP(loop, n) gsdf_loop_note(loop, n)
+// One run of a polygon's edge loop: the lanes that run it together, the
+// edges at which this lane divided, and those at which any of them did.
+struct GsdfEdges {
+    unsigned lanes;
+    int divided = 0, warp_divided = 0;
+    __device__ __forceinline__ GsdfEdges() : lanes(__activemask()) {}
+    __device__ __forceinline__ bool edge(bool divide) {
+        divided += divide;
+        warp_divided += __any_sync(lanes, divide);
+        return divide;
+    }
+};
+static __device__ __forceinline__ void gsdf_edges_note(int polygon, int n, const GsdfEdges& e);
+#define GSDF_EDGES(k) GsdfEdges gsdf_edges
+#define GSDF_EDGE(k, divide) gsdf_edges.edge(divide)
+#define GSDF_EDGES_DONE(k, n) gsdf_edges_note(k, n, gsdf_edges)
 #define GSDF_RM_SITES_DECL , unsigned long long* __restrict__ sites
 #define GSDF_RM_SITES_ARG , sites
 #else
@@ -101,8 +121,14 @@ static __device__ __forceinline__ void gsdf_loop_note(int loop, int walked);
 #include "gsdf_tree.cuh"
 #include "gsdf_params.cuh"
 #include "gsdf_raymarch.cuh"
+#ifndef GSDF_NSITES
+#define GSDF_NSITES 0
+#endif
 #ifndef GSDF_NLOOPS
 #define GSDF_NLOOPS 0
+#endif
+#ifndef GSDF_NPOLYGONS
+#define GSDF_NPOLYGONS 0
 #endif
 
 namespace {
@@ -114,15 +140,22 @@ constexpr int kBX = 16, kBY = 8;  // the box filter's blocks
 constexpr int kMaxDevices = 64;
 
 #ifdef GSDF_RM_COUNT_SITES
-static_assert(GSDF_NSITES > 0, "the counting form is built for trees with short-circuit sites");
+static_assert(GSDF_NSITES + GSDF_NPOLYGONS > 0,
+              "the counting form is built for trees with short-circuit sites or polygons");
 
+constexpr int kSites = GSDF_NSITES > 0 ? GSDF_NSITES : 1;
 constexpr int kLoops = GSDF_NLOOPS > 0 ? GSDF_NLOOPS : 1;
+constexpr int kPolygons = GSDF_NPOLYGONS > 0 ? GSDF_NPOLYGONS : 1;
 
 // Each thread's visits ([0]) and skips ([1]) of each site in the current
 // tree evaluation, as gsdf_site_note counts them; and its entries ([0])
 // and members walked ([1]) of each loop, as gsdf_loop_note counts them.
-__shared__ uint32_t site_hits[GSDF_NSITES][2][kThreads];
+__shared__ uint32_t site_hits[kSites][2][kThreads];
 __shared__ uint32_t loop_hits[kLoops][2][kThreads];
+// Each warp's counts of each polygon's edge loop, as gsdf_edges_note adds
+// them: [0] lane edge evaluations, [1] of them divided, [2] warp edge
+// turns, [3] of them with a lane that divided.
+__shared__ unsigned long long edge_counts[kWarps][kPolygons][4];
 
 // A thread's tally over its warp's turns: per site [0] lane evaluations
 // that reached it, [1] of them skipped; lane 0 also [2] warp turns in
@@ -131,10 +164,14 @@ __shared__ uint32_t loop_hits[kLoops][2][kThreads];
 // lane 0 also [2] warp turns in which a lane entered it, [3] the members
 // the warp walked in them (each turn's longest walk).
 struct SiteTally {
-    unsigned long long n[GSDF_NSITES][4];
+    unsigned long long n[kSites][4];
     unsigned long long m[kLoops][4];
 
-    __device__ void start() {
+    __device__ void start(int lane) {
+        if (lane == 0)
+            for (int k = 0; k < GSDF_NPOLYGONS; ++k)
+                for (int j = 0; j < 4; ++j) edge_counts[threadIdx.x / 32][k][j] = 0;
+        __syncwarp();
 #pragma unroll
         for (int k = 0; k < GSDF_NSITES; ++k) {
             site_hits[k][0][threadIdx.x] = site_hits[k][1][threadIdx.x] = 0;
@@ -179,8 +216,9 @@ struct SiteTally {
         }
     }
 
-    // The warp's sums into sites ((GSDF_NSITES + GSDF_NLOOPS) x 4: the
-    // sites', then the loops'), once per warp.
+    // The warp's sums into sites ((GSDF_NSITES + GSDF_NLOOPS +
+    // GSDF_NPOLYGONS) x 4: the sites', the loops', then the polygons'), once
+    // per warp.
     __device__ void flush(unsigned long long* sites, int lane) {
 #pragma unroll
         for (int k = 0; k < GSDF_NSITES; ++k) {
@@ -196,6 +234,12 @@ struct SiteTally {
             if (lane == 0)
                 for (int j = 0; j < 4; ++j) atomicAdd(&sites[4 * (GSDF_NSITES + k) + j], m[k][j]);
         }
+        __syncwarp();
+        if (lane == 0)
+            for (int k = 0; k < GSDF_NPOLYGONS; ++k)
+                for (int j = 0; j < 4; ++j)
+                    atomicAdd(&sites[4 * (GSDF_NSITES + GSDF_NLOOPS + k) + j],
+                              edge_counts[threadIdx.x / 32][k][j]);
     }
 };
 #endif
@@ -233,7 +277,7 @@ raymarch_kernel(uint8_t* __restrict__ samples, int* __restrict__ evals, int* __r
     bool drained = false;
 #ifdef GSDF_RM_COUNT_SITES
     SiteTally tally;
-    tally.start();
+    tally.start(lane);
 #endif
 #pragma unroll 1
     for (;;) {
@@ -400,6 +444,19 @@ static __device__ __forceinline__ void gsdf_loop_note(int loop, int walked) {
     loop_hits[loop][0][threadIdx.x] += 1u;
     loop_hits[loop][1][threadIdx.x] += (uint32_t)walked;
 }
+
+// The lowest lane of those that ran the loop adds their counts: shared
+// atomics, since two groups of one warp's lanes may run it apart.
+static __device__ __forceinline__ void gsdf_edges_note(int polygon, int n, const GsdfEdges& e) {
+    const unsigned divided = __reduce_add_sync(e.lanes, (unsigned)e.divided);
+    if ((int)(threadIdx.x & 31) == __ffs(e.lanes) - 1) {
+        unsigned long long* c = edge_counts[threadIdx.x / 32][polygon];
+        atomicAdd(&c[0], (unsigned long long)n * __popc(e.lanes));
+        atomicAdd(&c[1], (unsigned long long)divided);
+        atomicAdd(&c[2], (unsigned long long)n);
+        atomicAdd(&c[3], (unsigned long long)e.warp_divided);
+    }
+}
 #endif
 
 // samples (aa*height, aa*width, 3) u8; out (height, width, 3) u8, the
@@ -411,8 +468,8 @@ static __device__ __forceinline__ void gsdf_loop_note(int loop, int walked) {
 // = launched). The parametric entry point also takes the parameter vector
 // (a host pointer where it goes by value, else a device pointer) and its
 // length, which must be the structure's. The counting entry point also
-// takes `sites`, (GSDF_NSITES + GSDF_NLOOPS) x 4 uint64 of device memory
-// set here to the counts of the kernel's note above.
+// takes `sites`, (GSDF_NSITES + GSDF_NLOOPS + GSDF_NPOLYGONS) x 4 uint64 of
+// device memory set here to the counts of the kernel's note above.
 #if defined(GSDF_RM_COUNT_SITES)
 extern "C" int gsdf_raymarch_sites(uint8_t* samples, uint8_t* out, int* evals, int* queue,
                                    const float* cam, int width, int height, int steps,
@@ -453,8 +510,8 @@ extern "C" int gsdf_raymarch(uint8_t* samples, uint8_t* out, int* evals, int* qu
     rc = (int)cudaMemsetAsync(queue, 0, sizeof(int), s);
     if (rc != 0) return rc;
 #ifdef GSDF_RM_COUNT_SITES
-    rc = (int)cudaMemsetAsync(sites, 0, (GSDF_NSITES + GSDF_NLOOPS) * 4 * sizeof(unsigned long long),
-                              s);
+    rc = (int)cudaMemsetAsync(
+        sites, 0, (GSDF_NSITES + GSDF_NLOOPS + GSDF_NPOLYGONS) * 4 * sizeof(unsigned long long), s);
     if (rc != 0) return rc;
 #endif
     raymarch_kernel<<<blocks, kThreads, 0, s>>>(samples, evals, queue, rw, rh, (int)n_ids, steps,

@@ -27,12 +27,15 @@ Short circuits. A tree's baked source may return a Difference's minuend
 before it evaluates a subtrahend that cannot change the result, and skip a
 union's member whose point bound the members run before it undercut
 (codegen/cuda.py), and walk only the members of a translate-group loop
-that a bin table lists near the point. `count_short_circuits` runs K8's
-counting form on such a tree (csrc/raymarch_sites.cu, "raymarch_sites", a
-library of its own around the same generated code): the same image and
-evaluations, and per site how often the skip engaged and per loop how many
-members it walked, added to SHORT_CIRCUITS. `raymarch`, with or without
-evals, runs K8 itself, which counts nothing.
+that a bin table lists near the point; a polygon's edge divides only
+where the clamp does not decide (core/primitives2.py::Polygon2D).
+`count_short_circuits` runs K8's counting form on such a tree
+(csrc/raymarch_sites.cu, "raymarch_sites", a library of its own around the
+same generated code): the same image and evaluations, and per site how
+often the skip engaged and per loop how many members it walked, added to
+SHORT_CIRCUITS, and per polygon how many edges divided, added to
+EDGE_DIVISIONS. `raymarch`, with or without evals, runs K8 itself, which
+counts nothing.
 
 The march. Every call that returns evaluations (`raymarch(...,
 evals=True)`, on the card or its plain version on the CPU, and
@@ -49,7 +52,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..codegen.cuda import tree_loops, tree_sites
+from ..codegen.cuda import tree_loops, tree_polygons, tree_sites
 from ..core import mathx as mx
 from ..kernels import build, check_out, entry_device
 
@@ -71,7 +74,17 @@ _f32 = np.float32
 SHORT_CIRCUITS: dict = {}
 _SITE_COUNTS = ("lanes", "lane_skips", "turns", "turn_skips")
 _LOOP_COUNTS = ("entries", "walked", "turns", "turn_walked")
-_sites: dict = {}  # tree hash -> (tree_sites(tree), tree_loops(tree))
+#: what K8's counting launches saw at each polygon's edge loop, summed over
+#: calls since the last clear, by the polygon's function (codegen.cuda's
+#: Codegen.polygons): {"edges": the loop's length, "lanes": lane edge
+#: evaluations, "lane_divisions": of them those that divided, "turns": warp
+#: edge turns (one a group of lanes that ran the loop together, an edge),
+#: "turn_divisions": of them those in which a lane divided}. Kept apart from
+#: SHORT_CIRCUITS, whose every entry is a site or loop that skips work
+EDGE_DIVISIONS: dict = {}
+_EDGE_COUNTS = ("lanes", "lane_divisions", "turns", "turn_divisions")
+# tree hash -> (tree_sites(tree), tree_loops(tree), tree_polygons(tree))
+_sites: dict = {}
 #: the frames, their rays (supersamples) and the rays' tree evaluations
 #: (march steps and the 5 of shading) of every call that returned
 #: evaluations, summed
@@ -227,7 +240,7 @@ def raymarch_plain(tree, camera, width, height, steps, relax, aa, device, evals=
 def _tree_sites(tree) -> tuple:
     key = tree.tree_hash()
     if key not in _sites:
-        _sites[key] = (tree_sites(tree), tree_loops(tree))
+        _sites[key] = (tree_sites(tree), tree_loops(tree), tree_polygons(tree))
     return _sites[key]
 
 
@@ -241,6 +254,22 @@ def loops(tree) -> list:
     """The bin-table loops of the 3D tree's baked source
     (codegen.cuda.tree_loops), kept per tree hash."""
     return _tree_sites(tree)[1]
+
+
+def polygons(tree) -> list:
+    """The polygons' edge loops of the 3D tree's baked source
+    (codegen.cuda.tree_polygons), kept per tree hash."""
+    return _tree_sites(tree)[2]
+
+
+def edge_division_shares() -> dict:
+    """{polygon: {"edges", "lane_share", "warp_share"}} from
+    EDGE_DIVISIONS: the share of lane edge evaluations that divided, and of
+    warp edge turns in which a lane divided (None where none ran)."""
+    return {fn: {"edges": c["edges"],
+                 "lane_share": c["lane_divisions"] / c["lanes"] if c["lanes"] else None,
+                 "warp_share": c["turn_divisions"] / c["turns"] if c["turns"] else None}
+            for fn, c in EDGE_DIVISIONS.items()}
 
 
 def short_circuit_shares() -> dict:
@@ -277,13 +306,15 @@ def raymarch(tree, camera, width, height, steps, relax, aa, device, parametric=F
 
 
 def count_short_circuits(tree, camera, width, height, steps, relax, aa, device):
-    """K8's counting form on the 3D `tree`'s short-circuit sites: the
-    image and evaluations of raymarch(..., evals=True), and per site the
-    lane evaluations and warp turns that reached it and that skipped its
-    function, and per bin-table loop the members walked, added to
-    SHORT_CIRCUITS, and the evaluations to MARCH (one synchronisation). On
-    a tree with no site, K8 itself and nothing counted but MARCH. A card's:
-    the plain version has no warps."""
+    """K8's counting form on the 3D `tree`'s short-circuit sites and
+    polygons: the image and evaluations of raymarch(..., evals=True), and
+    per site the lane evaluations and warp turns that reached it and that
+    skipped its function, and per bin-table loop the members walked, added
+    to SHORT_CIRCUITS; per polygon's edge loop the lane edge evaluations
+    and warp edge turns and those that divided, added to EDGE_DIVISIONS;
+    and the evaluations to MARCH (one synchronisation). On a tree with
+    neither, K8 itself and nothing counted but MARCH. A card's: the plain
+    version has no warps."""
     if entry_device(device).type == "cpu":
         raise ValueError("the short-circuit counter is K8's: it needs a CUDA device")
     return _raymarch(tree, camera, width, height, steps, relax, aa, device, False, True,
@@ -301,8 +332,8 @@ def _raymarch(tree, camera, width, height, steps, relax, aa, device, parametric,
     if device.type == "cpu":
         out = raymarch_plain(tree, cam, width, height, steps, relax, aa, device, evals)
         return _marched(*out) if evals else out
-    counted, looped = _tree_sites(tree) if count else ([], [])
-    lib = build(tree, "raymarch_sites" if counted else "raymarch", parametric)
+    counted, looped, edged = _tree_sites(tree) if count else ([], [], [])
+    lib = build(tree, "raymarch_sites" if counted or edged else "raymarch", parametric)
     out = torch.empty((height, width, 3), dtype=torch.uint8, device=device)
     samples = out if aa == 1 else torch.empty((height * aa, width * aa, 3), dtype=torch.uint8,
                                               device=device)
@@ -312,9 +343,9 @@ def _raymarch(tree, camera, width, height, steps, relax, aa, device, parametric,
     queue = torch.empty(1, dtype=torch.int32, device=device)  # the kernel's ray counter
     args = (samples.data_ptr(), out.data_ptr(), None if n_evals is None else n_evals.data_ptr(),
             queue.data_ptr(), cam.ctypes.data, width, height, steps, float(_f32(relax)), aa)
-    if counted:
-        counts = torch.empty((len(counted) + len(looped), len(_SITE_COUNTS)), dtype=torch.int64,
-                             device=device)
+    if counted or edged:
+        counts = torch.empty((len(counted) + len(looped) + len(edged), len(_SITE_COUNTS)),
+                             dtype=torch.int64, device=device)
         lib.launch("raymarch_sites", device, *args, counts.data_ptr())
         rows = counts.tolist()
         for (site, sub, lo), row in zip(counted, rows):
@@ -327,6 +358,10 @@ def _raymarch(tree, camera, width, height, steps, relax, aa, device, parametric,
             total = SHORT_CIRCUITS.setdefault(loop, {"loop": member, "members": n,
                                                      **dict.fromkeys(_LOOP_COUNTS, 0)})
             for k, v in zip(_LOOP_COUNTS, row):
+                total[k] += v
+        for (fn, n), row in zip(edged, rows[len(counted) + len(looped):]):
+            total = EDGE_DIVISIONS.setdefault(fn, {"edges": n, **dict.fromkeys(_EDGE_COUNTS, 0)})
+            for k, v in zip(_EDGE_COUNTS, row):
                 total[k] += v
     else:
         lib.launch("raymarch", device, *args, tree=tree)

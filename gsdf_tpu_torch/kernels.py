@@ -161,7 +161,8 @@ LIBRARIES = {
     "prune": ("tile_prune.cu", "tile_atlas.cu"),  # K6c + K6a
     "dc": ("dc_mesh.cu",),  # K5
     "raymarch": ("raymarch.cu",),  # K8
-    # K8's counting form, built only for a tree with short-circuit sites
+    # K8's counting form, built only for a tree with short-circuit sites or
+    # polygons
     "raymarch_sites": ("raymarch_sites.cu",),
 }
 #: the tree-independent kernels, each a library of its own (csrc/<name>.cu)

@@ -30,7 +30,8 @@ Last, the raymarcher: K8 and K8p against their plain version on every
 tree at aa 1 and 2 (every pixel and every ray's evaluation count), K8p
 with another tree's values through one library, one library across
 frame sizes, steps and aa, the showerhead's short-circuit sites (K8 and
-its counting form at the viewer's rest frame, the counter),
+its counting form at the viewer's rest frame, the counter), a polygon's
+edge divisions against a recount from the plain's evaluations,
 the launch's argument checks, the entry
 points' default device, the GEB sculpture's viewer frames against the
 CPU's, the viewer's frames with no build after the first, and pipelined
@@ -1202,6 +1203,52 @@ def test_raymarch_loop_walks(cuda_device):
     share = rk.short_circuit_shares()[loop]
     assert 0 < c["entries"] < int(evals.sum()) and 0 < c["turns"], c
     assert 0 < share["lane_members"] <= share["warp_members"] <= longest < n, (share, longest)
+
+
+def test_raymarch_edge_divisions(cuda_device):
+    """A polygon's edge loop divides only where 0 < num < ee. On an
+    extruded polygon, a tree with no site, K8 and the plain version march
+    the same evaluations: the counting form equals plain in every pixel and
+    evaluation count, and its EDGE_DIVISIONS lane counts equal a recount
+    from the plain's own evaluations (each runs every edge; those with 0 <
+    num < ee divide, num in the plain's float32 operations). The warp
+    counts bound the lanes', and K8 itself counts nothing."""
+    from gsdf_tpu_torch.eval import ray_kernels as rk
+
+    a = np.linspace(0, 2 * np.pi, 13)[:-1]
+    r = 1.0 + 0.3 * np.cos(3 * a)
+    poly = Builder().new_polygon(np.stack([r * np.cos(a), r * np.sin(a)], axis=1))
+    tree = Builder().extrude(poly, 0.8)
+    assert rk.sites(tree) == [] and rk.loops(tree) == []
+    (fn, n), = rk.polygons(tree)
+    args = _frame_args(tree, 64, 48, 1, 196, cuda_device)
+    rk.EDGE_DIVISIONS.clear()
+    rk.raymarch(tree, *args, evals=True)
+    torch.cuda.synchronize()
+    assert rk.EDGE_DIVISIONS == {}
+    cimg, evals = rk.count_short_circuits(tree, *args)
+    seen, distance = [], poly.distance
+    poly.distance = lambda p: (seen.append(p.cpu().numpy()), distance(p))[1]
+    try:
+        ref, ref_evals = rk.raymarch_plain(tree, *args, evals=True)
+    finally:
+        del poly.distance
+    assert torch.equal(cimg, ref) and torch.equal(evals, ref_evals)
+    p = np.concatenate(seen)
+    assert len(p) == int(evals.sum())
+    v1x, v1y, v2x, v2y = (poly._edges()[:, i] for i in range(4))
+    ex, ey = v2x - v1x, v2y - v1y
+    ee = ex * ex + ey * ey
+    num = (p[:, :1] - v1x) * ex + (p[:, 1:2] - v1y) * ey
+    c = rk.EDGE_DIVISIONS[fn]
+    assert c["edges"] == n == len(ex)
+    assert c["lanes"] == n * len(p)
+    assert c["lane_divisions"] == int(((num > 0) & (num < ee)).sum())
+    assert 0 < c["lane_divisions"] < c["lanes"] <= 32 * c["turns"]
+    assert 0 < c["turn_divisions"] <= c["lane_divisions"] <= 32 * c["turn_divisions"]
+    assert c["turn_divisions"] < c["turns"]
+    share = rk.edge_division_shares()[fn]
+    assert 0 < share["lane_share"] < 1 and 0 < share["warp_share"] < 1, share
 
 
 def test_raymarch_one_library_per_tree(cuda_device):

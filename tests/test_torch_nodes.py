@@ -44,6 +44,7 @@ from gsdf_tpu_torch.codegen.cuda import (Codegen, bin_table, lit, tree_loops, tr
 from gsdf_tpu_torch.convert import NODE_TYPES, from_reference_tree
 from gsdf_tpu_torch.core import mathx as mx
 from gsdf_tpu_torch.core.node import radial_at
+from gsdf_tpu_torch.core.primitives2 import Polygon2D
 from gsdf_tpu_torch.core.wrappers import with_bounds as torch_with_bounds
 from gsdf_tpu_torch.forge import threads as torch_threads
 from gsdf_tpu_torch.geometry.boxes import Box as TorchBox
@@ -580,6 +581,132 @@ def test_codegen_2d_root_matches_plain_torch(name, host_kernels):
     np.testing.assert_array_equal(got < 0, ref < 0)
 
 
+class _DividingPolygon2D(Polygon2D):
+    """A Polygon2D whose emitted edge loop divides at every edge, as the
+    loop did before its division went behind the clamp: the oracle of the
+    emitted C where the plain's quotient is NaN (the plain's torch.clamp
+    and torch.minimum carry a NaN on, fminf and fmaxf drop it)."""
+
+    def emit_cuda(self, cg) -> str:
+        edges = self._edges()
+        arr = cg.array(self, edges)
+        return (
+            "float d = INFINITY;\n"
+            "int nflips = 0;\n"
+            f"for (int e = 0; e < {len(edges)}; ++e) {{\n"
+            f"    const float* v = {arr} + 4 * e;\n"
+            "    float ex = v[2] - v[0];\n"
+            "    float ey = v[3] - v[1];\n"
+            "    float wx = px - v[0];\n"
+            "    float wy = py - v[1];\n"
+            "    float ee = ex * ex + ey * ey;\n"
+            "    float h = fminf(fmaxf((wx * ex + wy * ey) / ee, 0.0f), 1.0f);\n"
+            "    float bx = wx - h * ex;\n"
+            "    float by = wy - h * ey;\n"
+            "    d = fminf(d, bx * bx + by * by);\n"
+            "    bool b1 = py >= v[1];\n"
+            "    bool b2 = py < v[3];\n"
+            "    bool b3 = ex * wy > ey * wx;\n"
+            "    nflips += ((b1 && b2 && b3) || (!b1 && !b2 && !b3)) ? 1 : 0;\n"
+            "}\n"
+            "return ((nflips % 2 == 1) ? -1.0f : 1.0f) * sqrtf(d);"
+        )
+
+
+#: polygons at the edge loop's corners besides the two recipes: a repeated
+#: vertex (ee = 0, num = 0 everywhere), an edge whose ee underflows to 0
+#: while num need not be 0, and edges whose ee overflows to +inf
+EDGE_POLYGONS = {
+    "repeated-vertex": [[0.0, 0.0], [1.0, 0.0], [1.0, 0.0], [0.5, 1.0]],
+    "underflow-edge": [[0.0, 0.0], [1e-30, 0.0], [1.0, 0.5], [0.0, 1.0]],
+    "huge-vertices": [[-1e20, -1e20], [1e20, -1e20], [0.0, 1e20]],
+}
+
+
+def _edge_num(edges, p):
+    """(N, V) float32 num = wx ex + wy ey of each point at each edge, and
+    (V,) ee, in the plain's float32 operations."""
+    v1x, v1y, v2x, v2y = (edges[:, i] for i in range(4))
+    with np.errstate(all="ignore"):
+        ex, ey = v2x - v1x, v2y - v1y
+        ee = ex * ex + ey * ey
+        wx, wy = p[:, :1] - v1x, p[:, 1:] - v1y
+        return wx * ex + wy * ey, ee
+
+
+def _edge_points(poly):
+    """Adversarial points of a polygon's edge loop: random points of its
+    box, its vertices, its edges' midpoints, points on each edge's
+    perpendiculars through its two ends at which num is exactly 0 or
+    exactly ee (py stepped ulp by ulp), NaN and infinite coordinates,
+    large, tiny and signed-zero ones."""
+    f = np.float32
+    edges = poly._edges()
+    out = [points(poly, n=256, seed=7), poly.vert, (edges[:, :2] + edges[:, 2:]) * f(0.5)]
+    steps = np.arange(-64, 65, dtype=np.int32)
+    with np.errstate(all="ignore"):
+        for v1x, v1y, v2x, v2y in edges:
+            ex, ey = v2x - v1x, v2y - v1y
+            for x0, y0, exact in ((v1x, v1y, "zero"), (v2x, v2y, "ee")):
+                for s in f([0.25, 0.5, 1.0, 1.5, 3.0]):
+                    px, py0 = x0 - s * ey, y0 + s * ex
+                    if not np.isfinite(px) or not np.isfinite(py0) or py0 == 0:
+                        continue
+                    py = (np.full(steps.shape, py0).view(np.int32) + steps).view(f)
+                    cand = np.stack([np.full(py.shape, px), py], axis=1)
+                    num, ee = _edge_num(np.stack([[v1x, v1y, v2x, v2y]]), cand)
+                    out.append(cand[num[:, 0] == (0 if exact == "zero" else ee[0])])
+    inf, nan = np.inf, np.nan
+    out.append(np.array([[nan, 0], [0, nan], [nan, nan], [inf, 0], [-inf, 0], [0, inf],
+                         [0, -inf], [inf, inf], [inf, -inf], [-inf, inf], [-inf, -inf],
+                         [inf, nan], [1e20, 3e19], [-3e38, 1e38], [1e30, -1e30],
+                         [3.4e38, 3.4e38], [1e-40, -1e-40], [-0.0, -0.0], [0.0, -0.0]], f))
+    return np.concatenate(out).astype(f)
+
+
+@pytest.fixture(scope="module")
+def edge_loops(tmp_path_factory):
+    """The two Polygon2D recipes and EDGE_POLYGONS as 2D roots, each emitted
+    as now and with the loop that divides at every edge
+    (_DividingPolygon2D), built by g++: {name: (polygon, now, before)}."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ not installed")
+    polys = {name: NODE_CASES[name](TorchBuilder(), TORCH_KIT)
+             for name in ("Polygon2D-broadcast", "Polygon2D-scan")}
+    polys.update({name: Polygon2D(v) for name, v in EDGE_POLYGONS.items()})
+    trees = {}
+    for name, poly in polys.items():
+        trees[name], trees[f"{name}/before"] = poly, _DividingPolygon2D(poly.vert)
+    runs = _host_build(tmp_path_factory.mktemp("edges"), trees)
+    return {name: (poly, runs[name, "on"], runs[f"{name}/before", "on"])
+            for name, poly in polys.items()}
+
+
+@pytest.mark.parametrize("name", ["Polygon2D-broadcast", "Polygon2D-scan", *EDGE_POLYGONS])
+def test_edge_loop_bit_equal_at_adversarial_points(name, edge_loops):
+    """The emitted edge loop, which divides only where 0 < num < ee, equals
+    the loop that divides at every edge bit for bit at every adversarial
+    point (_edge_points), and the plain Polygon2D bit for bit wherever the
+    plain gives no NaN: the recipes at every point with finite coordinates.
+    The points reach all three ways of an edge: num <= 0 or NaN, num >= ee,
+    and the division between; and num == 0 and num == ee exactly."""
+    poly, now, before = edge_loops[name]
+    assert "GSDF_EDGE(0, num > 0.0f && " in tree_source(poly)
+    assert ("isinf(ee)" in tree_source(poly)) == (name == "huge-vertices")
+    p = _edge_points(poly)
+    num, ee = _edge_num(poly._edges(), p)
+    shortcut = (num <= 0) | np.isnan(num) | (num >= ee)
+    assert (num == 0).any() and (num == ee).any() and (num >= ee).any()
+    assert (num <= 0).any() and np.isnan(num).any()
+    assert (~shortcut).any() or name == "repeated-vertex"
+    got, old, ref = now(p), before(p), torch_distance(poly, p)
+    np.testing.assert_array_equal(got.view(np.uint32), old.view(np.uint32))
+    plain = ~np.isnan(ref)
+    np.testing.assert_array_equal(got[plain].view(np.uint32), ref[plain].view(np.uint32))
+    if name.startswith("Polygon2D"):
+        assert plain[np.isfinite(p).all(axis=1)].all()
+
+
 def test_tree_source_states_ndim():
     for tree, ndim in ((TorchBuilder().new_sphere(1.0), 3), (TorchBuilder().new_circle(1.0), 2)):
         src = tree_source(tree)
@@ -589,8 +716,11 @@ def test_tree_source_states_ndim():
 
 # --- short circuits: a Difference skips a subtrahend that cannot change it
 #: sha256 (first 16 hex digits) of each codegen tree's source (baked,
-#: parametric) as it was before short circuits. A baked source with sites
-#: must read so with its site lines taken out; every other source as it is.
+#: parametric) as it was before short circuits, with each polygon's edge
+#: loop as it is now (EDGE_LOOP_BEFORE: the trees with a Polygon2D before
+#: their loop divided only where the clamp does not decide). A baked source
+#: with sites must read so with its site lines taken out; every other
+#: source as it is.
 SOURCE_HASHES = {
     "Cylinder": ("10f03a176ff868ed", "0ac1f57f098c1cfb"),
     "Cylinder-rounded": ("581c0ba9ce743605", "212b7271e9dbcb2e"),
@@ -600,12 +730,12 @@ SOURCE_HASHES = {
     "Intersection": ("52b7af794499bc82", "ba5dd21fcd1750ee"),
     "SmoothUnion": ("2595fa82a8dc58cf", "e9106160bc2f1089"),
     "OpUnion": ("83beae3e616087d3", "f553600a12c91738"),
-    "Polygon2D-broadcast": ("5efb84a3055c5e90", "b8813c5ea154903e"),
-    "Polygon2D-broadcast/2d": ("e0b636e2cab04022", "f2168c438ab78257"),
-    "Polygon2D-scan": ("ad9fc95c219c1d45", "013effcd17484222"),
-    "Polygon2D-scan/2d": ("ce221994cc9b036c", "8a217d76fbbe4e6e"),
-    "ScrewNode": ("191cf7400db9036a", "acc98ca85ddb47b2"),
-    "ScrewNode-tapered": ("27ff3e2ab622a891", "f2b1b0045ee3b294"),
+    "Polygon2D-broadcast": ("6f72f121ec0a82e0", "9f6de220867c75df"),
+    "Polygon2D-broadcast/2d": ("59ce07387e4d288c", "41870dc3063cd1b4"),
+    "Polygon2D-scan": ("e32c5e6534bc58cf", "33934bf68b4a9f36"),
+    "Polygon2D-scan/2d": ("071cd4c21ddd9b01", "b12c4a2994e83533"),
+    "ScrewNode": ("d36f5236b1589314", "101c7b265fef9f63"),
+    "ScrewNode-tapered": ("a912dda35687803b", "c6f9cd6ecb1997c5"),
     "Sphere": ("561b08d40fa6e5dd", "02be0c2b6d03c1ec"),
     "BoxShape": ("706b113d82a8d86f", "20d16226157d0066"),
     "BoxShape-rounded": ("6c5127a733c1123a", "20d16226157d0066"),
@@ -681,10 +811,28 @@ SOURCE_HASHES = {
     "BoundsOverride3": ("80212f680c140e8c", "07352b39e1a796f0"),
     "BoundsOverride2": ("2bb67452fdaecd74", "0969c1ad56e02e49"),
     "BoundsOverride2/2d": ("a8ec44fd267b0aa3", "cc0843b3a009585d"),
+    "flange": ("11e4f2361daa0f5c", "1ca24b1a66bd50c6"),
+    "showerhead": ("73e6fb7a1923a757", "940fb4f67356cd76"),
+    "bolt": ("b981e77cd4633dce", "91629d5ba9eab1bf"),
+    "knurled": ("be0af495114e2bb7", "3b9ff7918baa2964"),
+    "nine-types": ("716e7eb13d25d401", "6bd7646ea04c91e2"),
+    "every-type": ("bcab8a06caf61801", "2dcdcb5cb860f9c4"),
+    "geb": ("7893a2073e2fdd25", "926641c3ee449830"),
+}
+
+
+#: SOURCE_HASHES' entries of the trees with a Polygon2D before the edge
+#: loop divided only where the clamp does not decide h
+EDGE_LOOP_BEFORE = {
+    "Polygon2D-broadcast": ("5efb84a3055c5e90", "b8813c5ea154903e"),
+    "Polygon2D-broadcast/2d": ("e0b636e2cab04022", "f2168c438ab78257"),
+    "Polygon2D-scan": ("ad9fc95c219c1d45", "013effcd17484222"),
+    "Polygon2D-scan/2d": ("ce221994cc9b036c", "8a217d76fbbe4e6e"),
+    "ScrewNode": ("191cf7400db9036a", "acc98ca85ddb47b2"),
+    "ScrewNode-tapered": ("27ff3e2ab622a891", "f2b1b0045ee3b294"),
     "flange": ("d63a7184aab939ea", "ed705940a69c8174"),
     "showerhead": ("8fa0c8b449602bcd", "0fc4cae09fd54662"),
     "bolt": ("cca51a5a82f33a38", "278f62f80189703e"),
-    "knurled": ("be0af495114e2bb7", "3b9ff7918baa2964"),
     "nine-types": ("d907d8e881c26278", "ee7f337c7fe46d4d"),
     "every-type": ("97f575bfd40c6d68", "f02c74e35ab23b17"),
     "geb": ("b5ef4e9f45079856", "1338a43df52b676c"),
@@ -734,6 +882,23 @@ def test_source_unchanged_but_for_sites(name, codegen_trees, monkeypatch):
         src = tree_source(tree)
     assert "_lo(" not in src
     assert _digest(_without_sites(src)) == baked
+
+
+@pytest.mark.parametrize("name", list(SOURCE_HASHES))
+def test_edge_loop_changed_only_polygon_sources(name, codegen_trees):
+    """The edge loop changed the sources of the trees with a Polygon2D, in
+    both modes, and of no other tree: a polygon-free tree (the knurled
+    part's among them) keeps its SOURCE_HASHES entry of before, which
+    test_source_unchanged_but_for_sites holds."""
+    tree = codegen_trees[name]
+    polygon = any(type(n).__name__ == "Polygon2D" for n in tree.visit_bfs())
+    assert polygon == (name in EDGE_LOOP_BEFORE)
+    assert (name == "knurled") <= (not polygon)
+    for src in (tree_source(tree), tree_source(tree, parametric=True)):
+        assert ("GSDF_EDGES(0);" in src) == polygon
+        assert ("#define GSDF_NPOLYGONS" in src) == polygon
+    if polygon:
+        assert all(a != b for a, b in zip(SOURCE_HASHES[name], EDGE_LOOP_BEFORE[name]))
 
 
 #: trees whose root declares a finite lower bound beyond NODE_CASES' own:
@@ -1282,9 +1447,11 @@ def test_bin_table_lists_every_member_in_reach(name):
 
 #: sha256 (first 16 hex digits) of the whole baked source of each part
 #: with no Difference over a translate-group loop and no Cylinder as a union
-#: member, as it was before threshold forms and the Cylinder's point bound
-BAKED_UNCHANGED = {"flange": "e07d0e0ecdf22ede", "bolt": "cca51a5a82f33a38",
-                   "knurled": "be0af495114e2bb7", "geb": "b046999608c0592e"}
+#: member, as it was before threshold forms and the Cylinder's point bound,
+#: with each polygon's edge loop as it is now (flange, bolt and GEB; the
+#: knurled part has none, and its source is as it was)
+BAKED_UNCHANGED = {"flange": "3120c23f1af7f6f9", "bolt": "b981e77cd4633dce",
+                   "knurled": "be0af495114e2bb7", "geb": "386299dead8d065f"}
 
 
 @pytest.mark.parametrize("name", list(BAKED_UNCHANGED))
